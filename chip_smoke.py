@@ -1,0 +1,397 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``repro_torch``) on one card.
+
+Run from the repository root on a machine with a CUDA device:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
+
+  1. the card (``nvidia-smi`` name and power limit) and the kernels' build,
+     from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, at once);
+  2. the Buzen kernel against its plain PyTorch version (B = 131 rows,
+     S = 100 and 101 stations with padded ``-inf`` columns, m_max = 132,
+     rtol/atol 2e-5) and against the float64 DP on Table 1 (rtol 3e-5,
+     atol 3e-4);
+  3. the event kernel against its plain version: 6 lanes, n = 100,
+     m_max = 132, 2,000 events from the same pre-drawn blocks, exponential
+     and deterministic laws, with and without a CS station — bitwise;
+  4. the main path at the paper's size (Table 1, n = 100): the closed forms
+     in float64, ``time_optimal(m_max=132, steps=200)`` on the ``kernel``
+     and ``torch`` Buzen backends (the sweep values within rtol 1e-4), and
+     ``simulate_stats_lanes`` at the optimum on 6 seed lanes (4,000 updates
+     after 400 of warm-up) on the ``kernel`` and ``batched`` backends
+     (bitwise equal; lane-mean throughput within 10% of Prop. 4).  The
+     kernels' launch counters are zeroed just before this phase and read
+     just after it: each kernel must have launched;
+  5. each kernel's time and its plain version's time at the main path's
+     shapes, beside the least time the card could take: the device time per
+     call from a ``torch.profiler`` trace (the sum of the CUDA kernels'
+     device time), and the time per call between CUDA events, which also
+     counts the host's launch overhead;
+  6. the device-busy share of short windows of the sweep and the lane
+     simulation on each backend (profiler device time over wall time), and
+     of the ``kernel`` lane simulation with a power profile (the energy
+     integral on; its trajectory must equal the run without power).
+
+The line before the last is the ``{"kernels": [...]}`` record; the last line
+is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
+# cores and HBM3 bandwidth, both at the full 700 W power limit
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# per DP term, two passes: mul-add and max, then mul-add, subtract, exp, add
+BUZEN_OPS_PER_TERM = 8
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean time per call of ``fn()`` between CUDA events over ``reps``
+    calls (includes any time the device waits for the host's launches)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time per call of ``fn()``: the CUDA kernels' device time
+    in a ``torch.profiler`` trace of ``reps`` calls (0.0 if the profiler
+    recorded no device activity).  Only device activity is traced: a trace
+    of the host's operations costs minutes to process for the lane
+    simulation's hundreds of thousands of small operations."""
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    warnings.filterwarnings("ignore", message="Warning: Profiler clears")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    return total_us / 1e3 / reps
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from repro_torch.core.batched import batch_log_normalizing_constants
+    from repro_torch.core.complexity import wallclock_time
+    from repro_torch.core.energy import PowerProfile
+    from repro_torch.core.events import (EventState, draw_event_blocks,
+                                         init_state, run_event_blocks,
+                                         stack_blocks, stack_lanes)
+    from repro_torch.core.jackson import expected_relative_delay, throughput
+    from repro_torch.core.optimize import time_optimal
+    from repro_torch.kernels import build
+    from repro_torch.kernels import buzen as kb
+    from repro_torch.kernels import events as ke
+    from repro_torch.scenario.spec import (PAPER_CLUSTERS_TABLE1,
+                                           LearningSpec, NetworkSpec)
+    from repro_torch.sim import simulate_stats_lanes
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+
+    # -- 1. the card and the build ----------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s "
+        f"({torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda})")
+
+    spec = NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1)
+    net = spec.params(device=dev)
+    n = spec.n
+    consts = LearningSpec().consts
+    rng = np.random.default_rng(0)
+
+    # -- 2. the Buzen kernel against its plain version --------------------
+    M = 132
+    buzen_err = 0.0
+    for S in (100, 101):
+        lr = np.log(rng.dirichlet(np.ones(S), size=131)) - np.log(
+            rng.uniform(0.1, 12.0, (131, S)))
+        lr[::7, -3:] = -np.inf  # padded (load-0) stations
+        lg = np.log(rng.uniform(0.05, 5.0, 131))
+        a = torch.as_tensor(lr, device=dev)
+        b = torch.as_tensor(lg, device=dev)
+        got = kb.buzen_batched(a, b, M)
+        want = kb.buzen_batched_plain(a, b, M)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        check(bool((err <= 2e-5 + 2e-5 * want.abs()).all()),
+              f"buzen kernel vs plain (S={S}): max err {float(err.max())}")
+        buzen_err = max(buzen_err, float(err.max()))
+    p_rows = torch.as_tensor(np.vstack([np.full(n, 1.0 / n),
+                                        rng.dirichlet(np.full(n, 5.0), 7)]),
+                             device=dev)
+    f64 = batch_log_normalizing_constants(net, p_rows, M, backend="torch")
+    k32 = batch_log_normalizing_constants(net, p_rows, M, backend="kernel")
+    err = (k32 - f64).abs()
+    check(bool((err <= 3e-4 + 3e-5 * f64.abs()).all()),
+          f"buzen kernel vs float64 DP: max err {float(err.max())}")
+    log(f"phase 2: buzen kernel == plain within 2e-5 (max abs err "
+        f"{buzen_err:.3g}); vs float64 DP max abs err {float(err.max()):.3g}")
+
+    # -- 3. the event kernel against its plain version ---------------------
+    K, EV = 6, 2000
+    event_err = 0.0
+    for law in ("exponential", "deterministic"):
+        for mu_cs in (None, 5.0):
+            lanes = []
+            for _ in range(K):
+                prm = net._replace(p=torch.as_tensor(
+                    rng.dirichlet(np.full(n, 5.0)), device=dev))
+                lanes.append(prm if mu_cs is None else prm.with_cs(mu_cs))
+            gens = [torch.Generator(device=dev).manual_seed(100 + i)
+                    for i in range(K)]
+            st0 = stack_lanes([init_state(prm, M, g, m_max=M,
+                                          distribution=law)
+                               for prm, g in zip(lanes, gens)])
+            blocks = stack_blocks([draw_event_blocks(prm, g, EV,
+                                                     distribution=law)
+                                   for prm, g in zip(lanes, gens)])
+            lane_params = stack_lanes(lanes)
+            outs = [run_event_blocks(lane_params, st0, blocks,
+                                     distribution=law, backend=be)
+                    for be in ("kernel", "batched")]
+            torch.cuda.synchronize()
+            for name in EventState._fields:
+                x, y = getattr(outs[0], name), getattr(outs[1], name)
+                check(torch.equal(x, y),
+                      f"event kernel vs plain ({law}, cs={mu_cs}): {name}")
+            event_err = max(event_err, float(
+                (outs[0].finish - outs[1].finish).nan_to_num().abs().max()))
+            log(f"phase 3: event kernel == plain bitwise ({law}, "
+                f"mu_cs={mu_cs}, {EV} events x {K} lanes, round "
+                f"{outs[0].round.tolist()})")
+
+    # -- 4. the main path at the paper's size ------------------------------
+    kb.buzen_batched.launches = 0
+    ke.event_step_tables.launches = 0
+    t_main = time.perf_counter()
+    m0 = n
+    delays = expected_relative_delay(net, m0)
+    lam0 = throughput(net, m0)
+    tau0 = wallclock_time(net, m0, consts)
+    check(bool(torch.isfinite(delays).all()) and delays.shape == (n,),
+          "closed forms: delays")
+    check(abs(float(delays.sum()) - (m0 - 1)) <= 1e-9 * m0,
+          "closed forms: sum of delays != m - 1")
+    log(f"phase 4: closed forms at m={m0}: lambda={float(lam0):.6g}, "
+        f"E0[tau]={float(tau0):.6g}, sum E0[D]={float(delays.sum()):.12g}")
+
+    t0 = time.perf_counter()
+    res_k = time_optimal(net, consts, m_max=M, steps=200, backend="kernel")
+    torch.cuda.synchronize()
+    sweep_k_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_t = time_optimal(net, consts, m_max=M, steps=200, backend="torch")
+    torch.cuda.synchronize()
+    sweep_t_s = time.perf_counter() - t0
+    ms = np.array([m for m, _ in res_k.history])
+    vk = np.array([v for _, v in res_k.history])
+    vt = np.array([v for _, v in res_t.history])
+    check(bool(np.isfinite(vk).all()), "sweep values not finite")
+    rel = np.abs(vk - vt) / np.abs(vt)
+    tau_rel = abs(res_k.value - res_t.value) / res_t.value
+    log(f"phase 4: time_optimal kernel m*={res_k.m} tau*={res_k.value:.8g} "
+        f"({sweep_k_s:.2f} s); torch m*={res_t.m} tau*={res_t.value:.8g} "
+        f"({sweep_t_s:.2f} s); tau* rel diff {tau_rel:.3g}; sweep max rel "
+        f"diff {rel.max():.3g}; rows over 1e-4 at m = "
+        f"{ms[rel > 1e-4].tolist()}")
+    check(float(rel.max()) <= 1e-4,
+          f"kernel vs torch sweep: rel diff {rel.max()}")
+
+    p_star = net._replace(p=res_k.p.detach())
+    m_star = res_k.m
+    sims = {}
+    for be in ("kernel", "batched"):
+        t0 = time.perf_counter()
+        sims[be] = simulate_stats_lanes([p_star] * 6, [m_star] * 6, 4000,
+                                        warmup=400, seeds=range(6),
+                                        backend=be)
+        torch.cuda.synchronize()
+        log(f"phase 4: simulate_stats_lanes[{be}] "
+            f"{time.perf_counter() - t0:.2f} s")
+    for a, b in zip(sims["kernel"], sims["batched"]):
+        check(torch.equal(a, b), "simulate kernel vs batched not bitwise")
+    lam_star = float(throughput(p_star, m_star))
+    lam_sim = float(sims["kernel"].throughput.mean())
+    check(abs(lam_sim - lam_star) <= 0.10 * lam_star,
+          f"simulated throughput {lam_sim} vs Prop. 4 {lam_star}")
+    main_s = time.perf_counter() - t_main
+    launches = {"buzen": kb.buzen_batched.launches,
+                "event_step": ke.event_step_tables.launches}
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the main path never launched: {launches}")
+    log(f"phase 4: throughput at (p*, m*={m_star}): lanes "
+        f"{lam_sim:.6g} vs Prop. 4 {lam_star:.6g}; main path "
+        f"{main_s:.1f} s; launches {launches}")
+
+    # -- 5. kernel times at the main path's shapes -------------------------
+    # the Buzen kernel as the sweep calls it: rows m = 2..132 at (p*)
+    B = M - 1
+    lr = (torch.log(p_star.p) - torch.log(net.mu_c)).expand(B, n).contiguous()
+    lg = torch.log((p_star.p * (1.0 / net.mu_d + 1.0 / net.mu_u)).sum()
+                   ).expand(B).contiguous()
+    # the event kernel as the simulation calls it: 6 lanes of m* slots
+    gens = [torch.Generator(device=dev).manual_seed(200 + i) for i in range(6)]
+    lane_params = stack_lanes([p_star] * 6)
+    st = stack_lanes([init_state(p_star, m_star, g, m_max=m_star)
+                      for g in gens])
+    tbl = (st.finish, st.phase, st.client, st.seq, st.disp_round,
+           lane_params.mu_c, lane_params.mu_u,
+           torch.rand(6, 4, dtype=torch.float64, device=dev),
+           torch.stack([torch.zeros(6, dtype=torch.int32, device=dev),
+                        st.seq_ctr, st.round], dim=-1))
+    calls = {
+        "buzen": (lambda: kb.buzen_batched(lr, lg, M),
+                  lambda: kb.buzen_batched_plain(lr, lg, M), 20, 3),
+        "event_step": (lambda: ke.event_step_tables(*tbl, has_cs=False),
+                       lambda: ke.event_step_tables_plain(*tbl, has_cs=False),
+                       200, 50)}
+    times = {}
+    for name, (kern, plain, rk, rp) in calls.items():
+        times[name] = {"kernel": (device_ms(kern, rk), time_ms(kern, rk)),
+                       "plain": (device_ms(plain, rp), time_ms(plain, rp))}
+    profiled = all(t["kernel"][0] > 0 and t["plain"][0] > 0
+                   for t in times.values())
+    pick = 0 if profiled else 1  # device time when the profiler saw the card
+
+    terms = B * n * (M + 1) * (M + 2) / 2
+    bound_ops = BUZEN_OPS_PER_TERM * terms / PEAK_F32_FLOPS
+    bound_bytes = 4 * (B * n + 2 * B * (M + 1)) / PEAK_BYTES
+    Kl, Ml = st.finish.shape
+    # the five tables read and written, one rate of each rate table per
+    # lane (one 32-byte sector per gather), the scalars in, t and the
+    # descriptors out
+    ev_bytes = (2 * Kl * Ml * (8 + 4 * 4) + 2 * Kl * 32
+                + Kl * (4 * 8 + 3 * 4) + Kl * (8 + 9 * 4))
+    buzen_rec = {
+        "name": "buzen", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/buzen.cu",
+        "replaces": "src/repro/kernels/buzen.py:85",
+        "launches": launches["buzen"], "max_abs_err": buzen_err,
+        "ms": times["buzen"]["kernel"][pick],
+        "plain_ms": times["buzen"]["plain"][pick],
+        "bound_ms": 1e3 * max(bound_ops, bound_bytes),
+        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "library_ms": None}
+    event_rec = {
+        "name": "event_step", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/events.cu",
+        "replaces": "src/repro/kernels/events.py:205",
+        "launches": launches["event_step"], "max_abs_err": event_err,
+        "ms": times["event_step"]["kernel"][pick],
+        "plain_ms": times["event_step"]["plain"][pick],
+        "bound_ms": 1e3 * ev_bytes / PEAK_BYTES, "bound_by": "bytes",
+        "library_ms": None}
+    for name, shape in (("buzen", f"[{B}x{n}], m_max={M}"),
+                        ("event_step", f"[{Kl}x{Ml}], n={n}")):
+        t = times[name]
+        log(f"phase 5: {name} {shape}: kernel device {t['kernel'][0]:.4f} ms"
+            f" / between events {t['kernel'][1]:.4f} ms; plain device "
+            f"{t['plain'][0]:.4f} ms / between events {t['plain'][1]:.4f} "
+            f"ms ({card})")
+    log(f"phase 5: the record's ms are "
+        f"{'device' if profiled else 'between-event'} times")
+    # -- 6. where the main path's time goes: device-busy share -------------
+    ones = torch.ones(n, dtype=torch.float64, device=dev)
+    power = PowerProfile(P_c=2.0 * ones, P_u=ones, P_d=0.5 * ones)
+    results = {}
+    for name, fn in (
+            ("sweep[kernel] 5 Adam steps",
+             lambda: time_optimal(net, consts, m_max=M, steps=5,
+                                  backend="kernel")),
+            ("sweep[torch] 5 Adam steps",
+             lambda: time_optimal(net, consts, m_max=M, steps=5,
+                                  backend="torch")),
+            ("simulate[kernel] 6 lanes x 300 updates",
+             lambda: simulate_stats_lanes([p_star] * 6, [m_star] * 6, 300,
+                                          seeds=range(6), backend="kernel")),
+            ("simulate[batched] 6 lanes x 300 updates",
+             lambda: simulate_stats_lanes([p_star] * 6, [m_star] * 6, 300,
+                                          seeds=range(6),
+                                          backend="batched")),
+            ("simulate[kernel, power] 6 lanes x 300 updates",
+             lambda: simulate_stats_lanes([p_star] * 6, [m_star] * 6, 300,
+                                          seeds=range(6), power=power,
+                                          backend="kernel"))):
+        fn()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[name] = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        busy_ms = device_ms(fn, 1)
+        busy = (f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)"
+                if busy_ms > 0 else "not measured (no device trace)")
+        log(f"phase 6: {name}: wall {wall_ms:.1f} ms, device busy {busy}")
+    # the energy integral rides along: same trajectory, finite energy
+    plain_run = results["simulate[kernel] 6 lanes x 300 updates"]
+    power_run = results["simulate[kernel, power] 6 lanes x 300 updates"]
+    check(torch.equal(plain_run.throughput, power_run.throughput)
+          and torch.equal(plain_run.mean_queue_counts,
+                          power_run.mean_queue_counts),
+          "power changed the simulated trajectory")
+    check(bool(torch.isfinite(power_run.energy).all()
+               and (power_run.energy > 0).all()),
+          f"simulated energy {power_run.energy.tolist()}")
+
+    print(json.dumps({"kernels": [buzen_rec, event_rec]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,86 @@
+"""Build the port's objects from the numpy leaves of the JAX package's.
+
+Each function takes a mapping of field name to numpy array (what
+``{k: np.asarray(v) for k, v in obj._asdict().items()}`` gives on the JAX
+side; ``None`` for an absent optional field) and returns the port's
+``NamedTuple`` on ``device``, floats as ``dtype``.  Fields the port does
+not carry (the PRNG ``key`` of an event state, the class ``member`` of an
+event block) are ignored.  Nothing here imports ``jax`` or ``repro``.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .core.buzen import NetworkParams
+from .core.complexity import LearningConstants
+from .core.energy import PowerProfile
+from .core.events import EventBlocks, EventState
+from .core.numerics import DTYPE
+
+
+def _tensor(x, device, dtype):
+    if x is None:
+        return None
+    arr = np.array(x)  # a copy: JAX's host views are read-only
+    if arr.dtype == np.bool_:
+        return torch.as_tensor(arr, device=device)
+    if np.issubdtype(arr.dtype, np.integer):
+        return torch.as_tensor(arr.astype(np.int64), device=device).to(dtype)
+    return torch.as_tensor(arr.astype(np.float64), device=device).to(dtype)
+
+
+def network_params(leaves: Mapping, *, device="cuda",
+                   dtype=DTYPE) -> NetworkParams:
+    """``NetworkParams`` (``p, mu_c, mu_d, mu_u, mu_cs, n_active``)."""
+    f = {k: _tensor(leaves.get(k), device, dtype)
+         for k in ("p", "mu_c", "mu_d", "mu_u", "mu_cs")}
+    return NetworkParams(**f, n_active=_tensor(leaves.get("n_active"),
+                                               device, torch.int64))
+
+
+def learning_constants(leaves: Mapping) -> LearningConstants:
+    return LearningConstants(**{k: float(v) for k, v in leaves.items()})
+
+
+def power_profile(leaves: Mapping, *, device="cuda",
+                  dtype=DTYPE) -> PowerProfile:
+    return PowerProfile(**{k: _tensor(leaves.get(k), device, dtype)
+                           for k in ("P_c", "P_u", "P_d", "P_cs")})
+
+
+_STATE_INT = ("round", "seq_ctr", "client", "phase", "seq", "disp_round",
+              "warmup", "cap", "delay_cnt")
+
+
+def event_state(leaves: Mapping, *, device="cuda",
+                dtype=DTYPE) -> EventState:
+    """``EventState`` without its key; integer leaves become int32."""
+    out = {}
+    for name in EventState._fields:
+        x = leaves[name]
+        if name == "cs_busy":
+            out[name] = torch.as_tensor(np.array(x, dtype=bool),
+                                        device=device)
+        elif name in _STATE_INT:
+            out[name] = _tensor(x, device, torch.int32)
+        else:
+            out[name] = _tensor(x, device, dtype)
+    return EventState(**out)
+
+
+def event_blocks(leaves: Mapping, *, device="cuda",
+                 dtype=DTYPE) -> EventBlocks:
+    """``EventBlocks`` (routed client as int64); a JAX block without a CS
+    carries ``svc_cs = ()``, which becomes ``None``."""
+    svc_cs = leaves.get("svc_cs")
+    if svc_cs is not None and np.asarray(svc_cs).size == 0:
+        svc_cs = None
+    return EventBlocks(
+        c_new=_tensor(leaves["c_new"], device, torch.int64),
+        svc_down=_tensor(leaves["svc_down"], device, dtype),
+        up=_tensor(leaves["up"], device, dtype),
+        comp=_tensor(leaves["comp"], device, dtype),
+        svc_cs=_tensor(svc_cs, device, dtype))

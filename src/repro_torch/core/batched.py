@@ -1,0 +1,394 @@
+"""Batched (padded, traced-``m``) closed forms (port of
+``repro.core.batched``, per-client half).
+
+Where the JAX package writes each quantity for one ``(p, m, logZ)`` row
+and ``vmap``s it, the port writes the batch axis out: every function here
+takes ``params.p`` as ``[B, n]`` (rates stay ``[n]``), ``m`` as an integer
+``[B]`` tensor and ``logZ`` as ``[B, m_max + 1]``, and returns one value
+per row.  Series run to the static bound ``m_max`` and are masked by each
+row's population, so a whole ``(p, m)`` grid evaluates (and
+differentiates) in one pass.
+
+  * :func:`batch_log_normalizing_constants` — the ``[B, m_max+1]`` DP on
+    the ``"torch"`` (float64) or ``"kernel"`` (CUDA, float32 forward,
+    float64 backward) backend;
+  * ``*_padded`` — throughput, delays, ``K_eps``, wall-clock and energy
+    complexity, the joint objective, second moments, the delay Jacobian;
+  * ``make_*_objective_padded`` — objectives ``obj(p, m, logZ) -> [B]``
+    for :func:`repro_torch.core.optimize.batched_concurrency_sweep`;
+  * :func:`objective_surface` / :func:`tau_surface` — dense grids.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from .buzen import NetworkParams, get_backend, log_normalizing_constants
+from .complexity import LearningConstants
+from .energy import PowerProfile, energy_per_round
+from .jackson import _log_geom_sum
+from .numerics import DTYPE, NEG_INF, seqsum
+from .optimize import _with_p  # shared routing-replace helper
+
+
+# ---------------------------------------------------------------------------
+# padded log-Z helpers
+# ---------------------------------------------------------------------------
+
+def batch_log_normalizing_constants(params: NetworkParams,
+                                    p_batch: torch.Tensor, m_max: int, *,
+                                    backend: Optional[str] = None
+                                    ) -> torch.Tensor:
+    """``log Z_{n, 0..m_max}`` for every routing row of ``p_batch [B, n]``.
+
+    ``"kernel"`` runs the batched CUDA Buzen kernel with the CS station
+    appended as one more column; ``"torch"`` runs the float64 DP with the
+    batch as a leading axis.  ``None`` defers to the process-wide flag.
+    """
+    backend = get_backend() if backend is None else backend
+    if backend == "kernel":
+        from ..kernels.buzen import buzen_log_Z_batched
+
+        log_rho = torch.log(p_batch) - torch.log(params.mu_c)[None, :]
+        gamma = p_batch * (1.0 / params.mu_d + 1.0 / params.mu_u)[None, :]
+        log_gamma_total = torch.log(seqsum(gamma, dim=-1))
+        if params.mu_cs is not None:
+            log_load_cs = (torch.log(seqsum(p_batch, dim=-1))
+                           - torch.log(params.mu_cs))
+            log_rho = torch.cat([log_rho, log_load_cs[:, None]], dim=-1)
+        return buzen_log_Z_batched(log_rho, log_gamma_total, m_max)
+    if backend != "torch":
+        raise ValueError(f"unknown buzen backend: {backend}")
+    return log_normalizing_constants(_with_p(params, p_batch), m_max,
+                                     backend="torch")
+
+
+def _lz(logZ: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``log Z[b, idx[b, ...]]`` with ``Z[idx < 0] = 0`` (-> NEG_INF);
+    ``idx`` has the batch axis first."""
+    B = logZ.shape[0]
+    flat = idx.expand((B,) + idx.shape[1:]).reshape(B, -1)
+    out = torch.gather(logZ, 1, flat.clamp_min(0))
+    return torch.where(flat >= 0, out, NEG_INF).reshape(
+        (B,) + idx.shape[1:])
+
+
+def _padded_series_vs_Z(log_load: torch.Tensor, logZ: torch.Tensor,
+                        pop: torch.Tensor, shift: int, m_max: int,
+                        weights_log: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """``log sum_{k=1}^{pop-shift+1} w_k load^k Z[pop-shift+1-k] / Z[pop]``
+    per row, padded to ``m_max`` terms; ``log_load`` is ``[B, X]``, the
+    result ``[B, X]``."""
+    k = torch.arange(1, m_max + 1, device=logZ.device)
+    idx = pop[:, None] - shift + 1 - k[None, :]                  # [B, K]
+    zterm = _lz(logZ, idx) - _lz(logZ, pop)[:, None]             # [B, K]
+    terms = log_load[:, :, None] * k + zterm[:, None, :]        # [B, X, K]
+    if weights_log is not None:
+        terms = terms + weights_log
+    return torch.logsumexp(
+        torch.where((idx >= 0)[:, None, :], terms, NEG_INF), dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# padded closed forms (Thm 2 / Prop 4 / Thm 3 / Prop 5)
+# ---------------------------------------------------------------------------
+
+def mean_total_counts_padded(params: NetworkParams, logZ: torch.Tensor,
+                             pop: torch.Tensor, m_max: int) -> torch.Tensor:
+    """``E[sum_s X_i^s]`` per row and client at population ``pop [B]``."""
+    comp = torch.exp(_padded_series_vs_Z(params.log_rho, logZ, pop, 1, m_max))
+    is_part = params.gamma * torch.exp(
+        _lz(logZ, pop - 1) - _lz(logZ, pop))[:, None]
+    total = comp + is_part
+    if params.mu_cs is not None:
+        psum = seqsum(params.p)
+        log_load_cs = torch.log(psum) - torch.log(params.mu_cs)
+        cs_total = torch.exp(_padded_series_vs_Z(
+            log_load_cs[:, None], logZ, pop, 1, m_max))[:, 0]
+        total = total + params.p / psum[:, None] * cs_total[:, None]
+    return total
+
+
+def expected_relative_delay_padded(params: NetworkParams, m: torch.Tensor,
+                                   logZ: torch.Tensor,
+                                   m_max: int) -> torch.Tensor:
+    """``E0[D_i]`` (Thm 2 Eq 3/5) per row for concurrencies ``m [B]``."""
+    return mean_total_counts_padded(params, logZ, m - 1, m_max)
+
+
+def throughput_padded(logZ: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``lambda(p, m) = Z_{n,m-1} / Z_{n,m}`` per row."""
+    return torch.exp(_lz(logZ, m - 1) - _lz(logZ, m))
+
+
+def round_complexity_padded(params: NetworkParams, m: torch.Tensor,
+                            consts: LearningConstants, logZ: torch.Tensor,
+                            m_max: int) -> torch.Tensor:
+    """``K_eps(p, m)`` (Thm 3 Eq 9) per row.
+
+    The staleness term vanishes at ``m = 1``; the double ``where`` keeps
+    value and gradient finite there.  Under the padded-``n`` convention the
+    per-client sums are masked to the real population and the divisions run
+    on a pinned-safe ``p`` (padded entries replaced by 1), so padded rows
+    are NaN-free in the value and in the gradient.
+    """
+    n = params.active_count
+    if torch.is_tensor(n):
+        n = n.to(DTYPE)  # an integer tensor times a float would be float32
+    p = params.p
+    mask = params.active_mask
+    eps = consts.eps
+    delays = expected_relative_delay_padded(params, m, logZ, m_max)
+    if mask is not None:
+        p_safe = torch.where(mask, p, 1.0)
+        inv_np = torch.where(mask, 1.0 / (n * p_safe), 0.0)
+        stale_terms = torch.where(mask, delays / p_safe**2, 0.0)
+    else:
+        inv_np = 1.0 / (n * p)
+        stale_terms = delays / p**2
+    first = (4.0 + consts.B / eps) * seqsum(inv_np)
+    staleness = seqsum(stale_terms)
+    mf = m.to(DTYPE)
+    raw = consts.C * (mf - 1.0) / eps * staleness
+    safe = torch.where(m > 1, raw, 1.0)
+    second = torch.where(m > 1, torch.sqrt(safe), 0.0)
+    return 24.0 * consts.L * consts.delta / (n * eps) * (first + second)
+
+
+def wallclock_time_padded(params: NetworkParams, m: torch.Tensor,
+                          consts: LearningConstants, logZ: torch.Tensor,
+                          m_max: int) -> torch.Tensor:
+    """``E0[tau_eps] = K_eps / lambda`` (Prop. 4/8) per row."""
+    return (round_complexity_padded(params, m, consts, logZ, m_max)
+            / throughput_padded(logZ, m))
+
+
+def energy_complexity_padded(params: NetworkParams, m: torch.Tensor,
+                             consts: LearningConstants, power: PowerProfile,
+                             logZ: torch.Tensor, m_max: int) -> torch.Tensor:
+    """``E0[E_eps]`` (Prop. 5/9) per row."""
+    return (round_complexity_padded(params, m, consts, logZ, m_max)
+            * energy_per_round(params, power))
+
+
+def joint_objective_padded(params: NetworkParams, m: torch.Tensor,
+                           consts: LearningConstants, power: PowerProfile,
+                           rho, tau_star, e_star, logZ: torch.Tensor,
+                           m_max: int) -> torch.Tensor:
+    """Normalized rho-scalarization (Eq. 18); ``rho`` may be per row."""
+    k_eps = round_complexity_padded(params, m, consts, logZ, m_max)
+    tau = k_eps / throughput_padded(logZ, m)
+    en = k_eps * energy_per_round(params, power)
+    return rho * en / e_star + (1.0 - rho) * tau / tau_star
+
+
+# ---------------------------------------------------------------------------
+# padded second moments / delay Jacobian (Thm 2 Eq 6/4; Thm 7 Eq 24/22)
+# ---------------------------------------------------------------------------
+
+def second_moment_matrix_padded(params: NetworkParams, m: torch.Tensor,
+                                logZ: torch.Tensor,
+                                m_max: int) -> torch.Tensor:
+    """``E[S_i S_j]`` at population ``m - 1`` per row: ``[B, n, n]``;
+    padded rows/columns are exactly zero."""
+    n = params.n
+    dev = logZ.device
+    log_rho = params.log_rho                                     # [B, n]
+    gamma = params.gamma
+    mask = params.active_mask
+    lr_safe = log_rho if mask is None else torch.where(mask, log_rho, 0.0)
+    pop = m - 1
+    pop_c = pop.clamp_min(1)  # at pop <= 0 everything masks to zero
+
+    wlog = torch.log(2.0 * torch.arange(1, m_max + 1, device=dev,
+                                        dtype=DTYPE) - 1.0)
+    alpha_diag = torch.exp(_padded_series_vs_Z(log_rho, logZ, pop_c, 1,
+                                               m_max, weights_log=wlog))
+    if m_max >= 2:
+        s = torch.arange(2, m_max + 1, device=dev)               # [S]
+        d = lr_safe[:, :, None] - lr_safe[:, None, :]            # [B, n, n]
+        lgs = _log_geom_sum(d[:, None], (s - 1)[None, :, None, None])
+        log_c = s[None, :, None, None] * lr_safe[:, None, None, :] + lgs
+        zlog = (_lz(logZ, pop_c[:, None] - s[None, :])
+                - _lz(logZ, pop_c)[:, None])[:, :, None, None]
+        valid = (s[None, :] <= pop_c[:, None])[:, :, None, None]
+        if mask is not None:
+            valid = valid & (mask[:, None] & mask[None, :])
+        alpha_off = torch.exp(torch.logsumexp(
+            torch.where(valid, log_c + zlog, NEG_INF), dim=1))
+    else:
+        alpha_off = torch.zeros(log_rho.shape + (n,), dtype=DTYPE,
+                                device=dev)
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    alpha = torch.where(eye, alpha_diag[:, :, None], alpha_off)
+
+    beta2 = torch.exp(_padded_series_vs_Z(log_rho, logZ, pop_c, 2, m_max))
+    z3 = torch.exp(_lz(logZ, pop_c - 2) - _lz(logZ, pop_c))[:, None, None]
+    z2 = torch.exp(_lz(logZ, pop_c - 1) - _lz(logZ, pop_c))[:, None, None]
+    psi = (gamma[:, :, None] * gamma[:, None, :] * z3
+           + torch.diag_embed(gamma) * z2)
+    second = (alpha + beta2[:, :, None] * gamma[:, None, :]
+              + beta2[:, None, :] * gamma[:, :, None] + psi)
+    if params.mu_cs is not None:
+        second = second + _cs_second_moment_terms_padded(params, logZ,
+                                                         pop_c, m_max)
+    return torch.where((pop > 0)[:, None, None], second, 0.0)
+
+
+def _cs_second_moment_terms_padded(params: NetworkParams, logZ: torch.Tensor,
+                                   pop: torch.Tensor,
+                                   m_max: int) -> torch.Tensor:
+    """Padded Theorem 7 Eq (24) CS terms (``pop [B] >= 1``)."""
+    dev = logZ.device
+    p = params.p
+    psum = seqsum(p)                                             # [B]
+    gamma = params.gamma
+    log_rho = params.log_rho
+    log_load_cs = torch.log(psum) - torch.log(params.mu_cs)     # [B]
+
+    beta_cs2 = torch.exp(_padded_series_vs_Z(log_load_cs[:, None], logZ,
+                                             pop, 2, m_max))[:, 0]
+    k = torch.arange(1, m_max + 1, device=dev)
+    base = torch.where(
+        k[None, :] <= pop[:, None],
+        k * log_load_cs[:, None] + _lz(logZ, pop[:, None] - k[None, :])
+        - _lz(logZ, pop)[:, None], NEG_INF)                     # [B, K]
+    s0 = torch.exp(torch.logsumexp(base, dim=-1))
+    s1_terms = torch.where(
+        k > 1, base + torch.log(torch.clamp_min(k.to(DTYPE) - 1.0, 1e-300)),
+        NEG_INF)
+    s1 = torch.exp(torch.logsumexp(s1_terms, dim=-1))
+    pi = p / psum[:, None]
+    ps = psum[:, None, None]
+    alpha_cs = ((pi[:, :, None] * pi[:, None, :]) * 2.0 * s1[:, None, None]
+                * ps * ps)
+    alpha_cs = alpha_cs + torch.diag_embed(pi * psum[:, None]) * s0[:, None,
+                                                                     None]
+    if m_max >= 2:
+        kk = torch.arange(1, m_max, device=dev)
+        ll = torch.arange(1, m_max, device=dev)
+        lz_kl = _lz(logZ, pop[:, None, None] - kk[None, :, None]
+                    - ll[None, None, :])                        # [B, K, L]
+        grid = (kk[None, None, :, None] * log_load_cs[:, None, None, None]
+                + ll[None, None, None, :] * log_rho[:, :, None, None]
+                + lz_kl[:, None]
+                - _lz(logZ, pop)[:, None, None, None])          # [B,n,K,L]
+        valid = ((kk[:, None] + ll[None, :])[None]
+                 <= pop[:, None, None])[:, None]
+        grid = torch.where(valid, grid, NEG_INF)
+        alpha_cs_i = torch.exp(torch.logsumexp(grid.flatten(2), dim=-1))
+    else:
+        alpha_cs_i = torch.zeros_like(p)
+    return (alpha_cs
+            + beta_cs2[:, None, None] * (pi[:, :, None] * gamma[:, None, :]
+                                         + pi[:, None, :] * gamma[:, :, None])
+            * ps
+            + pi[:, :, None] * alpha_cs_i[:, None, :] * ps
+            + pi[:, None, :] * alpha_cs_i[:, :, None] * ps)
+
+
+def delay_jacobian_padded(params: NetworkParams, m: torch.Tensor,
+                          logZ: torch.Tensor, m_max: int) -> torch.Tensor:
+    """``J[b, i, j] = d E0[D_i] / d p_j`` per row (covariance identity);
+    padded columns mask to zero instead of dividing by zero."""
+    mean = mean_total_counts_padded(params, logZ, m - 1, m_max)
+    second = second_moment_matrix_padded(params, m, logZ, m_max)
+    cov = second - mean[:, :, None] * mean[:, None, :]
+    mask = params.active_mask
+    if mask is None:
+        return cov / params.p[:, None, :]
+    p_safe = torch.where(mask, params.p, 1.0)
+    return torch.where(mask[None, :] & mask[:, None],
+                       cov / p_safe[:, None, :], 0.0)
+
+
+# ---------------------------------------------------------------------------
+# padded objective factories (protocol: obj(p [B,n], m [B], logZ) -> [B])
+# ---------------------------------------------------------------------------
+
+def make_round_objective_padded(params: NetworkParams,
+                                consts: LearningConstants, m_max: int):
+    def obj(p, m, logZ):
+        return round_complexity_padded(_with_p(params, p), m, consts, logZ,
+                                       m_max)
+    obj.m_max = m_max  # consumed by the sweep-side padding guard
+    return obj
+
+
+def make_throughput_objective_padded(params: NetworkParams, m_max: int):
+    def obj(p, m, logZ):
+        return -throughput_padded(logZ, m)
+    obj.m_max = m_max
+    return obj
+
+
+def make_time_objective_padded(params: NetworkParams,
+                               consts: LearningConstants, m_max: int):
+    def obj(p, m, logZ):
+        return wallclock_time_padded(_with_p(params, p), m, consts, logZ,
+                                     m_max)
+    obj.m_max = m_max
+    return obj
+
+
+def make_energy_objective_padded(params: NetworkParams,
+                                 consts: LearningConstants,
+                                 power: PowerProfile, m_max: int):
+    def obj(p, m, logZ):
+        return energy_complexity_padded(_with_p(params, p), m, consts, power,
+                                        logZ, m_max)
+    obj.m_max = m_max
+    return obj
+
+
+def make_joint_objective_padded(params: NetworkParams,
+                                consts: LearningConstants,
+                                power: PowerProfile, tau_star, e_star,
+                                m_max: int):
+    """Joint objective with ``rho`` as the per-row context (``ctx=`` of the
+    sweep), so one sweep traces the whole Pareto frontier."""
+    def obj(p, m, logZ, rho):
+        return joint_objective_padded(_with_p(params, p), m, consts, power,
+                                      rho, tau_star, e_star, logZ, m_max)
+    obj.m_max = m_max
+    return obj
+
+
+# ---------------------------------------------------------------------------
+# dense surface evaluation (Figure 2 / Figure 8 grids)
+# ---------------------------------------------------------------------------
+
+def objective_surface(objective: Callable, params: NetworkParams,
+                      p_grid: torch.Tensor, m_grid: torch.Tensor, *,
+                      m_max: Optional[int] = None,
+                      backend: Optional[str] = None) -> torch.Tensor:
+    """Evaluate a padded objective on aligned grids ``p_grid [B, n]`` and
+    ``m_grid [B]`` in one batched pass."""
+    m_grid = torch.as_tensor(m_grid, device=params.device)
+    m_max = int(m_grid.max()) if m_max is None else m_max
+    obj_pad = getattr(objective, "m_max", None)
+    if obj_pad is not None and obj_pad != m_max:
+        raise ValueError(
+            f"objective was built with m_max={obj_pad} but the surface pads "
+            f"logZ to m_max={m_max}; the paddings must match")
+    p_grid = torch.as_tensor(p_grid, dtype=DTYPE, device=params.device)
+    logZ = batch_log_normalizing_constants(params, p_grid, m_max,
+                                           backend=backend)
+    return objective(p_grid, m_grid, logZ)
+
+
+def tau_surface(params: NetworkParams, consts: LearningConstants, ms,
+                p_rows: torch.Tensor, *,
+                backend: Optional[str] = None) -> torch.Tensor:
+    """``E0[tau_eps]`` on the outer grid ``ms x p_rows``: ``[len(ms), P]``."""
+    ms = torch.as_tensor(ms, device=params.device)
+    p_rows = torch.as_tensor(p_rows, dtype=DTYPE, device=params.device)
+    M, P = ms.shape[0], p_rows.shape[0]
+    m_top = int(ms.max())
+    obj = make_time_objective_padded(params, consts, m_top)
+    vals = objective_surface(obj, params, p_rows.repeat(M, 1),
+                             ms.repeat_interleave(P), m_max=m_top,
+                             backend=backend)
+    return vals.reshape(M, P)

@@ -1,0 +1,251 @@
+"""Buzen's algorithm for the closed-network normalising constants (port of
+``repro.core.buzen``, per-client half).
+
+Proposition 15 (client-only network) and Proposition 19 (with the CS-side
+single-server queue), in log space.  ``method="aggregate"`` merges the
+``2n`` infinite-server stations into one Poisson factor of total load
+``gamma_tot``; ``method="literal"`` folds every station in the order of
+Prop. 15.  Both return ``logZ[..., k] = log Z_{n,k}`` for ``k = 0..m_max``.
+
+Backends: ``"torch"`` (the float64 DP below, the default) and ``"kernel"``
+(the hand-written CUDA Buzen kernel of ``repro_torch.kernels.buzen``: a
+float32 forward with a float64 backward, ``aggregate`` only).  Select per
+call with ``backend=`` or process-wide with :func:`set_backend`; no
+environment variable is read.
+"""
+from __future__ import annotations
+
+import functools
+import itertools
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .numerics import NEG_INF, seqsum
+
+_BACKENDS = ("torch", "kernel")
+_backend = "torch"
+
+
+def set_backend(name: str) -> None:
+    """Set the process-wide default Buzen backend (``"torch"``/``"kernel"``)."""
+    global _backend
+    if name not in _BACKENDS:
+        raise ValueError(f"unknown buzen backend: {name!r}")
+    _backend = name
+
+
+def get_backend() -> str:
+    return _backend
+
+
+class NetworkParams(NamedTuple):
+    """Rates of the closed queueing network (Section 2.6 / 7.1).
+
+    Leaves are float64 tensors on one device.  ``p`` may carry leading
+    batch axes (``[..., n]``, one routing row per batch entry) while the
+    rates stay ``[n]``.  Padded-``n`` convention: rows beyond ``n_active``
+    carry zero routing mass and unit rates (:func:`pad_network`);
+    ``n_active is None`` means every row is real.
+    """
+
+    p: torch.Tensor
+    mu_c: torch.Tensor
+    mu_d: torch.Tensor
+    mu_u: torch.Tensor
+    mu_cs: Optional[torch.Tensor] = None  # scalar CS rate (None = no CS)
+    n_active: Optional[torch.Tensor] = None  # real-client count (None = n)
+
+    @property
+    def n(self) -> int:
+        return self.p.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.p.device
+
+    @property
+    def active_count(self):
+        return self.n if self.n_active is None else self.n_active
+
+    @property
+    def active_mask(self) -> Optional[torch.Tensor]:
+        if self.n_active is None:
+            return None
+        return torch.arange(self.n, device=self.device) < self.n_active
+
+    @property
+    def log_rho(self) -> torch.Tensor:
+        return torch.log(self.p) - torch.log(self.mu_c)
+
+    @property
+    def gamma(self) -> torch.Tensor:
+        return self.p * (1.0 / self.mu_d + 1.0 / self.mu_u)
+
+    @property
+    def log_gamma_total(self) -> torch.Tensor:
+        # sequential sum: padded clients (gamma = 0) stay bitwise invisible
+        return torch.log(seqsum(self.gamma))
+
+    def with_cs(self, mu_cs) -> "NetworkParams":
+        return self._replace(mu_cs=torch.as_tensor(
+            mu_cs, dtype=self.p.dtype, device=self.device))
+
+
+def pad_network(params: NetworkParams, n_max: int) -> NetworkParams:
+    """Pad to ``n_max`` client rows: zero routing mass, unit rates, and
+    ``n_active`` recording the real population — every closed form and the
+    event engine then give **bitwise** the unpadded result."""
+    n = params.n
+    if n_max < n:
+        raise ValueError(f"n_max={n_max} is smaller than the network's "
+                         f"population n={n}")
+    n_act = params.active_count
+
+    def pad(x, fill):
+        tail = torch.full(x.shape[:-1] + (n_max - n,), fill, dtype=x.dtype,
+                          device=x.device)
+        return torch.cat([x, tail], dim=-1)
+
+    return params._replace(
+        p=pad(params.p, 0.0), mu_c=pad(params.mu_c, 1.0),
+        mu_d=pad(params.mu_d, 1.0), mu_u=pad(params.mu_u, 1.0),
+        n_active=torch.as_tensor(n_act, dtype=torch.int64,
+                                 device=params.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_index(M: int, device: torch.device):
+    """``rev[m, k] = m - k`` clipped at 0, and the ``k <= m`` mask."""
+    ar = torch.arange(M + 1, device=device)
+    rev = ar[:, None] - ar[None, :]
+    return rev.clamp_min(0), rev >= 0
+
+
+def _log_conv(log_a: torch.Tensor, log_b: torch.Tensor) -> torch.Tensor:
+    """Truncated log-space convolution over the last axis:
+    ``out[..., m] = logsumexp_{k<=m} (log_a[..., k] + log_b[..., m - k])``."""
+    M = log_a.shape[-1] - 1
+    rev, valid = _conv_index(M, log_a.device)
+    terms = torch.where(valid, log_a[..., None, :] + log_b[..., rev], NEG_INF)
+    return torch.logsumexp(terms, dim=-1)
+
+
+def _geometric_series(log_rho: torch.Tensor, m_max: int) -> torch.Tensor:
+    """``[k log_rho for k in 0..m_max]`` (trailing axis); ``k = 0`` pinned to
+    0 so a load-0 station (``log_rho = -inf``) is the convolution identity."""
+    log_rho = torch.as_tensor(log_rho)
+    k = torch.arange(m_max + 1, device=log_rho.device)
+    return torch.where(k == 0, 0.0, k * log_rho[..., None])
+
+
+def _poisson_series(log_load: torch.Tensor, m_max: int) -> torch.Tensor:
+    """``[k log_load - log k! for k in 0..m_max]`` (``k = 0`` pinned)."""
+    log_load = torch.as_tensor(log_load)
+    k = torch.arange(m_max + 1, device=log_load.device, dtype=log_load.dtype)
+    return torch.where(k == 0, 0.0,
+                       k * log_load[..., None] - torch.lgamma(k + 1.0))
+
+
+def aggregate_log_Z(log_rho: torch.Tensor, log_gamma_total: torch.Tensor,
+                    m_max: int) -> torch.Tensor:
+    """Aggregate-IS DP on the ``[..., S]`` / ``[...]`` layout: the Poisson
+    row of ``gamma_tot``, then one geometric fold per station column."""
+    logZ = _poisson_series(log_gamma_total, m_max)
+    for s in range(log_rho.shape[-1]):
+        logZ = _log_conv(logZ, _geometric_series(log_rho[..., s], m_max))
+    return logZ
+
+
+def log_normalizing_constants(params: NetworkParams, m_max: int, *,
+                              method: str = "aggregate",
+                              backend: Optional[str] = None) -> torch.Tensor:
+    """``log Z_{n,m}`` for ``m = 0..m_max`` (trailing axis).
+
+    Includes the CS station when ``params.mu_cs`` is set (the ``W_{n,m}``
+    of Prop. 19).  The ``"kernel"`` backend implements ``aggregate`` only.
+    """
+    backend = _backend if backend is None else backend
+    if backend == "kernel":
+        if method != "aggregate":
+            raise ValueError(
+                f"the kernel backend only implements method='aggregate', "
+                f"got {method!r}")
+        from .batched import batch_log_normalizing_constants  # no cycle
+
+        p = params.p
+        rows = p.reshape(-1, p.shape[-1])
+        out = batch_log_normalizing_constants(params, rows, m_max,
+                                              backend="kernel")
+        return out.reshape(p.shape[:-1] + (m_max + 1,))
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown buzen backend: {backend!r}")
+
+    log_rho = params.log_rho
+    if method == "aggregate":
+        logZ = aggregate_log_Z(log_rho, params.log_gamma_total, m_max)
+    elif method == "literal":
+        # station by station in the order of Prop. 15: n computation
+        # queues, then n downlink IS stations, then n uplink IS stations
+        logZ = torch.full((m_max + 1,), NEG_INF, dtype=log_rho.dtype,
+                          device=params.device)
+        logZ[0] = 0.0  # Z_{.,0} = 1 only
+        logZ = logZ.expand(log_rho.shape[:-1] + (m_max + 1,))
+        for i in range(params.n):
+            logZ = _log_conv(logZ, _geometric_series(log_rho[..., i], m_max))
+        for i in range(params.n):
+            logZ = _log_conv(logZ, _poisson_series(
+                torch.log(params.p[..., i] / params.mu_d[i]), m_max))
+        for i in range(params.n):
+            logZ = _log_conv(logZ, _poisson_series(
+                torch.log(params.p[..., i] / params.mu_u[i]), m_max))
+    else:
+        raise ValueError(f"unknown method: {method}")
+
+    if params.mu_cs is not None:
+        # the multinomial class structure of Eq. (20) sums out to one
+        # geometric factor of load sum_j p_j / mu_cs
+        log_load_cs = torch.log(seqsum(params.p)) - torch.log(params.mu_cs)
+        logZ = _log_conv(logZ, _geometric_series(log_load_cs, m_max))
+    return logZ
+
+
+def log_Z_ratio(logZ: torch.Tensor, num: int, den: int) -> torch.Tensor:
+    """``Z[num] / Z[den]`` in linear space, with ``Z[k<0] = 0``."""
+    if num < 0:
+        return torch.zeros((), dtype=logZ.dtype, device=logZ.device)
+    return torch.exp(logZ[..., num] - logZ[..., den])
+
+
+def brute_force_log_Z(params: NetworkParams, m: int) -> float:
+    """Exact ``log Z_{n,m}`` by state enumeration — test oracle, tiny
+    systems only (host numpy)."""
+    p = params.p.detach().cpu().numpy()
+    mu_c = params.mu_c.detach().cpu().numpy()
+    mu_d = params.mu_d.detach().cpu().numpy()
+    mu_u = params.mu_u.detach().cpu().numpy()
+    n = len(p)
+    stations = ([(p[i] / mu_c[i], False) for i in range(n)]
+                + [(p[i] / mu_d[i], True) for i in range(n)]
+                + [(p[i] / mu_u[i], True) for i in range(n)])
+    if params.mu_cs is not None:
+        stations.append((float(np.sum(p)) / float(params.mu_cs), False))
+    S = len(stations)
+    total = 0.0
+    # compositions of m into S parts
+    for comp in itertools.combinations(range(m + S - 1), S - 1):
+        prev = -1
+        xs = []
+        for c in comp:
+            xs.append(c - prev - 1)
+            prev = c
+        xs.append(m + S - 2 - prev)
+        term = 1.0
+        for (load, is_is), x in zip(stations, xs):
+            term *= load ** x
+            if is_is:
+                term /= math.factorial(x)
+        total += term
+    return math.log(total)

@@ -1,0 +1,107 @@
+"""Lane-batched simulation: K independent lanes advance in lock-step, one
+event per lane per step (port of ``repro.sim.batched_events``; one event
+per step, no telemetry rings).
+
+  * ``"reference"`` — each lane runs alone (``K = 1``) and the results are
+    stacked;
+  * ``"batched"``   — all lanes in one ``[K, ...]`` state through the plain
+    PyTorch table transition;
+  * ``"kernel"``    — the same loop with the transition in the CUDA event
+    kernel.
+
+Each lane draws from its own ``torch.Generator``, in blocks of
+:data:`DRAW_EVENTS` events, so a lane run alone and the same lane among
+others consume identical draws: lanes equal singles bitwise.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core import events
+from ..core.buzen import NetworkParams
+from ..core.events import EventStats, finalize_stats, lane, stack_lanes
+from ..core.numerics import seqcumsum
+from ..scenario.laws import get_law
+from .backend import resolve_backend
+
+DRAW_EVENTS = 1024  # events drawn per block and lane (bounds block memory)
+
+
+def run_lanes(lane_params: NetworkParams, ms, generators, num_updates: int,
+              *, warmup: int, distribution: str, m_max: int, power=None,
+              backend: str = "batched") -> EventStats:
+    """The lock-step loop: ``lane_params``/``power`` lane-stacked, one
+    concurrency and one generator per lane.  ``"reference"`` runs the lanes
+    one at a time through the same loop."""
+    if backend == "reference":
+        outs = [run_lanes(stack_lanes([lane(lane_params, i)]), [ms[i]],
+                          [generators[i]], num_updates, warmup=warmup,
+                          distribution=distribution, m_max=m_max,
+                          power=None if power is None
+                          else stack_lanes([lane(power, i)]),
+                          backend="batched")
+                for i in range(len(generators))]
+        return stack_lanes([lane(o, 0) for o in outs])
+    mult = 4 if lane_params.mu_cs is not None else 3
+    num_events = mult * (num_updates + warmup) + mult * m_max + 8
+    cap = warmup + num_updates
+    singles = [lane(lane_params, i) for i in range(len(generators))]
+    st = stack_lanes([
+        events.init_state(prm, m, g, m_max=m_max, distribution=distribution,
+                          warmup=warmup, cap=cap)
+        for prm, m, g in zip(singles, ms, generators)])
+    # the routing CDF is loop-invariant: one sequential prefix per lane
+    prefixes = [seqcumsum(prm.p) for prm in singles]
+    done = 0
+    while done < num_events:
+        chunk = min(DRAW_EVENTS, num_events - done)
+        blocks = events.stack_blocks([
+            events.draw_event_blocks(prm, g, chunk, distribution=distribution,
+                                     route_prefix=pre)
+            for prm, g, pre in zip(singles, generators, prefixes)])
+        st = events.run_event_blocks(lane_params, st, blocks,
+                                     distribution=distribution, power=power,
+                                     backend=backend)
+        done += chunk
+    return finalize_stats(st)
+
+
+def simulate_stats_lanes(params, ms, num_updates: int, *, warmup: int = 0,
+                         generators=None, seeds=None,
+                         distribution: str = "exponential", power=None,
+                         m_max: Optional[int] = None,
+                         backend: Optional[str] = None) -> EventStats:
+    """Stationary statistics for ``L`` lanes through the selected backend.
+
+    ``params`` is a list of per-lane :class:`NetworkParams` (or one
+    lane-stacked with ``[L, n]`` leaves); ``ms`` the per-lane
+    concurrencies; ``generators`` one ``torch.Generator`` per lane, or
+    ``seeds`` to seed fresh ones on the params' device (default
+    ``0..L-1``); ``power`` ``None``, one shared profile or a per-lane
+    list.  Returns :class:`EventStats` with a leading ``[L]`` lane axis.
+    """
+    get_law(distribution)  # eager: unknown laws fail listing the options
+    backend = resolve_backend(backend)
+    lane_params = (params if isinstance(params, NetworkParams)
+                   else stack_lanes(params))
+    L = lane_params.p.shape[0]
+    ms = [int(m) for m in ms]
+    if len(ms) != L:
+        raise ValueError(f"got {len(ms)} concurrencies for {L} lanes")
+    if generators is None:
+        seeds = range(L) if seeds is None else seeds
+        generators = [torch.Generator(device=lane_params.p.device)
+                      .manual_seed(int(s)) for s in seeds]
+    if len(generators) != L:
+        raise ValueError(f"got {len(generators)} generators for {L} lanes")
+    m_max = max(ms) if m_max is None else int(m_max)
+    if power is not None:
+        if isinstance(power, (list, tuple)) and not hasattr(power, "P_c"):
+            power = stack_lanes(power)
+        elif power.P_c.dim() == 1:  # one shared profile -> every lane
+            power = stack_lanes([power] * L)
+    return run_lanes(lane_params, ms, generators, int(num_updates),
+                     warmup=int(warmup), distribution=distribution,
+                     m_max=m_max, power=power, backend=backend)

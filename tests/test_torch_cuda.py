@@ -1,0 +1,99 @@
+"""The port's CUDA kernels on a card, against their plain PyTorch versions.
+
+Every test here is ``cuda``-marked and skips without a CUDA device; the file
+imports no JAX, so it also runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: the Buzen kernel within ``rtol/atol 2e-5`` of its plain float32
+version (same arithmetic, other rounding: fused multiply-adds and another
+reduction order); the event kernel bitwise (IEEE division, no contraction).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import events as E
+from repro_torch.core.buzen import NetworkParams
+from repro_torch.kernels import buzen as kb
+from repro_torch.kernels import events as ke
+from repro_torch.sim import simulate_stats_lanes
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rows(seed, B, S):
+    rng = np.random.default_rng(seed)
+    lr = np.log(rng.dirichlet(np.ones(S), size=B)) - np.log(
+        rng.uniform(0.2, 8.0, (B, S)))
+    lr[::5, -2:] = -np.inf  # padded (load-0) stations
+    return lr, np.log(rng.uniform(0.1, 3.0, B))
+
+
+def _tables(seed, K, m_max, n, has_cs):
+    rng = np.random.default_rng(seed)
+    phase = rng.choice(np.arange(-1, 6 if has_cs else 4),
+                       size=(K, m_max)).astype(np.int32)
+    phase[0] = E.INACTIVE  # a lane with every clock at +inf
+    in_service = np.isin(phase, [E.DOWN, E.COMP_SERV, E.UP, E.CS_SERV])
+    finish = np.where(in_service, rng.choice([0.5, 1.25, 2.0], (K, m_max)),
+                      np.inf)
+    return (finish, phase,
+            rng.integers(0, n, (K, m_max)).astype(np.int32),
+            rng.integers(0, 4, (K, m_max)).astype(np.int32),  # seq ties
+            rng.integers(0, 30, (K, m_max)).astype(np.int32),
+            rng.uniform(0.3, 4.0, (K, n)), rng.uniform(0.3, 4.0, (K, n)),
+            rng.exponential(size=(K, 4)),
+            np.stack([rng.integers(0, n, K), rng.integers(10, 20, K),
+                      rng.integers(30, 40, K)], axis=1).astype(np.int32))
+
+
+@pytest.mark.parametrize("S,m_max", [(100, 132), (101, 132), (7, 40)])
+def test_buzen_kernel_matches_plain(cuda, S, m_max):
+    lr, lg = _rows(S, 131, S)
+    a = torch.as_tensor(lr, device=cuda)
+    b = torch.as_tensor(lg, device=cuda)
+    want = kb.buzen_batched_plain(a, b, m_max)
+    before = kb.buzen_batched.launches
+    got = kb.buzen_batched(a, b, m_max)
+    torch.cuda.synchronize()
+    assert kb.buzen_batched.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("has_cs", [False, True])
+@pytest.mark.parametrize("m_max", [12, 132, 1000])
+def test_event_kernel_matches_plain_bitwise(cuda, has_cs, m_max):
+    args = [torch.as_tensor(a, device=cuda)
+            for a in _tables(m_max, 64, m_max, 100, has_cs)]
+    want = ke.event_step_tables_plain(*args, has_cs=has_cs)
+    before = ke.event_step_tables.launches
+    got = ke.event_step_tables(*args, has_cs=has_cs)
+    torch.cuda.synchronize()
+    assert ke.event_step_tables.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_lane_backends_bitwise_on_the_card(cuda):
+    rng = np.random.default_rng(3)
+    t = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+    prms = [NetworkParams(p=t(rng.dirichlet(np.ones(20))),
+                          mu_c=t(rng.uniform(0.5, 4.0, 20)),
+                          mu_d=t(rng.uniform(0.5, 4.0, 20)),
+                          mu_u=t(rng.uniform(0.5, 4.0, 20))).with_cs(3.0)
+            for _ in range(4)]
+    kw = dict(warmup=50, seeds=range(4), distribution="deterministic")
+    got = simulate_stats_lanes(prms, [8, 9, 10, 11], 300, backend="kernel",
+                               **kw)
+    want = simulate_stats_lanes(prms, [8, 9, 10, 11], 300, backend="batched",
+                                **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
