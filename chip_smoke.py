@@ -15,23 +15,33 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      atol 3e-4);
   3. the event kernel against its plain version: 6 lanes, n = 100,
      m_max = 132, 2,000 events from the same pre-drawn blocks, exponential
-     and deterministic laws, with and without a CS station — bitwise;
+     and deterministic laws, with and without a CS station — bitwise; then
+     the megastep kernel against its plain version on random tables with
+     tied clocks and sequence numbers (m_max up to 1000, both laws, with
+     and without CS, chunk 1, 7 and 32, ``stop_on_update`` on and off,
+     ``rem < chunk``) — bitwise — and one megastep launch against ``chunk``
+     event-kernel launches;
   4. the main path at the paper's size (Table 1, n = 100): the closed forms
      in float64, ``time_optimal(m_max=132, steps=200)`` on the ``kernel``
-     and ``torch`` Buzen backends (the sweep values within rtol 1e-4), and
+     and ``torch`` Buzen backends (the sweep values within rtol 1e-4);
      ``simulate_stats_lanes`` at the optimum on 6 seed lanes (4,000 updates
-     after 400 of warm-up) on the ``kernel`` and ``batched`` backends
-     (bitwise equal; lane-mean throughput within 10% of Prop. 4).  The
-     kernels' launch counters are zeroed just before this phase and read
-     just after it: each kernel must have launched;
+     after 400 of warm-up) on the ``batched`` backend and on the ``kernel``
+     backend at chunk E = 1, 8 and 32, at m* and at m = 132 (every
+     statistic bitwise equal across backends and E; lane-mean throughput
+     within 10% of Prop. 4), a shorter run with a power profile at E = 1
+     and 32 (bitwise), and ``next_update`` on 6 lanes for 200 updates at
+     chunk 1 and 8 (the updates and final states bitwise).  The kernels'
+     launch counters are zeroed just before this phase and read just after
+     it: each kernel must have launched;
   5. each kernel's time and its plain version's time at the main path's
      shapes, beside the least time the card could take: the device time per
      call from a ``torch.profiler`` trace (the sum of the CUDA kernels'
      device time), and the time per call between CUDA events, which also
      counts the host's launch overhead;
   6. the device-busy share of short windows of the sweep and the lane
-     simulation on each backend (profiler device time over wall time), and
-     of the ``kernel`` lane simulation with a power profile (the energy
+     simulation on each backend and at E = 1, 8 and 32 (profiler device
+     time over wall time), with the wall time per lock-step event, and of
+     the ``kernel`` lane simulation with a power profile (the energy
      integral on; its trajectory must equal the run without power).
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
@@ -56,6 +66,10 @@ PEAK_BYTES = 3.35e12
 BUZEN_OPS_PER_TERM = 8
 
 
+# the five tables, the event times and the descriptors a transition returns
+TABLE_OUT = ("finish", "phase", "client", "seq", "disp_round", "t", "desc")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -63,6 +77,40 @@ def log(msg: str) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def mega_tables(rng, K, m_max, n, has_cs, chunk, law):
+    """Random megastep inputs: tables whose clocks and sequence numbers tie
+    often (a lane with every clock at +inf), the scalars of ``chunk``
+    events and a per-lane ``rem`` in ``[0, chunk]``.  Under the
+    deterministic law every unit variate is 1 and the rates come from a
+    small set, so clocks also tie after transitions."""
+    import numpy as np
+
+    phase = rng.choice(np.arange(-1, 6 if has_cs else 4),
+                       size=(K, m_max)).astype(np.int32)
+    phase[0] = -1
+    in_service = np.isin(phase, [0, 2, 3, 5])
+    finish = np.where(in_service, rng.choice([0.5, 1.0, 1.5], (K, m_max)),
+                      np.inf)
+    client = rng.integers(0, n, (K, m_max)).astype(np.int32)
+    seq = rng.integers(0, 4, (K, m_max)).astype(np.int32)
+    disp = rng.integers(0, 30, (K, m_max)).astype(np.int32)
+    if law == "deterministic":
+        mu_c = rng.choice([1.0, 2.0], (K, n))
+        mu_u = rng.choice([1.0, 2.0], (K, n))
+        fscal = np.tile([1.0, 1.0, 0.5, 0.5], (K, chunk))
+    else:
+        mu_c = rng.uniform(0.3, 4.0, (K, n))
+        mu_u = rng.uniform(0.3, 4.0, (K, n))
+        fscal = rng.exponential(size=(K, 4 * chunk))
+    rem = rng.integers(0, chunk + 1, (K, 1))
+    rem[1] = chunk
+    iscal = np.concatenate([rng.integers(10, 20, (K, 1)),
+                            rng.integers(30, 40, (K, 1)), rem,
+                            rng.integers(0, n, (K, chunk))],
+                           axis=1).astype(np.int32)
+    return finish, phase, client, seq, disp, mu_c, mu_u, fscal, iscal
 
 
 def time_ms(fn, reps: int) -> float:
@@ -118,8 +166,9 @@ def main() -> int:
     from repro_torch.core.batched import batch_log_normalizing_constants
     from repro_torch.core.complexity import wallclock_time
     from repro_torch.core.energy import PowerProfile
-    from repro_torch.core.events import (EventState, draw_event_blocks,
-                                         init_state, run_event_blocks,
+    from repro_torch.core.events import (EventState, EventStream,
+                                         draw_event_blocks, init_state,
+                                         next_update, run_event_blocks,
                                          stack_blocks, stack_lanes)
     from repro_torch.core.jackson import expected_relative_delay, throughput
     from repro_torch.core.optimize import time_optimal
@@ -213,9 +262,56 @@ def main() -> int:
                 f"mu_cs={mu_cs}, {EV} events x {K} lanes, round "
                 f"{outs[0].round.tolist()})")
 
+    mega_err = 0.0
+    cases = 0
+    for law in ("exponential", "deterministic"):
+        for has_cs in (False, True):
+            for chunk, m_max in ((1, 132), (7, 1000), (32, 132)):
+                for stop in (False, True):
+                    args = [torch.as_tensor(a, device=dev) for a in
+                            mega_tables(rng, 64, m_max, n, has_cs, chunk,
+                                        law)]
+                    kw = dict(has_cs=has_cs, chunk=chunk,
+                              stop_on_update=stop)
+                    got = ke.megastep_tables(*args, **kw)
+                    want = ke.megastep_tables_plain(*args, **kw)
+                    torch.cuda.synchronize()
+                    for name, x, y in zip(TABLE_OUT, got, want):
+                        check(torch.equal(x, y),
+                              f"megastep kernel vs plain ({law}, cs="
+                              f"{has_cs}, chunk={chunk}, m_max={m_max}, "
+                              f"stop={stop}): {name}")
+                    mega_err = max(mega_err, float(
+                        (got[5] - want[5]).nan_to_num().abs().max()))
+                    cases += 1
+    log(f"phase 3: megastep kernel == plain bitwise ({cases} cases: both "
+        f"laws, CS on/off, chunk 1/7/32, m_max up to 1000, stop_on_update "
+        f"on/off, rem < chunk)")
+    chunk = 8
+    args = [torch.as_tensor(a, device=dev) for a in
+            mega_tables(rng, 6, M, n, True, chunk, "deterministic")]
+    args[-1][:, 2] = chunk
+    got = ke.megastep_tables(*args, has_cs=True, chunk=chunk)
+    tbl = args[:5]
+    seq_ctr, rnd = args[-1][:, 0], args[-1][:, 1]
+    for i in range(chunk):
+        one = torch.stack([args[-1][:, 3 + i], seq_ctr, rnd], dim=-1)
+        *tbl, t, d = ke.event_step_tables(*tbl, args[5], args[6],
+                                          args[7][:, 4 * i:4 * i + 4], one,
+                                          has_cs=True)
+        seq_ctr, rnd = d[:, 4], d[:, 5]
+        check(torch.equal(got[5][:, i], t[:, 0])
+              and torch.equal(got[6][:, 10 * i:10 * i + 9], d),
+              f"megastep event {i} != event kernel")
+    check(all(torch.equal(g, w) for g, w in zip(got[:5], tbl)),
+          "megastep tables != event kernel tables")
+    log(f"phase 3: one megastep launch (chunk {chunk}) == {chunk} event "
+        f"kernel launches, bitwise")
+
     # -- 4. the main path at the paper's size ------------------------------
     kb.buzen_batched.launches = 0
     ke.event_step_tables.launches = 0
+    ke.megastep_tables.launches = 0
     t_main = time.perf_counter()
     m0 = n
     delays = expected_relative_delay(net, m0)
@@ -252,29 +348,85 @@ def main() -> int:
 
     p_star = net._replace(p=res_k.p.detach())
     m_star = res_k.m
-    sims = {}
-    for be in ("kernel", "batched"):
+    sim_kw = dict(warmup=400, seeds=range(6))
+    sim_ms = {}  # wall ms per lock-step event
+
+    def simulate(m, be, chunk, updates=4000, **kw):
         t0 = time.perf_counter()
-        sims[be] = simulate_stats_lanes([p_star] * 6, [m_star] * 6, 4000,
-                                        warmup=400, seeds=range(6),
-                                        backend=be)
+        out = simulate_stats_lanes([p_star] * 6, [m] * 6, updates,
+                                   backend=be, chunk=chunk, **sim_kw, **kw)
         torch.cuda.synchronize()
-        log(f"phase 4: simulate_stats_lanes[{be}] "
-            f"{time.perf_counter() - t0:.2f} s")
-    for a, b in zip(sims["kernel"], sims["batched"]):
-        check(torch.equal(a, b), "simulate kernel vs batched not bitwise")
+        wall = time.perf_counter() - t0
+        events = 3 * (updates + 400) + 3 * m + 8
+        sim_ms[(m, be, chunk, "power" in kw)] = 1e3 * wall / events
+        log(f"phase 4: simulate_stats_lanes[{be}, m={m}, E={chunk}"
+            f"{', power' if kw else ''}] {wall:.2f} s, "
+            f"{1e3 * wall / events:.4f} ms per lock-step event")
+        return out
+
     lam_star = float(throughput(p_star, m_star))
-    lam_sim = float(sims["kernel"].throughput.mean())
-    check(abs(lam_sim - lam_star) <= 0.10 * lam_star,
-          f"simulated throughput {lam_sim} vs Prop. 4 {lam_star}")
+    for m in (m_star, M):
+        base = simulate(m, "kernel", 1)
+        if m == m_star:
+            plain = simulate(m, "batched", 1)
+            check(all(torch.equal(a, b) for a, b in zip(base, plain)),
+                  "simulate kernel vs batched not bitwise")
+        for chunk in (8, 32):
+            got = simulate(m, "kernel", chunk)
+            for name, a, b in zip(base._fields, base, got):
+                check(torch.equal(a, b),
+                      f"simulate m={m}: E={chunk} != E=1 ({name})")
+        lam = float(throughput(p_star, m))
+        lam_sim = float(base.throughput.mean())
+        check(abs(lam_sim - lam) <= 0.10 * lam,
+              f"simulated throughput {lam_sim} vs Prop. 4 {lam} at m={m}")
+        log(f"phase 4: m={m}: E = 1, 8, 32 bitwise on every statistic; "
+            f"throughput lanes {lam_sim:.6g} vs Prop. 4 {lam:.6g}")
+    ones = torch.ones(n, dtype=torch.float64, device=dev)
+    power = PowerProfile(P_c=2.0 * ones, P_u=ones, P_d=0.5 * ones)
+    pw1 = simulate(m_star, "kernel", 1, updates=1000, power=power)
+    pw32 = simulate(m_star, "kernel", 32, updates=1000, power=power)
+    check(all(torch.equal(a, b) for a, b in zip(pw1, pw32)),
+          "simulate with power: E=32 != E=1")
+    check(bool(torch.isfinite(pw1.energy).all() and (pw1.energy > 0).all()),
+          f"simulated energy {pw1.energy.tolist()}")
+
+    def updates_run(chunk, count=200):
+        gens = [torch.Generator(device=dev).manual_seed(300 + i)
+                for i in range(6)]
+        st = stack_lanes([init_state(p_star, m_star, g, m_max=m_star)
+                          for g in gens])
+        stream = EventStream([p_star] * 6, gens)
+        lanes = stack_lanes([p_star] * 6)
+        t0 = time.perf_counter()
+        outs = []
+        for _ in range(count):
+            st, upd = next_update(lanes, st, stream, chunk=chunk,
+                                  backend="kernel")
+            outs.append(upd)
+        torch.cuda.synchronize()
+        log(f"phase 4: next_update x {count} on 6 lanes, chunk {chunk}: "
+            f"{time.perf_counter() - t0:.2f} s")
+        return st, [torch.stack(x, 1) for x in zip(*outs)]
+
+    st1, upd1 = updates_run(1)
+    st8, upd8 = updates_run(8)
+    check(all(torch.equal(a, b) for a, b in zip(upd1, upd8))
+          and all(torch.equal(a, b) for a, b in zip(st1, st8)),
+          "next_update chunk 8 != chunk 1")
+    check(bool((upd1[0].diff(dim=1) > 0).all()
+               and (upd1[4] > 0).all() and (st1.round == 200).all()),
+          "next_update: times not increasing or updates missing")
+    log(f"phase 4: next_update chunk 8 == chunk 1 bitwise (200 updates x 6 "
+        f"lanes, {int(upd1[4].sum())} events)")
     main_s = time.perf_counter() - t_main
     launches = {"buzen": kb.buzen_batched.launches,
-                "event_step": ke.event_step_tables.launches}
+                "event_step": ke.event_step_tables.launches,
+                "megastep": ke.megastep_tables.launches}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
-    log(f"phase 4: throughput at (p*, m*={m_star}): lanes "
-        f"{lam_sim:.6g} vs Prop. 4 {lam_star:.6g}; main path "
-        f"{main_s:.1f} s; launches {launches}")
+    log(f"phase 4: throughput at (p*, m*={m_star}): Prop. 4 "
+        f"{lam_star:.6g}; main path {main_s:.1f} s; launches {launches}")
 
     # -- 5. kernel times at the main path's shapes -------------------------
     # the Buzen kernel as the sweep calls it: rows m = 2..132 at (p*)
@@ -282,22 +434,48 @@ def main() -> int:
     lr = (torch.log(p_star.p) - torch.log(net.mu_c)).expand(B, n).contiguous()
     lg = torch.log((p_star.p * (1.0 / net.mu_d + 1.0 / net.mu_u)).sum()
                    ).expand(B).contiguous()
-    # the event kernel as the simulation calls it: 6 lanes of m* slots
-    gens = [torch.Generator(device=dev).manual_seed(200 + i) for i in range(6)]
     lane_params = stack_lanes([p_star] * 6)
-    st = stack_lanes([init_state(p_star, m_star, g, m_max=m_star)
-                      for g in gens])
-    tbl = (st.finish, st.phase, st.client, st.seq, st.disp_round,
-           lane_params.mu_c, lane_params.mu_u,
-           torch.rand(6, 4, dtype=torch.float64, device=dev),
-           torch.stack([torch.zeros(6, dtype=torch.int32, device=dev),
-                        st.seq_ctr, st.round], dim=-1))
+
+    def lane_tables(m, seed):
+        gens = [torch.Generator(device=dev).manual_seed(seed + i)
+                for i in range(6)]
+        st = stack_lanes([init_state(p_star, m, g, m_max=m) for g in gens])
+        return st, (st.finish, st.phase, st.client, st.seq, st.disp_round,
+                    lane_params.mu_c, lane_params.mu_u)
+
+    # the event kernel as the simulation calls it: 6 lanes of m* slots
+    st, tbl = lane_tables(m_star, 200)
+    tbl = tbl + (torch.rand(6, 4, dtype=torch.float64, device=dev),
+                 torch.stack([torch.zeros(6, dtype=torch.int32, device=dev),
+                              st.seq_ctr, st.round], dim=-1))
     calls = {
         "buzen": (lambda: kb.buzen_batched(lr, lg, M),
                   lambda: kb.buzen_batched_plain(lr, lg, M), 20, 3),
         "event_step": (lambda: ke.event_step_tables(*tbl, has_cs=False),
                        lambda: ke.event_step_tables_plain(*tbl, has_cs=False),
                        200, 50)}
+    # the megastep kernel as the simulation calls it: 6 lanes of m* and
+    # of 132 slots, E = 8 and 32 events per launch, every event kept
+    labels = {"buzen": f"[{B}x{n}], m_max={M}",
+              "event_step": f"[6x{m_star}], n={n}"}
+    mega_shapes = {}
+    for m, chunk in [(m, c) for m in (m_star, M) for c in (8, 32)]:
+        st_m, tbl_m = lane_tables(m, 400)
+        iscal = torch.cat([st_m.seq_ctr[:, None], st_m.round[:, None],
+                           torch.full((6, 1), chunk, dtype=torch.int32,
+                                      device=dev),
+                           torch.randint(0, n, (6, chunk), dtype=torch.int32,
+                                         device=dev)], dim=1)
+        args = tbl_m + (torch.rand(6, 4 * chunk, dtype=torch.float64,
+                                   device=dev), iscal)
+        name = f"megastep m={m} E={chunk}"
+        labels[name] = f"[6x{m}], n={n}, {chunk} events"
+        mega_shapes[name] = (m, chunk)
+        calls[name] = (
+            lambda a=args, c=chunk: ke.megastep_tables(*a, has_cs=False,
+                                                       chunk=c),
+            lambda a=args, c=chunk: ke.megastep_tables_plain(
+                *a, has_cs=False, chunk=c), 200, 5)
     times = {}
     for name, (kern, plain, rk, rp) in calls.items():
         times[name] = {"kernel": (device_ms(kern, rk), time_ms(kern, rk)),
@@ -309,12 +487,17 @@ def main() -> int:
     terms = B * n * (M + 1) * (M + 2) / 2
     bound_ops = BUZEN_OPS_PER_TERM * terms / PEAK_F32_FLOPS
     bound_bytes = 4 * (B * n + 2 * B * (M + 1)) / PEAK_BYTES
-    Kl, Ml = st.finish.shape
-    # the five tables read and written, one rate of each rate table per
-    # lane (one 32-byte sector per gather), the scalars in, t and the
-    # descriptors out
-    ev_bytes = (2 * Kl * Ml * (8 + 4 * 4) + 2 * Kl * 32
-                + Kl * (4 * 8 + 3 * 4) + Kl * (8 + 9 * 4))
+    K6 = 6
+
+    def transition_bytes(m, chunk, n_desc):
+        """The five rows read and written, the scalars in, the times and
+        descriptors out, and one 32-byte sector per rate gather (two per
+        event and lane)."""
+        return (2 * K6 * m * (8 + 4 * 4) + K6 * (4 * chunk * 8)
+                + K6 * (3 + (chunk if n_desc == 10 else 0)) * 4
+                + K6 * chunk * (8 + n_desc * 4) + 2 * K6 * chunk * 32)
+
+    ev_bytes = transition_bytes(m_star, 1, 9)
     buzen_rec = {
         "name": "buzen", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/buzen.cu",
@@ -334,37 +517,49 @@ def main() -> int:
         "plain_ms": times["event_step"]["plain"][pick],
         "bound_ms": 1e3 * ev_bytes / PEAK_BYTES, "bound_by": "bytes",
         "library_ms": None}
-    for name, shape in (("buzen", f"[{B}x{n}], m_max={M}"),
-                        ("event_step", f"[{Kl}x{Ml}], n={n}")):
-        t = times[name]
-        log(f"phase 5: {name} {shape}: kernel device {t['kernel'][0]:.4f} ms"
-            f" / between events {t['kernel'][1]:.4f} ms; plain device "
-            f"{t['plain'][0]:.4f} ms / between events {t['plain'][1]:.4f} "
-            f"ms ({card})")
+    # the record is the megastep at (m*, E = 8); phase 5 prints all four
+    rec_key = f"megastep m={m_star} E=8"
+    mega_rec = {
+        "name": "megastep", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/events.cu",
+        "replaces": "src/repro/kernels/events.py:311",
+        "launches": launches["megastep"], "max_abs_err": mega_err,
+        "ms": times[rec_key]["kernel"][pick],
+        "plain_ms": times[rec_key]["plain"][pick],
+        "bound_ms": 1e3 * transition_bytes(m_star, 8, 10) / PEAK_BYTES,
+        "bound_by": "bytes", "library_ms": None}
+    for name, t in times.items():
+        extra = ""
+        if name in mega_shapes:
+            bound = transition_bytes(*mega_shapes[name], 10) / PEAK_BYTES
+            extra = f"; bound {1e3 * bound:.6f} ms (bytes)"
+        log(f"phase 5: {name} {labels[name]}: "
+            f"kernel device {t['kernel'][0]:.4f} ms / between events "
+            f"{t['kernel'][1]:.4f} ms; plain device {t['plain'][0]:.4f} ms "
+            f"/ between events {t['plain'][1]:.4f} ms{extra} ({card})")
     log(f"phase 5: the record's ms are "
         f"{'device' if profiled else 'between-event'} times")
+
     # -- 6. where the main path's time goes: device-busy share -------------
-    ones = torch.ones(n, dtype=torch.float64, device=dev)
-    power = PowerProfile(P_c=2.0 * ones, P_u=ones, P_d=0.5 * ones)
     results = {}
-    for name, fn in (
-            ("sweep[kernel] 5 Adam steps",
-             lambda: time_optimal(net, consts, m_max=M, steps=5,
-                                  backend="kernel")),
-            ("sweep[torch] 5 Adam steps",
-             lambda: time_optimal(net, consts, m_max=M, steps=5,
-                                  backend="torch")),
-            ("simulate[kernel] 6 lanes x 300 updates",
-             lambda: simulate_stats_lanes([p_star] * 6, [m_star] * 6, 300,
-                                          seeds=range(6), backend="kernel")),
-            ("simulate[batched] 6 lanes x 300 updates",
-             lambda: simulate_stats_lanes([p_star] * 6, [m_star] * 6, 300,
-                                          seeds=range(6),
-                                          backend="batched")),
-            ("simulate[kernel, power] 6 lanes x 300 updates",
-             lambda: simulate_stats_lanes([p_star] * 6, [m_star] * 6, 300,
-                                          seeds=range(6), power=power,
-                                          backend="kernel"))):
+    windows = [
+        ("sweep[kernel] 5 Adam steps",
+         lambda: time_optimal(net, consts, m_max=M, steps=5,
+                              backend="kernel"), None),
+        ("sweep[torch] 5 Adam steps",
+         lambda: time_optimal(net, consts, m_max=M, steps=5,
+                              backend="torch"), None)]
+    sim_events = 3 * 300 + 3 * m_star + 8
+    for be, chunk, pw in (("kernel", 1, None), ("kernel", 8, None),
+                          ("kernel", 32, None), ("batched", 1, None),
+                          ("kernel", 1, power)):
+        windows.append((
+            f"simulate[{be}, E={chunk}{', power' if pw else ''}] 6 lanes "
+            f"x 300 updates",
+            lambda be=be, chunk=chunk, pw=pw: simulate_stats_lanes(
+                [p_star] * 6, [m_star] * 6, 300, seeds=range(6), power=pw,
+                backend=be, chunk=chunk), sim_events))
+    for name, fn, events in windows:
         fn()  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -374,10 +569,13 @@ def main() -> int:
         busy_ms = device_ms(fn, 1)
         busy = (f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)"
                 if busy_ms > 0 else "not measured (no device trace)")
-        log(f"phase 6: {name}: wall {wall_ms:.1f} ms, device busy {busy}")
+        per_event = (f", {wall_ms / events:.4f} ms per lock-step event"
+                     if events else "")
+        log(f"phase 6: {name}: wall {wall_ms:.1f} ms{per_event}, device "
+            f"busy {busy}")
     # the energy integral rides along: same trajectory, finite energy
-    plain_run = results["simulate[kernel] 6 lanes x 300 updates"]
-    power_run = results["simulate[kernel, power] 6 lanes x 300 updates"]
+    plain_run = results["simulate[kernel, E=1] 6 lanes x 300 updates"]
+    power_run = results["simulate[kernel, E=1, power] 6 lanes x 300 updates"]
     check(torch.equal(plain_run.throughput, power_run.throughput)
           and torch.equal(plain_run.mean_queue_counts,
                           power_run.mean_queue_counts),
@@ -385,13 +583,17 @@ def main() -> int:
     check(bool(torch.isfinite(power_run.energy).all()
                and (power_run.energy > 0).all()),
           f"simulated energy {power_run.energy.tolist()}")
+    for chunk in (8, 32):
+        check(all(torch.equal(a, b) for a, b in zip(
+            plain_run, results[f"simulate[kernel, E={chunk}] 6 lanes x 300 "
+                               f"updates"])), f"window E={chunk} != E=1")
 
-    print(json.dumps({"kernels": [buzen_rec, event_rec]}), flush=True)
+    print(json.dumps({"kernels": [buzen_rec, event_rec, mega_rec]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -10,9 +10,9 @@ from .complexity import (LearningConstants, eta_max, round_complexity,
                          wallclock_time)
 from .energy import (PowerProfile, energy_complexity, energy_per_round,
                      per_task_energy)
-from .events import (EventBlocks, EventState, EventStats, draw_event_blocks,
-                     init_state, simulate_stats, step_event,
-                     step_event_block)
+from .events import (EventBlocks, EventState, EventStats, EventStream,
+                     UpdateOut, draw_event_blocks, init_state, next_update,
+                     simulate_stats, step_event, step_event_block)
 from .jackson import (analyze, delay_jacobian, expected_relative_delay,
                       throughput, throughput_grad)
 from .numerics import DTYPE, NEG_INF, seqcumsum, seqsum

@@ -1,5 +1,5 @@
 """Device-resident event engine for the Generalized AsyncSGD closed network
-(port of ``repro.core.events``, per-client half, one event per step).
+(port of ``repro.core.events``, per-client half).
 
 The state is a fixed-size in-flight task table per lane (``[K, m_max]``:
 phase, owning client, FIFO sequence, dispatch round and the absolute
@@ -7,17 +7,22 @@ completion clock of each task) plus O(1)-updated occupancy carries and the
 statistics of the update-count window ``[warmup, cap)``.  One event is one
 service completion: the argmin over the clocks, the phase promotion or
 re-dispatch of the completed slot, and the FIFO promotions — the table
-transition of :mod:`repro_torch.kernels.events`.  Around it,
-:func:`step_event_lanes` keeps the statistics and the occupancy carries in
-PyTorch, the same float operations whichever transition runs.
+transition of :mod:`repro_torch.kernels.events`, one event per call
+(:func:`step_event_lanes`) or up to ``chunk`` per call, a megastep
+(:func:`megastep_event_lanes`).  Around it, :func:`replay_event` keeps
+the statistics and the occupancy carries in PyTorch from the transition's
+descriptors, event by event, the same float operations whichever
+transition runs: megasteps are bitwise the same trajectory as single
+steps.  :func:`next_update` runs each lane to its next model update.
 
 Randomness is separated from the state: every per-event draw is
 state-independent and is drawn up front, for many events at once, as
 :class:`EventBlocks` from one ``torch.Generator`` per lane
-(:func:`draw_event_blocks`).  The generator path and an injected-blocks
-path (e.g. blocks drawn by the JAX package) run the same
-:func:`step_event_block` loop, which is how the port is held bitwise to
-the JAX engine.  Same-seed parity with ``jax.random`` is not ported.
+(:func:`draw_event_blocks`), and an :class:`EventStream` hands each lane
+its events in order.  The generator path and an injected-blocks path
+(e.g. blocks drawn by the JAX package) feed the same cursor, which is how
+the port is held bitwise to the JAX engine.  Same-seed parity with
+``jax.random`` is not ported.
 
 Every state leaf carries a leading lane axis ``[K, ...]`` in the step;
 :func:`init_state` builds one lane and :func:`stack_lanes` stacks them.
@@ -44,6 +49,8 @@ CS_SERV = 5     # in service at the CS single-server queue
 
 _BIG_SEQ = 2**31 - 1
 _NO_CAP = 2**31 - 1
+
+DRAW_EVENTS = 1024  # events drawn per block and lane (bounds block memory)
 
 
 class EventState(NamedTuple):
@@ -79,6 +86,16 @@ class EventOut(NamedTuple):
     slot: torch.Tensor    # task-table row of the completed task
     client: torch.Tensor  # client whose gradient would be applied
     delay: torch.Tensor   # relative delay round - dispatch_round
+
+
+class UpdateOut(NamedTuple):
+    """Result of :func:`next_update` (one model update per lane)."""
+
+    time: torch.Tensor
+    slot: torch.Tensor
+    client: torch.Tensor
+    delay: torch.Tensor
+    steps: torch.Tensor   # events consumed to reach this update
 
 
 class EventStats(NamedTuple):
@@ -229,7 +246,128 @@ def lane(tree, i: int):
 
 
 # ---------------------------------------------------------------------------
-# EventState-level step: statistics in PyTorch around the table transition
+# the draw cursor: each lane's pre-drawn randomness, consumed event by event
+# ---------------------------------------------------------------------------
+
+def _unit_scalars(blk: EventBlocks, distribution: str):
+    """The kernels' per-event scalars of ``blk``: ``[..., 4]`` float64
+    ``[e_up, e_comp, svc_down, svc_cs]`` with the unit parts at unit rate
+    (the kernels rescale them by the completing client's rate, ``e /
+    mu[c]``: the law's own ``unit_apply``), and the routed clients as
+    int32."""
+    law = get_law(distribution)
+    one = torch.ones((), dtype=DTYPE, device=blk.svc_down.device)
+    svc_cs = (blk.svc_cs if blk.svc_cs is not None
+              else torch.zeros_like(blk.svc_down))
+    fs = torch.stack([law.unit_apply(blk.up, one),
+                      law.unit_apply(blk.comp, one), blk.svc_down, svc_cs],
+                     dim=-1)
+    return fs, blk.c_new.to(torch.int32)
+
+
+class EventStream:
+    """Per-lane draw cursor over the events' pre-drawn randomness.
+
+    Each lane draws from its own ``torch.Generator`` in blocks of ``block``
+    events (the last block cut so that no more than ``total`` events are
+    drawn), and a lane's stream depends on ``block`` and ``total`` only:
+    a step that consumes one event and a megastep that consumes ``chunk``
+    read the same numbers, a megastep may straddle two blocks, and each
+    lane moves on by exactly the events it retired (:meth:`advance`).
+    :meth:`from_blocks` feeds the cursor blocks drawn elsewhere (e.g. by
+    the JAX package, converted by :mod:`repro_torch.convert`) instead.
+    """
+
+    def __init__(self, lane_params, generators, *,
+                 distribution: str = "exponential",
+                 block: int = DRAW_EVENTS, total: Optional[int] = None):
+        self._params = list(lane_params)
+        self._gens = list(generators)
+        if len(self._params) != len(self._gens):
+            raise ValueError(f"got {len(self._gens)} generators for "
+                             f"{len(self._params)} lanes")
+        if block < 1:
+            raise ValueError(f"block must be >= 1, got {block}")
+        self._prefix = [seqcumsum(prm.p) for prm in self._params]
+        self._dist = distribution
+        self._block = int(block)
+        self._total = total
+        self._drawn = 0  # events drawn so far, the same for every lane
+        self._fs = self._cn = None
+        self._off = [0] * len(self._gens)
+
+    @classmethod
+    def from_blocks(cls, blocks: EventBlocks, *,
+                    distribution: str = "exponential") -> "EventStream":
+        """A cursor over the ``[events, K]`` leaves of ``blocks`` alone."""
+        self = cls([], [], distribution=distribution)
+        fs, cn = _unit_scalars(blocks, distribution)
+        self._fs, self._cn = fs.transpose(0, 1), cn.transpose(0, 1)
+        self._drawn = self._total = fs.shape[0]
+        self._off = [0] * fs.shape[1]
+        return self
+
+    def _width(self) -> int:
+        return 0 if self._cn is None else self._cn.shape[1]
+
+    def _draw(self) -> bool:
+        """Append one block to every lane; ``False`` when none is left."""
+        size = self._block
+        if self._total is not None:
+            size = min(size, self._total - self._drawn)
+        if size <= 0 or not self._gens:
+            return False
+        blk = EventBlocks(*[None if x[0] is None else torch.stack(x)
+                            for x in zip(*[
+                                draw_event_blocks(prm, g, size,
+                                                  distribution=self._dist,
+                                                  route_prefix=pre)
+                                for prm, g, pre in zip(self._params,
+                                                       self._gens,
+                                                       self._prefix)])])
+        fs, cn = _unit_scalars(blk, self._dist)
+        if self._cn is not None:
+            # drop what every lane has consumed
+            lo = min(self._off)
+            self._off = [o - lo for o in self._off]
+            fs = torch.cat([self._fs[:, lo:], fs], dim=1)
+            cn = torch.cat([self._cn[:, lo:], cn], dim=1)
+        self._fs, self._cn = fs, cn
+        self._drawn += size
+        return True
+
+    def window(self, chunk: int):
+        """The next ``chunk`` events of every lane from its cursor:
+        ``(fs [K, chunk, 4], c_new [K, chunk])`` (see
+        :func:`_unit_scalars`).  Past the end of a finite stream the
+        window is zero-filled: those events must be masked."""
+        while self._width() < max(self._off) + chunk and self._draw():
+            pass
+        fs, cn, off = self._fs, self._cn, self._off
+        short = max(off) + chunk - self._width()
+        if short > 0:
+            fs = torch.cat([fs, fs.new_zeros((fs.shape[0], short, 4))], 1)
+            cn = torch.cat([cn, cn.new_zeros((cn.shape[0], short))], 1)
+        if min(off) == max(off):
+            return fs[:, off[0]:off[0] + chunk], cn[:, off[0]:off[0] + chunk]
+        idx = (torch.as_tensor(off, device=cn.device)[:, None]
+               + torch.arange(chunk, device=cn.device)[None, :])
+        return (fs.gather(1, idx[..., None].expand(-1, -1, 4)),
+                cn.gather(1, idx))
+
+    def advance(self, taken) -> None:
+        """Move lane ``k``'s cursor by ``taken[k]`` events (an ``int``
+        moves every lane)."""
+        if isinstance(taken, int):
+            taken = [taken] * len(self._off)
+        self._off = [o + int(t) for o, t in zip(self._off, taken)]
+        if max(self._off) > self._width():
+            raise RuntimeError("the event stream ran out: a lane retired "
+                               "more events than were drawn")
+
+
+# ---------------------------------------------------------------------------
+# EventState-level steps: statistics in PyTorch around the table transition
 # ---------------------------------------------------------------------------
 
 def _lane_stats(st, t_new, c, is_update, delay, pw, n: int):
@@ -266,42 +404,30 @@ def _lane_stats(st, t_new, c, is_update, delay, pw, n: int):
     return occ_int, energy, delay_sum, delay_cnt
 
 
-def step_event_lanes(params, state, blk, *, table_step,
-                     distribution: str = "exponential", power=None):
-    """One event for every lane: ``state`` leaves carry a leading lane axis
-    ``[K, ...]``, ``params``/``power`` leaves ``[K, n]`` (scalars ``[K]``),
-    ``blk`` one :class:`repro_torch.core.events.EventBlocks` row per lane.
-    ``table_step`` is the CUDA kernel's wrapper
-    :func:`repro_torch.kernels.events.event_step_tables` or its plain
-    version.
-    Returns ``(EventState, EventOut)``."""
-    n = params.p.shape[-1]
-    has_cs = params.mu_cs is not None
-    law = get_law(distribution)
-    one = torch.ones((), dtype=DTYPE, device=state.finish.device)
-    # the unit parts at unit rate: the kernel rescales them by the
-    # completing client's rate, e / mu[c] (the law's own unit_apply)
-    e_up = law.unit_apply(blk.up, one)
-    e_comp = law.unit_apply(blk.comp, one)
-    svc_cs = blk.svc_cs if has_cs else torch.zeros_like(blk.svc_down)
-    fscal = torch.stack([e_up, e_comp, blk.svc_down, svc_cs], dim=-1)
-    iscal = torch.stack([blk.c_new.to(torch.int32), state.seq_ctr,
-                         state.round], dim=-1).to(torch.int32)
-    finish, phase, client, seq, disp, t_col, int_col = table_step(
-        state.finish, state.phase, state.client, state.seq, state.disp_round,
-        params.mu_c, params.mu_u, fscal, iscal, has_cs=has_cs)
-    t_new = t_col[:, 0]
-    c = int_col[:, 1]
-    is_update = int_col[:, 2] > 0
-    delay = int_col[:, 3]
-    seq_ctr = int_col[:, 4]
-    new_round = int_col[:, 5]
-    ph_pre = int_col[:, 6]
-    do_comp = int_col[:, 7] > 0
-    do_cs = int_col[:, 8] > 0
+_TABLES = ("finish", "phase", "client", "seq", "disp_round")
+
+
+def replay_event(state: EventState, t_new, desc, c_new, *, n: int,
+                 has_cs: bool, power=None, keep=None) -> EventState:
+    """One event's statistics and O(1) carries from its descriptors.
+
+    ``t_new [K]`` and ``desc [K, >= 9]`` (``[j, c, is_update, delay,
+    seq_ctr', round', ph_pre, do_comp, do_cs]``) are what a table
+    transition reported for the event, ``c_new [K]`` its routed client.
+    Updates the clock, counters, statistics window and occupancy carries;
+    the table leaves pass through (the transition owns them).  Where
+    ``keep [K]`` is given and false, every leaf stays as it was.  Both the
+    single step and the megastep replay their events through here.
+    """
+    c = desc[:, 1]
+    is_update = desc[:, 2] > 0
+    new_round = desc[:, 5]
+    ph_pre = desc[:, 6]
+    do_comp = desc[:, 7] > 0
+    do_cs = desc[:, 8] > 0
 
     occ_int, energy, delay_sum, delay_cnt = _lane_stats(
-        state, t_new, c, is_update, delay, power, n)
+        state, t_new, c, is_update, desc[:, 3], power, n)
 
     # O(1) maintenance of the occupancy carries: slot j moved stations;
     # the FIFO promotions stay within theirs and only flip busy indicators
@@ -310,7 +436,7 @@ def step_event_lanes(params, state, blk, *, table_step,
     is_cs = ph_pre == CS_SERV
     phase_j = torch.where(is_down, COMP_WAIT, torch.where(
         is_comp, UP, torch.where(is_update, DOWN, CS_WAIT)))
-    client_j = torch.where(is_update, iscal[:, 0], c)
+    client_j = torch.where(is_update, c_new, c)
     stations = torch.arange(3 * n + 1, device=t_new.device)
     occ_new = (state.occ
                + (stations[None, :] == _station_index(
@@ -326,48 +452,170 @@ def step_event_lanes(params, state, blk, *, table_step,
     t0 = torch.where(is_update & (new_round == state.warmup), t_new, state.t0)
     t1 = torch.where(is_update & (new_round == state.cap), t_new, state.t1)
 
-    new_state = EventState(
-        t=t_new, round=new_round, seq_ctr=seq_ctr, client=client,
-        phase=phase, finish=finish, seq=seq, disp_round=disp,
-        warmup=state.warmup, cap=state.cap, t_cap=state.t_cap, t0=t0, t1=t1,
-        delay_sum=delay_sum, delay_cnt=delay_cnt, energy=energy,
-        occ_int=occ_int, occ=occ_new, serving=serving_new,
-        cs_busy=cs_busy_new)
-    out = EventOut(is_update=is_update, time=t_new, slot=int_col[:, 0],
-                     client=c, delay=delay)
+    new = dict(t=t_new, round=new_round, seq_ctr=desc[:, 4], t0=t0, t1=t1,
+               delay_sum=delay_sum, delay_cnt=delay_cnt, energy=energy,
+               occ_int=occ_int, occ=occ_new, serving=serving_new,
+               cs_busy=cs_busy_new)
+    if keep is not None:
+        new = {k: _select(keep, v, getattr(state, k)) for k, v in new.items()}
+    return state._replace(**new)
+
+
+def _select(keep, a, b):
+    """Per lane ``a`` where ``keep [K]`` else ``b`` (any trailing axes)."""
+    return torch.where(keep.reshape(keep.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def _transitions(backend: str):
+    """``(single step, megastep)`` table transitions of a lane backend:
+    the CUDA kernels' wrappers for ``"kernel"``, their plain versions
+    otherwise."""
+    from ..kernels import events as ke
+
+    if backend == "kernel":
+        return ke.event_step_tables, ke.megastep_tables
+    return ke.event_step_tables_plain, ke.megastep_tables_plain
+
+
+def step_event_lanes(params, state, fs, c_new, *, table_step, power=None,
+                     keep=None):
+    """One event for every lane: ``state`` leaves carry a leading lane axis
+    ``[K, ...]``, ``params``/``power`` leaves ``[K, n]`` (scalars ``[K]``);
+    ``fs [K, 4]`` and ``c_new [K]`` are the event's scalars and routed
+    clients (:meth:`EventStream.window`).  ``table_step`` is the CUDA
+    kernel's wrapper :func:`repro_torch.kernels.events.event_step_tables`
+    or its plain version.  Lanes where ``keep [K]`` is false stay as they
+    were.  Returns ``(EventState, EventOut)``."""
+    n = params.p.shape[-1]
+    has_cs = params.mu_cs is not None
+    iscal = torch.stack([c_new, state.seq_ctr, state.round],
+                        dim=-1).to(torch.int32)
+    *tables, t_col, int_col = table_step(
+        state.finish, state.phase, state.client, state.seq, state.disp_round,
+        params.mu_c, params.mu_u, fs, iscal, has_cs=has_cs)
+    new_state = replay_event(state, t_col[:, 0], int_col, iscal[:, 0], n=n,
+                             has_cs=has_cs, power=power, keep=keep)
+    if keep is not None:
+        tables = [_select(keep, a, getattr(state, k))
+                  for k, a in zip(_TABLES, tables)]
+    new_state = new_state._replace(**dict(zip(_TABLES, tables)))
+    out = EventOut(is_update=int_col[:, 2] > 0, time=t_col[:, 0],
+                   slot=int_col[:, 0], client=int_col[:, 1],
+                   delay=int_col[:, 3])
     return new_state, out
+
+
+class MegastepOut(NamedTuple):
+    """Per-event descriptors of one megastep (leaves ``[K, chunk]``, for
+    masked events too: consumers gate on ``keep``)."""
+
+    time: torch.Tensor
+    slot: torch.Tensor
+    client: torch.Tensor
+    delay: torch.Tensor
+    is_update: torch.Tensor
+    keep: torch.Tensor
+    taken: list            # kept events per lane (host ints)
+
+
+def megastep_event_lanes(params, state, fs, c_new, rem, *, megastep,
+                         power=None, stop_on_update: bool = False):
+    """Up to ``chunk`` events for every lane in one transition call.
+
+    Port of the JAX package's ``megastep_event_pallas``: ``fs [K, chunk,
+    4]`` and ``c_new [K, chunk]`` are the events' scalars and routed
+    clients (:meth:`EventStream.window`), ``rem`` the events each lane
+    may keep (host ints, one per lane) and ``megastep`` the CUDA kernel's
+    wrapper :func:`repro_torch.kernels.events.megastep_tables` or its plain
+    version.  The transitions retire in the kernel; the statistics replay
+    per kept event through :func:`replay_event`, in event order, so the
+    result is bitwise that of ``chunk`` single steps.  With
+    ``stop_on_update`` each lane stops after its first kept update.
+    Returns ``(EventState, MegastepOut)``.
+    """
+    n = params.p.shape[-1]
+    has_cs = params.mu_cs is not None
+    K, chunk = c_new.shape
+    dev = state.finish.device
+    rem_t = torch.as_tensor(list(rem), dtype=torch.int32, device=dev)
+    iscal = torch.cat([state.seq_ctr[:, None], state.round[:, None],
+                       rem_t[:, None], c_new], dim=1).to(torch.int32)
+    *tables, t_mat, int_mat = megastep(
+        state.finish, state.phase, state.client, state.seq, state.disp_round,
+        params.mu_c, params.mu_u, fs.reshape(K, 4 * chunk), iscal,
+        has_cs=has_cs, chunk=chunk, stop_on_update=stop_on_update)
+    D = int_mat.view(K, chunk, 10)
+    keep_mat = D[..., 9] > 0
+    if stop_on_update:  # data-dependent: ask the device
+        taken = keep_mat.sum(dim=1).tolist()
+    else:
+        taken = [min(max(int(r), 0), chunk) for r in rem]
+    st = state
+    for i in range(max(taken, default=0)):
+        # events past every lane's taken count change nothing
+        keep = None if min(taken) > i else keep_mat[:, i]
+        st = replay_event(st, t_mat[:, i], D[:, i], c_new[:, i], n=n,
+                          has_cs=has_cs, power=power, keep=keep)
+    st = st._replace(**dict(zip(_TABLES, tables)))
+    return st, MegastepOut(time=t_mat, slot=D[..., 0], client=D[..., 1],
+                           delay=D[..., 3], is_update=D[..., 2] > 0,
+                           keep=keep_mat, taken=taken)
+
+
+def run_events(params: NetworkParams, state: EventState,
+               stream: EventStream, num_events: int, *, chunk: int = 1,
+               power=None, backend: str = "batched") -> EventState:
+    """Advance every lane by ``num_events`` events from ``stream``.
+
+    ``chunk = 1`` runs one table transition per event (the event kernel
+    under ``"kernel"``); ``chunk > 1`` runs ``ceil(num_events / chunk)``
+    megasteps (the megastep kernel under ``"kernel"``), the events past
+    ``num_events`` masked.  Both are bitwise the same trajectory.
+    """
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    table_step, megastep = _transitions(backend)
+    K = state.finish.shape[0]
+    done = 0
+    while done < num_events:
+        rem = min(chunk, num_events - done)
+        fs, cn = stream.window(chunk)
+        if chunk == 1:
+            state, _ = step_event_lanes(params, state, fs[:, 0], cn[:, 0],
+                                        table_step=table_step, power=power)
+        else:
+            state, _ = megastep_event_lanes(params, state, fs, cn, [rem] * K,
+                                            megastep=megastep, power=power)
+        stream.advance(rem)
+        done += rem
+    return state
 
 
 def step_event_block(params: NetworkParams, state: EventState,
                      blk: EventBlocks, *, distribution: str = "exponential",
                      power=None, backend: str = "batched"
                      ) -> tuple[EventState, EventOut]:
-    """One event per lane with its randomness pre-resolved in ``blk``.
+    """One event per lane with its randomness pre-resolved in ``blk``
+    (one row per lane).
 
     ``backend="kernel"`` runs the table transition in the CUDA event kernel
     (its plain version for CPU tensors); ``"batched"``/``"reference"`` run
     the plain PyTorch transition; both go through :func:`step_event_lanes`.
     """
-    from ..kernels.events import event_step_tables, event_step_tables_plain
-
-    table_step = (event_step_tables if backend == "kernel"
-                  else event_step_tables_plain)
-    return step_event_lanes(params, state, blk, table_step=table_step,
-                            distribution=distribution, power=power)
+    fs, cn = _unit_scalars(blk, distribution)
+    return step_event_lanes(params, state, fs, cn,
+                            table_step=_transitions(backend)[0], power=power)
 
 
 def run_event_blocks(params: NetworkParams, state: EventState,
                      blocks: EventBlocks, *,
                      distribution: str = "exponential", power=None,
-                     backend: str = "batched") -> EventState:
+                     backend: str = "batched", chunk: int = 1) -> EventState:
     """Advance every lane by one event per row of ``blocks`` (leaves
-    ``[events, K]``) through :func:`step_event_block`."""
-    for i in range(blocks.c_new.shape[0]):
-        blk = EventBlocks(*[None if x is None else x[i] for x in blocks])
-        state, _ = step_event_block(params, state, blk,
-                                    distribution=distribution, power=power,
-                                    backend=backend)
-    return state
+    ``[events, K]``), in megasteps of ``chunk`` (:func:`run_events`)."""
+    stream = EventStream.from_blocks(blocks, distribution=distribution)
+    return run_events(params, state, stream, blocks.c_new.shape[0],
+                      chunk=chunk, power=power, backend=backend)
 
 
 def step_event(params: NetworkParams, state: EventState, generators, *,
@@ -381,6 +629,71 @@ def step_event(params: NetworkParams, state: EventState, generators, *,
     blk = EventBlocks(*[None if x is None else x[0] for x in blk])
     return step_event_block(params, state, blk, distribution=distribution,
                             power=power, backend=backend)
+
+
+def next_update(params: NetworkParams, state: EventState,
+                stream: EventStream, *, power=None,
+                max_steps: Optional[int] = None,
+                backend: Optional[str] = None, chunk: int = 1
+                ) -> tuple[EventState, UpdateOut]:
+    """Run every lane until its next model update (uplink completion, or CS
+    completion with the CS station) or ``max_steps`` events.
+
+    Port of the JAX package's ``next_update`` with the lane axis written
+    out: ``state`` leaves ``[K, ...]``, the events drawn from ``stream``
+    (each lane consumes exactly the events it retired).  ``max_steps``
+    defaults to ``3 m_max + 8`` (``4 m_max + 8`` with the CS station), a
+    bound a valid state never meets.  A lane that has its update is frozen
+    while the others go on.  ``chunk > 1`` retires up to ``chunk`` events
+    per transition call (the megastep kernel with its early stop under
+    ``"kernel"``); the result is bitwise that of ``chunk = 1``.  Returns
+    the state and :class:`UpdateOut` with ``[K]`` leaves: the last retired
+    event's time, slot, client and delay, and the events consumed.
+    """
+    from ..sim.backend import resolve_backend
+
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    table_step, megastep = _transitions(resolve_backend(backend))
+    K, m_max = state.finish.shape
+    dev = state.finish.device
+    if max_steps is None:
+        max_steps = (4 if params.mu_cs is not None else 3) * m_max + 8
+    zero = torch.zeros(K, dtype=torch.int32, device=dev)
+    out = [torch.zeros(K, dtype=DTYPE, device=dev), zero, zero, zero]
+    steps = [0] * K
+    active = [max_steps > 0] * K
+    while any(active):
+        rem = [max_steps - s if a else 0 for s, a in zip(steps, active)]
+        fs, cn = stream.window(chunk)
+        if chunk == 1:
+            keep = torch.as_tensor(active, device=dev)
+            state, ev = step_event_lanes(params, state, fs[:, 0], cn[:, 0],
+                                         table_step=table_step, power=power,
+                                         keep=keep)
+            taken = [int(a) for a in active]
+            got = (ev.is_update & keep).tolist()
+            new = [ev.time, ev.slot, ev.client, ev.delay]
+        else:
+            state, aux = megastep_event_lanes(
+                params, state, fs, cn, rem, megastep=megastep, power=power,
+                stop_on_update=True)
+            taken = aux.taken
+            last = torch.clamp_min(
+                torch.as_tensor(taken, device=dev) - 1, 0)[:, None]
+            keep = torch.as_tensor(taken, device=dev) > 0
+            new = [x.gather(1, last)[:, 0]
+                   for x in (aux.time, aux.slot, aux.client, aux.delay)]
+            got = ((aux.is_update & aux.keep).any(dim=1)).tolist()
+        out = [torch.where(keep, a, b) for a, b in zip(new, out)]
+        stream.advance(taken)
+        steps = [s + t for s, t in zip(steps, taken)]
+        active = [a and not g and s < max_steps
+                  for a, g, s in zip(active, got, steps)]
+    return state, UpdateOut(time=out[0], slot=out[1], client=out[2],
+                            delay=out[3],
+                            steps=torch.as_tensor(steps, dtype=torch.int32,
+                                                  device=dev))
 
 
 def stack_blocks(blocks) -> EventBlocks:
@@ -428,14 +741,17 @@ def simulate_stats(params: NetworkParams, m, num_updates: int, *,
                    generator: Optional[torch.Generator] = None,
                    seed: int = 0, distribution: str = "exponential",
                    power=None, m_max: Optional[int] = None,
-                   backend: Optional[str] = None) -> EventStats:
+                   backend: Optional[str] = None, chunk: int = 1,
+                   draw_events: int = DRAW_EVENTS) -> EventStats:
     """Stationary statistics over ``num_updates`` rounds of one lane.
 
     Mirrors :meth:`AsyncNetworkSim.run`: statistics over the update-count
     window ``[warmup, warmup + num_updates)``.  The randomness comes from
     ``generator`` (default: a fresh one on the params' device seeded with
-    ``seed``).  ``backend`` picks the table transition
-    (:mod:`repro_torch.sim.backend`).
+    ``seed``), drawn in blocks of ``draw_events``.  ``backend`` picks the
+    table transition (:mod:`repro_torch.sim.backend`); ``chunk`` events
+    retire per transition call (megasteps), bitwise the same statistics
+    for every ``chunk``.
     """
     from ..sim.batched_events import run_lanes
     from ..sim.backend import resolve_backend
@@ -449,5 +765,6 @@ def simulate_stats(params: NetworkParams, m, num_updates: int, *,
     stats = run_lanes(lanes, [int(m)], [generator], int(num_updates),
                       warmup=int(warmup), distribution=distribution,
                       m_max=m_max, power=pw,
-                      backend=resolve_backend(backend))
+                      backend=resolve_backend(backend), chunk=int(chunk),
+                      draw_events=int(draw_events))
     return lane(stats, 0)

@@ -1,22 +1,31 @@
-"""The event engine's per-event table transition (port of
-``repro.kernels.events``, the single-step kernel).
+"""The event engine's table transition (port of ``repro.kernels.events``):
+one event per launch, and the megastep, up to ``chunk`` events per launch.
 
-Replaces the Pallas TPU kernel ``repro/kernels/events.py::event_step_tables``
-(body ``_event_kernel`` / ``_one_event``) with the hand-written CUDA kernel
-``csrc/events.cu``: one warp per lane, the argmin over the finish clocks and
-both FIFO picks as warp reductions on ``(value, index)`` pairs with ties to
-the lowest index.  At the main path's sizes it is bound by its launch; its
-bytes (each table row read and written once, one rate per lane and rate
-table) are about ten KB.
+Replaces two Pallas TPU kernels with hand-written CUDA kernels in
+``csrc/events.cu`` that share one per-event body:
 
-  * :func:`event_step_tables` — one event per lane on ``[K, m_max]`` tables:
-    launches the CUDA kernel for CUDA tensors (or raises) and runs
-    :func:`event_step_tables_plain` — the same contract in PyTorch — for
-    CPU tensors only.  ``event_step_tables.launches`` counts launches.
+  * ``repro/kernels/events.py::event_step_tables`` (body ``_event_kernel``
+    / ``_one_event``) -> ``event_kernel``: one warp per lane, the argmin
+    over the finish clocks and both FIFO picks as warp reductions on
+    ``(value, index)`` pairs with ties to the lowest index;
+  * ``repro/kernels/events.py::megastep_tables`` (``_megastep_kernel``)
+    -> ``megastep_kernel``: the same warp per lane with the lane's five
+    rows held in shared memory for all ``chunk`` events, ``keep``-masked
+    past ``rem`` and, with ``stop_on_update``, after the first kept update.
 
-The ``EventState``-level step around the transition (statistics window,
-O(1) occupancy update) is :func:`repro_torch.core.events.step_event_lanes`,
-which takes either function as its ``table_step``.
+At the main path's sizes both are bound by their launch; their bytes (the
+table rows read and written once, one rate sector per gather, the scalars
+and descriptors) are tens of KB.
+
+  * :func:`event_step_tables` / :func:`megastep_tables` launch the CUDA
+    kernel for CUDA tensors (or raise) and run
+    :func:`event_step_tables_plain` / :func:`megastep_tables_plain` — the
+    same contract in PyTorch — for CPU tensors only.  Each wrapper's
+    ``launches`` counts its kernel's launches.
+
+The ``EventState``-level steps around the transitions (statistics window,
+O(1) occupancy update) are :func:`repro_torch.core.events.step_event_lanes`
+and :func:`repro_torch.core.events.megastep_event_lanes`.
 """
 from __future__ import annotations
 
@@ -106,41 +115,76 @@ def event_step_tables_plain(finish, phase, client, seq, disp_round, mu_c,
             int_col)
 
 
-def _launch(finish, phase, client, seq, disp_round, mu_c, mu_u, fscal, iscal,
-            has_cs: bool):
+def megastep_tables_plain(finish, phase, client, seq, disp_round, mu_c,
+                          mu_u, fscal, iscal, *, has_cs: bool, chunk: int,
+                          stop_on_update: bool = False):
+    """Up to ``chunk`` events per lane in PyTorch — the contract of the CUDA
+    megastep kernel and of the JAX package's ``_megastep_kernel``: event
+    ``i`` is :func:`event_step_tables_plain` on the held table, kept when
+    ``keep_i = (i < rem) & ~done``.  A masked event still computes its
+    transition and descriptors, and the table and counters are held."""
+    K = finish.shape[0]
+    tbl = (finish, phase, client, seq, disp_round)
+    seq_ctr, rnd, rem = iscal[:, 0], iscal[:, 1], iscal[:, 2]
+    done = torch.zeros(K, dtype=torch.bool, device=finish.device)
+    ts, descs = [], []
+    for i in range(chunk):
+        one = torch.stack([iscal[:, 3 + i], seq_ctr, rnd], dim=-1)
+        *tbl2, t_col, d = event_step_tables_plain(
+            *tbl, mu_c, mu_u, fscal[:, 4 * i:4 * i + 4], one, has_cs=has_cs)
+        keep = (i < rem) & ~done
+        if stop_on_update:
+            done = done | (keep & (d[:, 2] > 0))
+        tbl = tuple(torch.where(keep[:, None], a, b)
+                    for a, b in zip(tbl2, tbl))
+        seq_ctr = torch.where(keep, d[:, 4], seq_ctr)
+        rnd = torch.where(keep, d[:, 5], rnd)
+        ts.append(t_col)
+        descs.append(torch.cat([d, keep[:, None].to(torch.int32)], dim=1))
+    return (*tbl, torch.cat(ts, dim=1), torch.cat(descs, dim=1))
+
+
+def _launch(symbol: str, counter, tables, n_f: int, n_i: int, n_t: int,
+            n_desc: int, flags):
+    """Check ``tables`` (the five ``[K, m_max]`` tables, the two ``[K, n]``
+    rate tables, ``fscal [K, n_f]`` and ``iscal [K, n_i]``), allocate the
+    outputs (five tables, ``[K, n_t]`` times, ``[K, n_desc]``
+    descriptors), launch ``csrc/events.cu``'s ``symbol`` with
+    ``(K, m_max, n, *flags)`` on the current stream and count the launch
+    on ``counter``."""
+    finish, mu_c = tables[0], tables[5]
     K, M = finish.shape
     n = mu_c.shape[1]
     if M < 1:
         raise ValueError("the task table needs at least one slot")
-    expect = [(finish, torch.float64, (K, M)), (phase, torch.int32, (K, M)),
-              (client, torch.int32, (K, M)), (seq, torch.int32, (K, M)),
-              (disp_round, torch.int32, (K, M)),
-              (mu_c, torch.float64, (K, n)), (mu_u, torch.float64, (K, n)),
-              (fscal, torch.float64, (K, 4)), (iscal, torch.int32, (K, 3))]
+    expect = ([torch.float64] + [torch.int32] * 4 + [torch.float64] * 3
+              + [torch.int32])
+    shapes = [(K, M)] * 5 + [(K, n)] * 2 + [(K, n_f), (K, n_i)]
     args = []
-    for x, dtype, shape in expect:
+    for x, dtype, shape in zip(tables, expect, shapes):
         if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"event_step_tables: got {x.dtype} "
-                             f"{tuple(x.shape)}, expected {dtype} {shape}")
+            raise ValueError(f"{symbol}: got {x.dtype} {tuple(x.shape)}, "
+                             f"expected {dtype} {shape}")
         if x.device != finish.device:
-            raise ValueError("event_step_tables: inputs on different devices")
+            raise ValueError(f"{symbol}: inputs on different devices")
         args.append(x.contiguous())
-    out = [torch.empty((K, M), dtype=torch.float64, device=finish.device)]
-    out += [torch.empty((K, M), dtype=torch.int32, device=finish.device)
+    dev = finish.device
+    out = [torch.empty((K, M), dtype=torch.float64, device=dev)]
+    out += [torch.empty((K, M), dtype=torch.int32, device=dev)
             for _ in range(4)]
-    out += [torch.empty((K, 1), dtype=torch.float64, device=finish.device),
-            torch.empty((K, 9), dtype=torch.int32, device=finish.device)]
-    fn = build.load("events").event_step
+    out += [torch.empty((K, n_t), dtype=torch.float64, device=dev),
+            torch.empty((K, n_desc), dtype=torch.int32, device=dev)]
+    ints = (K, M, n) + tuple(int(f) for f in flags)
+    fn = getattr(build.load("events"), symbol)
     if not fn.argtypes:  # the library caches its function objects
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * (len(args) + len(out))
+                       + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    with torch.cuda.device(finish.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*[a.data_ptr() for a in args + out], K, M, n, int(has_cs),
-                 stream)
-    build.check(err, "event_step launch")
-    event_step_tables.launches += 1
+        err = fn(*[a.data_ptr() for a in args + out], *ints, stream)
+    build.check(err, f"{symbol} launch")
+    counter.launches += 1
     return tuple(out)
 
 
@@ -156,8 +200,9 @@ def event_step_tables(finish, phase, client, seq, disp_round, mu_c, mu_u,
     do_comp, do_cs]`` int32 ``[K, 9]``.
     """
     if finish.is_cuda:
-        return _launch(finish, phase, client, seq, disp_round, mu_c, mu_u,
-                       fscal, iscal, has_cs)
+        return _launch("event_step", event_step_tables,
+                       (finish, phase, client, seq, disp_round, mu_c, mu_u,
+                        fscal, iscal), 4, 3, 1, 9, (has_cs,))
     if finish.device.type == "cpu":
         return event_step_tables_plain(finish, phase, client, seq, disp_round,
                                        mu_c, mu_u, fscal, iscal,
@@ -167,3 +212,34 @@ def event_step_tables(finish, phase, client, seq, disp_round, mu_c, mu_u,
 
 event_step_tables.launches = 0
 
+
+def megastep_tables(finish, phase, client, seq, disp_round, mu_c, mu_u,
+                    fscal, iscal, *, has_cs: bool, chunk: int,
+                    stop_on_update: bool = False):
+    """Up to ``chunk`` events per lane on ``K`` stacked task tables, one
+    launch.
+
+    Tables and rates as :func:`event_step_tables`; ``fscal`` float64
+    ``[K, 4 * chunk]`` holds ``[e_up, e_comp, svc_down, svc_cs]`` per event
+    and ``iscal`` int32 ``[K, 3 + chunk]`` holds ``[seq_ctr, round, rem]``
+    and then the routed client of each event.  Returns the five tables
+    after the kept events, the event times ``[K, chunk]`` and the
+    descriptors ``[K, 10 * chunk]``: per event the nine of
+    :func:`event_step_tables` and ``keep``.
+    """
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if finish.is_cuda:
+        return _launch("megastep", megastep_tables,
+                       (finish, phase, client, seq, disp_round, mu_c, mu_u,
+                        fscal, iscal), 4 * chunk, 3 + chunk, chunk,
+                       10 * chunk, (has_cs, chunk, stop_on_update))
+    if finish.device.type == "cpu":
+        return megastep_tables_plain(finish, phase, client, seq, disp_round,
+                                     mu_c, mu_u, fscal, iscal, has_cs=has_cs,
+                                     chunk=chunk,
+                                     stop_on_update=stop_on_update)
+    raise ValueError(f"no megastep kernel for device {finish.device}")
+
+
+megastep_tables.launches = 0

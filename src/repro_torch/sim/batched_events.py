@@ -1,17 +1,19 @@
 """Lane-batched simulation: K independent lanes advance in lock-step, one
-event per lane per step (port of ``repro.sim.batched_events``; one event
-per step, no telemetry rings).
+event or one megastep of ``chunk`` events per lane per step (port of
+``repro.sim.batched_events``; no telemetry rings).
 
   * ``"reference"`` — each lane runs alone (``K = 1``) and the results are
     stacked;
   * ``"batched"``   — all lanes in one ``[K, ...]`` state through the plain
     PyTorch table transition;
   * ``"kernel"``    — the same loop with the transition in the CUDA event
-    kernel.
+    kernel (``chunk = 1``) or the CUDA megastep kernel.
 
 Each lane draws from its own ``torch.Generator``, in blocks of
-:data:`DRAW_EVENTS` events, so a lane run alone and the same lane among
-others consume identical draws: lanes equal singles bitwise.
+``draw_events`` events (:data:`DRAW_EVENTS` by default) through an
+:class:`repro_torch.core.events.EventStream`, so a lane run alone and the
+same lane among others, at any ``chunk``, consume identical draws: lanes
+equal singles and every ``chunk`` equals ``chunk = 1``, bitwise.
 """
 from __future__ import annotations
 
@@ -21,27 +23,28 @@ import torch
 
 from ..core import events
 from ..core.buzen import NetworkParams
-from ..core.events import EventStats, finalize_stats, lane, stack_lanes
-from ..core.numerics import seqcumsum
+from ..core.events import (DRAW_EVENTS, EventStats, finalize_stats, lane,
+                           stack_lanes)
 from ..scenario.laws import get_law
 from .backend import resolve_backend
-
-DRAW_EVENTS = 1024  # events drawn per block and lane (bounds block memory)
 
 
 def run_lanes(lane_params: NetworkParams, ms, generators, num_updates: int,
               *, warmup: int, distribution: str, m_max: int, power=None,
-              backend: str = "batched") -> EventStats:
+              backend: str = "batched", chunk: int = 1,
+              draw_events: int = DRAW_EVENTS) -> EventStats:
     """The lock-step loop: ``lane_params``/``power`` lane-stacked, one
-    concurrency and one generator per lane.  ``"reference"`` runs the lanes
-    one at a time through the same loop."""
+    concurrency and one generator per lane; ``ceil(num_events / chunk)``
+    steps of ``chunk`` events, the events past ``num_events`` masked.
+    ``"reference"`` runs the lanes one at a time through the same loop."""
     if backend == "reference":
         outs = [run_lanes(stack_lanes([lane(lane_params, i)]), [ms[i]],
                           [generators[i]], num_updates, warmup=warmup,
                           distribution=distribution, m_max=m_max,
                           power=None if power is None
                           else stack_lanes([lane(power, i)]),
-                          backend="batched")
+                          backend="batched", chunk=chunk,
+                          draw_events=draw_events)
                 for i in range(len(generators))]
         return stack_lanes([lane(o, 0) for o in outs])
     mult = 4 if lane_params.mu_cs is not None else 3
@@ -52,19 +55,11 @@ def run_lanes(lane_params: NetworkParams, ms, generators, num_updates: int,
         events.init_state(prm, m, g, m_max=m_max, distribution=distribution,
                           warmup=warmup, cap=cap)
         for prm, m, g in zip(singles, ms, generators)])
-    # the routing CDF is loop-invariant: one sequential prefix per lane
-    prefixes = [seqcumsum(prm.p) for prm in singles]
-    done = 0
-    while done < num_events:
-        chunk = min(DRAW_EVENTS, num_events - done)
-        blocks = events.stack_blocks([
-            events.draw_event_blocks(prm, g, chunk, distribution=distribution,
-                                     route_prefix=pre)
-            for prm, g, pre in zip(singles, generators, prefixes)])
-        st = events.run_event_blocks(lane_params, st, blocks,
-                                     distribution=distribution, power=power,
-                                     backend=backend)
-        done += chunk
+    stream = events.EventStream(singles, generators,
+                                distribution=distribution, block=draw_events,
+                                total=num_events)
+    st = events.run_events(lane_params, st, stream, num_events, chunk=chunk,
+                           power=power, backend=backend)
     return finalize_stats(st)
 
 
@@ -72,7 +67,8 @@ def simulate_stats_lanes(params, ms, num_updates: int, *, warmup: int = 0,
                          generators=None, seeds=None,
                          distribution: str = "exponential", power=None,
                          m_max: Optional[int] = None,
-                         backend: Optional[str] = None) -> EventStats:
+                         backend: Optional[str] = None, chunk: int = 1,
+                         draw_events: int = DRAW_EVENTS) -> EventStats:
     """Stationary statistics for ``L`` lanes through the selected backend.
 
     ``params`` is a list of per-lane :class:`NetworkParams` (or one
@@ -80,7 +76,10 @@ def simulate_stats_lanes(params, ms, num_updates: int, *, warmup: int = 0,
     concurrencies; ``generators`` one ``torch.Generator`` per lane, or
     ``seeds`` to seed fresh ones on the params' device (default
     ``0..L-1``); ``power`` ``None``, one shared profile or a per-lane
-    list.  Returns :class:`EventStats` with a leading ``[L]`` lane axis.
+    list.  ``chunk`` events retire per step (megasteps; the statistics are
+    bitwise those of ``chunk = 1``) and each lane draws its randomness in
+    blocks of ``draw_events``.  Returns :class:`EventStats` with a leading
+    ``[L]`` lane axis.
     """
     get_law(distribution)  # eager: unknown laws fail listing the options
     backend = resolve_backend(backend)
@@ -104,4 +103,5 @@ def simulate_stats_lanes(params, ms, num_updates: int, *, warmup: int = 0,
             power = stack_lanes([power] * L)
     return run_lanes(lane_params, ms, generators, int(num_updates),
                      warmup=int(warmup), distribution=distribution,
-                     m_max=m_max, power=power, backend=backend)
+                     m_max=m_max, power=power, backend=backend,
+                     chunk=int(chunk), draw_events=int(draw_events))

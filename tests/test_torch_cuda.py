@@ -7,7 +7,8 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
 Tolerances: the Buzen kernel within ``rtol/atol 2e-5`` of its plain float32
 version (same arithmetic, other rounding: fused multiply-adds and another
-reduction order); the event kernel bitwise (IEEE division, no contraction).
+reduction order); the event and megastep kernels bitwise (IEEE division, no
+contraction).
 """
 import numpy as np
 import pytest
@@ -82,6 +83,74 @@ def test_event_kernel_matches_plain_bitwise(cuda, has_cs, m_max):
         assert torch.equal(g, w)
 
 
+def _mega_tables(seed, K, m_max, n, has_cs, chunk, law):
+    """Random tables (clock and seq ties) and the scalars of ``chunk``
+    events; the deterministic law's unit variates are 1 and its rates come
+    from a small set, so clocks also tie after transitions."""
+    rng = np.random.default_rng(seed)
+    finish, phase, client, seq, disp = _tables(seed, K, m_max, n,
+                                               has_cs)[:5]
+    if law == "deterministic":
+        mu_c = rng.choice([1.0, 2.0], (K, n))
+        mu_u = rng.choice([1.0, 2.0], (K, n))
+        fscal = np.tile([1.0, 1.0, 0.5, 0.5], (K, chunk))
+    else:
+        mu_c = rng.uniform(0.3, 4.0, (K, n))
+        mu_u = rng.uniform(0.3, 4.0, (K, n))
+        fscal = rng.exponential(size=(K, 4 * chunk))
+    rem = rng.integers(0, chunk + 1, (K, 1))
+    rem[1] = chunk
+    iscal = np.concatenate([rng.integers(10, 20, (K, 1)),
+                            rng.integers(30, 40, (K, 1)), rem,
+                            rng.integers(0, n, (K, chunk))],
+                           axis=1).astype(np.int32)
+    return finish, phase, client, seq, disp, mu_c, mu_u, fscal, iscal
+
+
+@pytest.mark.parametrize("law", ["exponential", "deterministic"])
+@pytest.mark.parametrize("stop_on_update", [False, True])
+@pytest.mark.parametrize("has_cs", [False, True])
+@pytest.mark.parametrize("chunk,m_max", [(1, 132), (7, 12), (7, 1000),
+                                         (32, 132)])
+def test_megastep_kernel_matches_plain_bitwise(cuda, chunk, m_max, has_cs,
+                                               stop_on_update, law):
+    args = [torch.as_tensor(a, device=cuda)
+            for a in _mega_tables(chunk + m_max, 64, m_max, 100, has_cs,
+                                  chunk, law)]
+    kw = dict(has_cs=has_cs, chunk=chunk, stop_on_update=stop_on_update)
+    want = ke.megastep_tables_plain(*args, **kw)
+    before = ke.megastep_tables.launches
+    got = ke.megastep_tables(*args, **kw)
+    torch.cuda.synchronize()
+    assert ke.megastep_tables.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("has_cs", [False, True])
+def test_megastep_launch_equals_event_launches(cuda, has_cs):
+    chunk = 8
+    (finish, phase, client, seq, disp, mu_c, mu_u, fscal, iscal) = [
+        torch.as_tensor(a, device=cuda)
+        for a in _mega_tables(3, 32, 132, 100, has_cs, chunk,
+                              "deterministic")]
+    iscal[:, 2] = chunk
+    got = ke.megastep_tables(finish, phase, client, seq, disp, mu_c, mu_u,
+                             fscal, iscal, has_cs=has_cs, chunk=chunk)
+    tbl = (finish, phase, client, seq, disp)
+    seq_ctr, rnd = iscal[:, 0], iscal[:, 1]
+    for i in range(chunk):
+        one = torch.stack([iscal[:, 3 + i], seq_ctr, rnd], dim=-1)
+        *tbl, t, d = ke.event_step_tables(*tbl, mu_c, mu_u,
+                                          fscal[:, 4 * i:4 * i + 4], one,
+                                          has_cs=has_cs)
+        seq_ctr, rnd = d[:, 4], d[:, 5]
+        assert torch.equal(got[5][:, i], t[:, 0])
+        assert torch.equal(got[6][:, 10 * i:10 * i + 9], d)
+    for g, w in zip(got[:5], tbl):
+        assert torch.equal(g, w)
+
+
 def test_lane_backends_bitwise_on_the_card(cuda):
     rng = np.random.default_rng(3)
     t = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
@@ -97,3 +166,8 @@ def test_lane_backends_bitwise_on_the_card(cuda):
                                 **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    for chunk in (8, 32):
+        mega = simulate_stats_lanes(prms, [8, 9, 10, 11], 300,
+                                    backend="kernel", chunk=chunk, **kw)
+        for g, w in zip(mega, want):
+            assert torch.equal(g, w)
