@@ -24,12 +24,12 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
   4. the main path at the paper's size (Table 1, n = 100): the closed forms
      in float64, ``time_optimal(m_max=132, steps=200)`` on the ``kernel``
      and ``torch`` Buzen backends (the sweep values within rtol 1e-4);
-     ``simulate_stats_lanes`` at the optimum on 6 seed lanes (4,000 updates
+     ``simulate_stats_lanes`` at the optimum on 6 seed lanes (2,000 updates
      after 400 of warm-up) on the ``batched`` backend and on the ``kernel``
      backend at chunk E = 1, 8 and 32, at m* and at m = 132 (every
      statistic bitwise equal across backends and E; lane-mean throughput
-     within 10% of Prop. 4), a shorter run with a power profile at E = 1
-     and 32 (bitwise), and ``next_update`` on 6 lanes for 200 updates at
+     within 10% of Prop. 4), a run of 500 updates with a power profile at
+     E = 1 and 32 (bitwise), and ``next_update`` on 6 lanes for 200 updates at
      chunk 1 and 8 (the updates and final states bitwise).  The kernels'
      launch counters are zeroed just before this phase and read just after
      it: each kernel must have launched;
@@ -40,9 +40,32 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      counts the host's launch overhead;
   6. the device-busy share of short windows of the sweep and the lane
      simulation on each backend and at E = 1, 8 and 32 (profiler device
-     time over wall time), with the wall time per lock-step event, and of
+     time over the wall time of the same traced call), with the wall time
+     per lock-step event of an untraced call, and of
      the ``kernel`` lane simulation with a power profile (the energy
-     integral on; its trajectory must equal the run without power).
+     integral on; its trajectory must equal the run without power);
+  7. training: the paper's EMNIST CNN at full width (408,767 parameters)
+     on the synthetic EMNIST fallback (47 classes x 200 samples, a 0.2
+     test split, a Dirichlet(0.2) partition over Table 1's n = 100
+     clients), batch 32, ``grad_clip`` 5, through ``run_strategy_grid``:
+     ``asyncsgd`` (uniform p, m = n) and ``time_opt`` (phase 4's
+     ``(p*, m*)``) x 2 seeds = 4 lanes, ``sim_backend="kernel"``,
+     ``sim_chunk=8``, horizon 400 / lambda(p*, m*).  The counts are zeroed
+     just before this run and read just after it: the fused update launches
+     once per update round and the megastep kernel on every
+     ``next_update``.  The same grid with the apply done in plain PyTorch
+     (``w - s * g`` in place of the kernel's wrapper) gives bitwise the
+     same final parameters and logs, and at
+     ``sim_chunk=1`` (the event kernel) bitwise the same; every loss is
+     finite and each ``time_opt`` lane ends below its loss at t = 0.  Then
+     the wall ms per update round split into ``next_update``, gradients
+     and apply, and the device-busy share of a shorter window (device
+     time and wall time from one traced run).
+
+Phase 3 also holds the fused-update kernel against its plain version
+(bitwise on the new parameters, ``rtol 1e-5`` on the squared norm) at
+N = 408,767 and ragged sizes, float32 and bfloat16, 1 and 4 lanes; phase 5
+times it at the trainer's shape (4 lanes x 408,767 float32).
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -54,6 +77,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -131,11 +155,13 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device time per call of ``fn()``: the CUDA kernels' device time
-    in a ``torch.profiler`` trace of ``reps`` calls (0.0 if the profiler
-    recorded no device activity).  Only device activity is traced: a trace
-    of the host's operations costs minutes to process for the lane
+def traced(fn, reps: int = 1, top: int = 0):
+    """``reps`` calls of ``fn()`` under a ``torch.profiler`` trace: ``(the
+    last call's result, wall ms, device ms)`` over all the calls, both
+    times from this one traced run (device ms 0.0 if the profiler recorded
+    no device activity); with ``top`` it also prints the ``top`` kernels of
+    the trace by device time.  Only device activity is traced: a trace of
+    the host's operations costs minutes to process for the lane
     simulation's hundreds of thousands of small operations."""
     import warnings
 
@@ -143,16 +169,190 @@ def device_ms(fn, reps: int) -> float:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     warnings.filterwarnings("ignore", message="Warning: Profiler clears")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / 1e3 / reps
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    for e in kernels[:top]:
+        log(f"  {e.self_device_time_total / 1e3:10.1f} ms {e.count:7d} x "
+            f"{e.key[:110]}")
+    return out, wall_ms, total_us / 1e3
+
+
+def busy_share(wall_ms: float, busy_ms: float) -> str:
+    """The device-busy share of one traced run, as printed."""
+    if busy_ms <= 0:
+        return "not measured (no device trace)"
+    return (f"{busy_ms:.1f} ms of the traced run's {wall_ms:.1f} ms "
+            f"({100 * busy_ms / wall_ms:.1f}%)")
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time per call of ``fn()`` over a traced run of ``reps``
+    calls after one untraced call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    return traced(fn, reps)[2] / reps
+
+
+def train_phase(dev, net, n, p_star, m_star, lam_star) -> dict:
+    """Phase 7 (see the module docstring); returns the fused-update
+    kernel's record with its launches on this phase's main run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import (dirichlet_partition, load_emnist,
+                                  train_test_split)
+    from repro_torch.fl import (AsyncFLConfig, DeviceTrainer, cnn_classifier,
+                                run_strategy_grid)
+    from repro_torch.fl import engine as fl_engine
+    from repro_torch.kernels import buzen as kb
+    from repro_torch.kernels import events as ke
+    from repro_torch.kernels import fused_update as kf
+    from repro_torch.scenario.spec import DEFAULT_ETA
+
+    t0 = time.perf_counter()
+    train, test = train_test_split(
+        load_emnist(num_classes=47, samples_per_class=200), 0.2)
+    clients = [(train.x[i], train.y[i])
+               for i in dirichlet_partition(train.y, n, alpha=0.2)]
+    strategies = {"asyncsgd": (np.full(n, 1.0 / n), n),
+                  "time_opt": (p_star.p, m_star)}
+    horizon = 400.0 / lam_star
+    seeds = (0, 1)
+    log(f"phase 7: data ready in {time.perf_counter() - t0:.2f} s: "
+        f"{len(train.y)} train / {len(test.y)} test samples over {n} "
+        f"clients (sizes {min(len(y) for _, y in clients)}.."
+        f"{max(len(y) for _, y in clients)}); horizon {horizon:.6g} "
+        f"(400 / lambda(p*, m*={m_star}) = 400 / {lam_star:.6g})")
+
+    def trainer(chunk):
+        cfg = AsyncFLConfig(eta=DEFAULT_ETA, batch_size=32, grad_clip=5.0,
+                            eval_every_time=horizon / 40)
+        return DeviceTrainer(cnn_classifier(28, 47, device=dev), clients,
+                             net, cfg, test_data=(test.x, test.y),
+                             sim_backend="kernel", sim_chunk=chunk,
+                             device=dev)
+
+    def grid(tr, h=horizon):
+        t0 = time.perf_counter()
+        res = run_strategy_grid(tr.model, clients, net, strategies, tr.cfg,
+                                horizon_time=h, seeds=seeds, trainer=tr)
+        torch.cuda.synchronize()
+        logs = [lg for name in strategies for lg in res.logs[name]]
+        rounds = max(lg.updates[-1] for lg in logs) + 1
+        return res, logs, rounds, time.perf_counter() - t0
+
+    def same(a, b):
+        return torch.equal(a[0].final_params, b[0].final_params) and all(
+            x.times == y.times and x.losses == y.losses
+            and x.accuracies == y.accuracies and x.updates == y.updates
+            and x.throughput == y.throughput and x.energy == y.energy
+            and np.array_equal(x.mean_delay, y.mean_delay)
+            for x, y in zip(a[1], b[1]))
+
+    tr = trainer(8)
+    check(sum(p.numel() for p in tr.model.parameters()) == 408767,
+          "the CNN is not at full width")
+    for counted in (kb.buzen_batched, ke.event_step_tables,
+                    ke.megastep_tables, kf.fused_async_update_flat):
+        counted.launches = 0
+    main = grid(tr)
+    launches = {"fused_update": kf.fused_async_update_flat.launches,
+                "megastep": ke.megastep_tables.launches,
+                "event_step": ke.event_step_tables.launches,
+                "buzen": kb.buzen_batched.launches}
+    res, logs, rounds, wall = main
+    log(f"phase 7: run_strategy_grid 4 lanes (fused update, chunk 8): "
+        f"{rounds} update rounds in {wall:.2f} s "
+        f"({1e3 * wall / rounds:.3f} ms per round, eval included); "
+        f"updates per lane {[lg.updates[-1] for lg in logs]}; launches "
+        f"{launches}")
+    for name, (p, m) in strategies.items():
+        p = np.asarray(torch.as_tensor(p).cpu())
+        for seed, lg in zip(seeds, res.logs[name]):
+            log(f"phase 7: {name} (m={m}) seed {seed}: loss "
+                f"{lg.losses[0]:.4f} -> {lg.losses[-1]:.4f}, accuracy "
+                f"{lg.accuracies[0]:.4f} -> {lg.accuracies[-1]:.4f}, "
+                f"throughput {lg.throughput:.6g}, sum p_i E0[R_i] "
+                f"{float(np.sum(p * lg.mean_delay)):.4f}")
+    check(launches["fused_update"] == rounds,
+          f"fused update launched {launches['fused_update']} times for "
+          f"{rounds} update rounds")
+    check(launches["megastep"] >= rounds and launches["event_step"] == 0,
+          f"megastep kernel not on every next_update: {launches}")
+    check(all(np.isfinite(lg.losses).all() for lg in logs),
+          "a training loss is not finite")
+    check(all(lg.losses[-1] < lg.losses[0] for lg in res.logs["time_opt"]),
+          "a time_opt lane did not lower its loss")
+
+    with mock.patch.object(fl_engine, "fused_async_update_flat",
+                           lambda w, g, s: (w - s[:, None] * g, None)):
+        plain = grid(trainer(8))
+    check(same(main, plain), "training with the plain update != fused")
+    ke.event_step_tables.launches = 0
+    single = grid(trainer(1))
+    check(same(main, single), "training at sim_chunk 1 != sim_chunk 8")
+    check(ke.event_step_tables.launches > 0,
+          "the event kernel did not launch at sim_chunk 1")
+    log(f"phase 7: plain update ({plain[3]:.2f} s) and sim_chunk 1 "
+        f"({single[3]:.2f} s, {ke.event_step_tables.launches} event kernel "
+        f"launches): final parameters and logs bitwise the main run's")
+
+    # where an update round's wall time goes: each part synchronised
+    tr = trainer(8)
+    spent = {"next_update": 0.0, "gradients": 0.0, "apply": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    next_update = fl_engine.next_update
+    fl_engine.next_update = timed(next_update, "next_update")
+    tr._grad = timed(tr._grad, "gradients")
+    tr._apply = timed(tr._apply, "apply")
+    try:
+        split = grid(tr)
+    finally:
+        fl_engine.next_update = next_update
+    check(same(main, split), "the timed run differs from the main run")
+    rounds = split[2]
+    log(f"phase 7: wall ms per update round (4 lanes, each part "
+        f"synchronised; {rounds} rounds, {split[3]:.2f} s in all): "
+        + ", ".join(f"{k} {1e3 * v / rounds:.3f}" for k, v in spent.items())
+        + f", rest {1e3 * (split[3] - sum(spent.values())) / rounds:.3f}")
+
+    tr = trainer(8)
+    window = horizon / 8
+    grid(tr, window)
+    torch.cuda.synchronize()
+    log("phase 7: the training window's top kernels by device time:")
+    (_, _, w_rounds, _), wall_ms, busy_ms = traced(
+        lambda: grid(tr, window), top=8)
+    log(f"phase 7: traced training window (horizon {window:.6g}, "
+        f"{w_rounds} rounds): wall {wall_ms:.1f} ms, "
+        f"{wall_ms / w_rounds:.3f} ms per round, device busy "
+        f"{busy_share(wall_ms, busy_ms)}")
+    return {"name": "fused_update", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_update.cu",
+            "replaces": "src/repro/kernels/fused_update.py:28",
+            "launches": launches["fused_update"]}
 
 
 def main() -> int:
@@ -175,6 +375,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import buzen as kb
     from repro_torch.kernels import events as ke
+    from repro_torch.kernels import fused_update as kf
     from repro_torch.scenario.spec import (PAPER_CLUSTERS_TABLE1,
                                            LearningSpec, NetworkSpec)
     from repro_torch.sim import simulate_stats_lanes
@@ -307,6 +508,28 @@ def main() -> int:
           "megastep tables != event kernel tables")
     log(f"phase 3: one megastep launch (chunk {chunk}) == {chunk} event "
         f"kernel launches, bitwise")
+    fused_err = fused_rel = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for N in (408767, 1, 4097, 1001):
+            for L in (1, 4):
+                w = torch.randn(L, N, device=dev).to(dtype)
+                g = torch.randn(L, N, device=dev).to(dtype)
+                sc = torch.rand(L, device=dev)
+                got, sq = kf.fused_async_update_flat(w, g, sc)
+                want, want_sq = kf.fused_async_update_flat_plain(w, g, sc)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"fused update kernel vs plain ({dtype}, N={N}, "
+                      f"L={L}): new parameters differ")
+                rel = float(((sq - want_sq).abs() / want_sq.abs()).max())
+                check(rel <= 1e-5, f"fused update kernel vs plain ({dtype}, "
+                      f"N={N}, L={L}): squared norm rel err {rel}")
+                fused_err = max(fused_err, float(
+                    (got.float() - want.float()).abs().max()))
+                fused_rel = max(fused_rel, rel)
+    log(f"phase 3: fused update kernel == plain bitwise on w' (float32 and "
+        f"bfloat16, N = 408767, 1, 4097, 1001, L = 1, 4); squared norm max "
+        f"rel err {fused_rel:.3g}")
 
     # -- 4. the main path at the paper's size ------------------------------
     kb.buzen_batched.launches = 0
@@ -351,7 +574,7 @@ def main() -> int:
     sim_kw = dict(warmup=400, seeds=range(6))
     sim_ms = {}  # wall ms per lock-step event
 
-    def simulate(m, be, chunk, updates=4000, **kw):
+    def simulate(m, be, chunk, updates=2000, **kw):
         t0 = time.perf_counter()
         out = simulate_stats_lanes([p_star] * 6, [m] * 6, updates,
                                    backend=be, chunk=chunk, **sim_kw, **kw)
@@ -384,8 +607,8 @@ def main() -> int:
             f"throughput lanes {lam_sim:.6g} vs Prop. 4 {lam:.6g}")
     ones = torch.ones(n, dtype=torch.float64, device=dev)
     power = PowerProfile(P_c=2.0 * ones, P_u=ones, P_d=0.5 * ones)
-    pw1 = simulate(m_star, "kernel", 1, updates=1000, power=power)
-    pw32 = simulate(m_star, "kernel", 32, updates=1000, power=power)
+    pw1 = simulate(m_star, "kernel", 1, updates=500, power=power)
+    pw32 = simulate(m_star, "kernel", 32, updates=500, power=power)
     check(all(torch.equal(a, b) for a, b in zip(pw1, pw32)),
           "simulate with power: E=32 != E=1")
     check(bool(torch.isfinite(pw1.energy).all() and (pw1.energy > 0).all()),
@@ -476,6 +699,14 @@ def main() -> int:
                                                        chunk=c),
             lambda a=args, c=chunk: ke.megastep_tables_plain(
                 *a, has_cs=False, chunk=c), 200, 5)
+    # the fused update as the trainer calls it: 4 lanes of the CNN
+    L4, N4 = 4, 408767
+    fu_args = (torch.randn(L4, N4, device=dev),
+               torch.randn(L4, N4, device=dev), torch.rand(L4, device=dev))
+    calls["fused_update"] = (lambda: kf.fused_async_update_flat(*fu_args),
+                             lambda: kf.fused_async_update_flat_plain(
+                                 *fu_args), 200, 50)
+    labels["fused_update"] = f"[{L4}x{N4}] float32"
     times = {}
     for name, (kern, plain, rk, rp) in calls.items():
         times[name] = {"kernel": (device_ms(kern, rk), time_ms(kern, rk)),
@@ -528,11 +759,18 @@ def main() -> int:
         "plain_ms": times[rec_key]["plain"][pick],
         "bound_ms": 1e3 * transition_bytes(m_star, 8, 10) / PEAK_BYTES,
         "bound_by": "bytes", "library_ms": None}
+    # w and g read once, w' written once, the scales in and the squared
+    # norms out; four float32 operations per element
+    fu_bytes = 3 * 4 * L4 * N4 + 2 * 4 * L4
+    fu_ops = 4 * L4 * N4
+    fu_bound_ms = 1e3 * max(fu_bytes / PEAK_BYTES, fu_ops / PEAK_F32_FLOPS)
     for name, t in times.items():
         extra = ""
         if name in mega_shapes:
             bound = transition_bytes(*mega_shapes[name], 10) / PEAK_BYTES
             extra = f"; bound {1e3 * bound:.6f} ms (bytes)"
+        if name == "fused_update":
+            extra = f"; bound {fu_bound_ms:.6f} ms (bytes)"
         log(f"phase 5: {name} {labels[name]}: "
             f"kernel device {t['kernel'][0]:.4f} ms / between events "
             f"{t['kernel'][1]:.4f} ms; plain device {t['plain'][0]:.4f} ms "
@@ -566,13 +804,11 @@ def main() -> int:
         results[name] = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-        busy_ms = device_ms(fn, 1)
-        busy = (f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)"
-                if busy_ms > 0 else "not measured (no device trace)")
+        _, traced_ms, busy_ms = traced(fn)
         per_event = (f", {wall_ms / events:.4f} ms per lock-step event"
                      if events else "")
-        log(f"phase 6: {name}: wall {wall_ms:.1f} ms{per_event}, device "
-            f"busy {busy}")
+        log(f"phase 6: {name}: wall {wall_ms:.1f} ms{per_event}; device "
+            f"busy {busy_share(traced_ms, busy_ms)}")
     # the energy integral rides along: same trajectory, finite energy
     plain_run = results["simulate[kernel, E=1] 6 lanes x 300 updates"]
     power_run = results["simulate[kernel, E=1, power] 6 lanes x 300 updates"]
@@ -588,8 +824,16 @@ def main() -> int:
             plain_run, results[f"simulate[kernel, E={chunk}] 6 lanes x 300 "
                                f"updates"])), f"window E={chunk} != E=1")
 
-    print(json.dumps({"kernels": [buzen_rec, event_rec, mega_rec]}),
-          flush=True)
+    # -- 7. training: AsyncSGD on the paper's CNN --------------------------
+    fused_rec = train_phase(dev, net, n, p_star, m_star, lam_star)
+    fused_rec.update({
+        "max_abs_err": fused_err,
+        "ms": times["fused_update"]["kernel"][pick],
+        "plain_ms": times["fused_update"]["plain"][pick],
+        "bound_ms": fu_bound_ms, "bound_by": "bytes", "library_ms": None})
+
+    print(json.dumps({"kernels": [buzen_rec, event_rec, mega_rec,
+                                  fused_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

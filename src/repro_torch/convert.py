@@ -3,7 +3,8 @@
 Each function takes a mapping of field name to numpy array (what
 ``{k: np.asarray(v) for k, v in obj._asdict().items()}`` gives on the JAX
 side; ``None`` for an absent optional field) and returns the port's
-``NamedTuple`` on ``device``, floats as ``dtype``.  Fields the port does
+``NamedTuple`` on ``device``, floats as ``dtype``; :func:`model_params`
+carries a model's weights across.  Fields the port does
 not carry (the PRNG ``key`` of an event state, the class ``member`` of an
 event block) are ignored.  Nothing here imports ``jax`` or ``repro``.
 """
@@ -84,3 +85,48 @@ def event_blocks(leaves: Mapping, *, device="cuda",
         up=_tensor(leaves["up"], device, dtype),
         comp=_tensor(leaves["comp"], device, dtype),
         svc_cs=_tensor(svc_cs, device, dtype))
+
+
+def model_params(leaves, model: torch.nn.Module) -> dict:
+    """The reference's parameter pytree (nested dicts and lists of numpy
+    arrays, as ``jax.tree_util.tree_map(np.asarray, params)`` gives) as the
+    port module's parameters: ``{name: tensor}`` in ``model``'s own order,
+    on its device and in its parameters' types (``model.load_state_dict``
+    takes it).
+
+    A dict key is a submodule name and the reference MLP's list of layers
+    is the port's ``layers``; conv kernels go from HWIO to OIHW, dense
+    ``w [in, out]`` stays as it is (the port's CNN flattens in the
+    reference's (H, W, C) order).
+    """
+    flat = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, prefix + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, prefix + (("layers",) if not prefix else ())
+                     + (str(i),))
+        else:
+            arr = np.array(node, dtype=np.float32)
+            flat[".".join(prefix)] = (arr.transpose(3, 2, 0, 1)
+                                      if arr.ndim == 4 else arr)
+
+    walk(leaves, ())
+    out = {}
+    for name, p in model.named_parameters():
+        if name not in flat:
+            raise ValueError(f"no reference leaf for parameter {name!r}; "
+                             f"got {sorted(flat)}")
+        arr = flat.pop(name)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: reference shape {arr.shape}, port "
+                             f"shape {tuple(p.shape)}")
+        out[name] = torch.as_tensor(np.ascontiguousarray(arr),
+                                    device=p.device).to(p.dtype)
+    if flat:
+        raise ValueError(f"reference leaves with no parameter: "
+                         f"{sorted(flat)}")
+    return out

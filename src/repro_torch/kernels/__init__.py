@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``csrc/*.cu``, ``sm_90a``), each
 with a plain PyTorch version beside it and a launch counter on its
-wrapper: :mod:`.buzen` (the batched Buzen DP) and :mod:`.events` (the event
-engine's table transition, one event or a megastep per launch).  Nothing is built at import: :mod:`.build`
-compiles a kernel's library at its first launch."""
+wrapper: :mod:`.buzen` (the batched Buzen DP), :mod:`.events` (the event
+engine's table transition, one event or a megastep per launch) and
+:mod:`.fused_update` (the trainer's server-side update fused with the
+gradient norm).  Nothing is built at import: :mod:`.build` compiles a
+kernel's library at its first launch."""

@@ -23,9 +23,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# per-source extra flags; the event step must not contract mul-adds, so its
-# f64 arithmetic is bitwise its plain PyTorch version
-FLAGS = {"buzen": [], "events": ["-fmad=false"]}
+# per-source extra flags; the event step and the fused update must not
+# contract mul-adds, so their arithmetic is bitwise their plain PyTorch
+# versions
+FLAGS = {"buzen": [], "events": ["-fmad=false"],
+         "fused_update": ["-fmad=false"]}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

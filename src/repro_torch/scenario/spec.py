@@ -1,8 +1,8 @@
 """The parts of the declarative Scenario spec that the main path touches
 (port of ``repro.scenario.spec``): the cluster rows of the paper's Table 1,
-the per-client :class:`NetworkSpec` built from them, and the default
-learning constants.  JSON round-trips, hashing, class networks and
-``ScenarioSuite`` are not ported yet.
+the per-client :class:`NetworkSpec` built from them, the default learning
+constants and the paper's step sizes.  JSON round-trips, hashing, class
+networks and ``ScenarioSuite`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,6 +17,10 @@ from ..core.complexity import LearningConstants
 from ..core.numerics import DTYPE
 from .registry import TIMING_LAWS
 
+# The paper's step sizes for the Table-3 comparison: max-throughput needs a
+# reduced learning rate to stay stable (Section 5.3).
+DEFAULT_ETA = 0.05
+MAX_THROUGHPUT_ETA = 0.01
 
 @dataclasses.dataclass(frozen=True)
 class ClusterSpec:

@@ -8,7 +8,10 @@ imports no JAX, so it also runs where only PyTorch is installed:
 Tolerances: the Buzen kernel within ``rtol/atol 2e-5`` of its plain float32
 version (same arithmetic, other rounding: fused multiply-adds and another
 reduction order); the event and megastep kernels bitwise (IEEE division, no
-contraction).
+contraction); the fused update bitwise on the new parameters (a rounded
+multiply, then a rounded subtract) and within ``rtol 1e-5`` on the squared
+gradient norm (another summation order), and the trainer with it bitwise
+the trainer without it.
 """
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ from repro_torch.core import events as E
 from repro_torch.core.buzen import NetworkParams
 from repro_torch.kernels import buzen as kb
 from repro_torch.kernels import events as ke
+from repro_torch.kernels import fused_update as kf
 from repro_torch.sim import simulate_stats_lanes
 
 pytestmark = pytest.mark.cuda
@@ -171,3 +175,66 @@ def test_lane_backends_bitwise_on_the_card(cuda):
                                     backend="kernel", chunk=chunk, **kw)
         for g, w in zip(mega, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 4])
+@pytest.mark.parametrize("N", [1, 4096, 4097, 408767])
+def test_fused_update_kernel_matches_plain(cuda, N, L, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(N + L)
+    w = torch.randn((L, N), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((L, N), generator=gen, device=cuda).to(dtype)
+    scale = torch.rand(L, generator=gen, device=cuda)
+    want, want_sq = kf.fused_async_update_flat_plain(w, g, scale)
+    before = kf.fused_async_update_flat.launches
+    got, sq = kf.fused_async_update_flat(w, g, scale)
+    torch.cuda.synchronize()
+    assert kf.fused_async_update_flat.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, want)
+    torch.testing.assert_close(sq, want_sq, rtol=1e-5, atol=0.0)
+    again, sq2 = kf.fused_async_update_flat(w, g, scale)
+    assert torch.equal(again, got) and torch.equal(sq2, sq)  # deterministic
+    if L == 1:  # the flat form
+        flat, flat_sq = kf.fused_async_update_flat(w[0], g[0], scale[0])
+        assert torch.equal(flat, got[0]) and torch.equal(flat_sq, sq[0])
+
+
+def test_trainer_fused_update_bitwise_on_the_card(cuda, monkeypatch):
+    from repro_torch.data import iid_partition, make_synthetic_image_dataset
+    from repro_torch.fl import AsyncFLConfig, DeviceTrainer, cnn_classifier
+    from repro_torch.fl import engine
+
+    ds = make_synthetic_image_dataset(num_classes=5, samples_per_class=20,
+                                      image_size=12, seed=1)
+    n = 6
+    clients = [(ds.x[i], ds.y[i]) for i in iid_partition(ds.y, n, seed=1)]
+    rng = np.random.default_rng(2)
+    net = NetworkParams(*[torch.as_tensor(rng.uniform(1.0, 4.0, n),
+                                          device=cuda) for _ in range(4)])
+    net = net._replace(p=net.p / net.p.sum())
+    ps = [np.full(n, 1.0 / n), rng.dirichlet(np.ones(n))]
+    runs = []
+    for fused in (False, True):
+        if not fused:  # the apply as plain PyTorch
+            monkeypatch.setattr(engine, "fused_async_update_flat",
+                                lambda w, g, s: (w - s[:, None] * g, None))
+        else:
+            monkeypatch.undo()
+        cfg = AsyncFLConfig(eta=0.05, batch_size=8, eval_every_time=5.0,
+                            eval_batch=32, grad_clip=5.0)
+        tr = DeviceTrainer(cnn_classifier(12, 5, channels=(4, 8),
+                                          device=cuda),
+                           clients, net, cfg, test_data=(ds.x, ds.y),
+                           sim_backend="kernel", sim_chunk=8, device=cuda)
+        before = kf.fused_async_update_flat.launches
+        runs.append(tr.run_lanes(ps, [4, 4], [0.05, 0.05], [0, 1], 20.0))
+        torch.cuda.synchronize()
+        launched = kf.fused_async_update_flat.launches - before
+        assert launched == (0 if not fused else
+                            max(lg.updates[-1] for lg in runs[-1][0]) + 1)
+    (logs0, fin0), (logs1, fin1) = runs
+    assert torch.equal(fin0, fin1)
+    for a, b in zip(logs0, logs1):
+        assert a.losses == b.losses and a.updates == b.updates
+        assert a.throughput == b.throughput and a.energy == b.energy
+        assert np.isfinite(a.losses).all() and a.updates[-1] > 10
