@@ -24,11 +24,11 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
   4. the main path at the paper's size (Table 1, n = 100): the closed forms
      in float64, ``time_optimal(m_max=132, steps=200)`` on the ``kernel``
      and ``torch`` Buzen backends (the sweep values within rtol 1e-4);
-     ``simulate_stats_lanes`` at the optimum on 6 seed lanes (2,000 updates
+     ``simulate_stats_lanes`` at the optimum on 6 seed lanes (1,500 updates
      after 400 of warm-up) on the ``batched`` backend and on the ``kernel``
      backend at chunk E = 1, 8 and 32, at m* and at m = 132 (every
      statistic bitwise equal across backends and E; lane-mean throughput
-     within 10% of Prop. 4), a run of 500 updates with a power profile at
+     within 10% of Prop. 4), a run of 300 updates with a power profile at
      E = 1 and 32 (bitwise), and ``next_update`` on 6 lanes for 200 updates at
      chunk 1 and 8 (the updates and final states bitwise).  The kernels'
      launch counters are zeroed just before this phase and read just after
@@ -37,8 +37,12 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      shapes, beside the least time the card could take: the device time per
      call from a ``torch.profiler`` trace (the sum of the CUDA kernels'
      device time), and the time per call between CUDA events, which also
-     counts the host's launch overhead;
-  6. the device-busy share of short windows of the sweep and the lane
+     counts the host's launch overhead; the class Buzen kernel at the class
+     sweep's shape (131 rows x 5 classes of Table 1 at n = 1e6, m_max =
+     132), kernel and plain version on the same built series, with the
+     wrapper's float64 series build and its whole call timed beside them;
+  6. the device-busy share of short windows of the sweep (per client and,
+     at n = 1e6, per class) and the lane
      simulation on each backend and at E = 1, 8 and 32 (profiler device
      time over the wall time of the same traced call), with the wall time
      per lock-step event of an untraced call, and of
@@ -60,7 +64,24 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      finite and each ``time_opt`` lane ends below its loss at t = 0.  Then
      the wall ms per update round split into ``next_update``, gradients
      and apply, and the device-busy share of a shorter window (device
-     time and wall time from one traced run).
+     time and wall time from one traced run);
+  8. the class-aggregated path on Table 1's five clusters as classes at
+     n = 100 (counts 15/15/20/40/10) and n = 1e6 (counts x 1e4), m_max =
+     132: the class Buzen kernel against its plain version (131 rows,
+     C = 5 and 6 with the CS station as a count-1 column, two padded
+     count-0 columns; rtol/atol 2e-5), against the float64 class DP (rtol
+     3e-5, atol 3e-4) and padded == unpadded bitwise; the class closed
+     forms at n = 100 against the per-client forms on ``expand()`` (rtol
+     1e-10: lambda, delays, K_eps, wall-clock time, energy per round);
+     then, with the class kernel's count zeroed just before and read just
+     after, ``time_optimal_classes(m_max=132, steps=200)`` on the
+     ``kernel`` and ``torch`` backends at both sizes (values within rtol
+     1e-4) and ``simulate_stats_classes_lanes`` at the n = 1e6 optimum on
+     6 seed lanes (2,000 updates after 400 of warm-up, ``batched``, chunk
+     1 and 8 bitwise; lane-mean throughput within 10% of Prop. 4; 500
+     updates with a per-class power profile: the same trajectory, finite
+     positive energy), and at the n = 100 optimum (300 updates) for the
+     wall ms per lock-step event beside n = 1e6.
 
 Phase 3 also holds the fused-update kernel against its plain version
 (bitwise on the new parameters, ``rtol 1e-5`` on the squared norm) at
@@ -88,6 +109,16 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # per DP term, two passes: mul-add and max, then mul-add, subtract, exp, add
 BUZEN_OPS_PER_TERM = 8
+# per class DP term, what the function needs: the add of series[k] and
+# U[m - k], the max, the subtract, the exp and the sum (the kernel's second
+# pass recomputes the add; the bound leaves that out)
+CLASS_OPS_PER_TERM = 5
+# the depth of the per-client lane simulations (updates after 400 of
+# warm-up in phase 4, with a power profile, and in the phase-6 windows),
+# cut so that the whole script, phase 8 included, stays near ten minutes
+PHASE4_UPDATES = 1500
+POWER_UPDATES = 300
+WINDOW_UPDATES = 200
 
 
 # the five tables, the event times and the descriptors a transition returns
@@ -355,6 +386,219 @@ def train_phase(dev, net, n, p_star, m_star, lam_star) -> dict:
             "launches": launches["fused_update"]}
 
 
+def class_rows(rng, B, counts, mu_c, with_cs, dev):
+    """Kernel 5's inputs as the class sweep gives them: ``B`` rows of
+    per-member log-loads over the classes of ``counts`` at random masses,
+    two padded count-0 columns and, with ``with_cs``, the CS station as a
+    count-1 column; random aggregated IS loads."""
+    import numpy as np
+    import torch
+
+    C = len(counts)
+    mass = rng.dirichlet(np.ones(C), size=B)
+    lr = np.concatenate([np.log(mass / counts) - np.log(mu_c),
+                         np.full((B, 2), -np.inf)], axis=1)
+    cnt = np.tile(np.concatenate([counts, [0, 0]]), (B, 1))
+    if with_cs:
+        lr = np.concatenate([lr, np.log(rng.uniform(0.1, 1.0, (B, 1)))], 1)
+        cnt = np.concatenate([cnt, np.ones((B, 1), np.int64)], 1)
+    lg = np.log(rng.uniform(0.5, 3.0, B))
+    return [torch.as_tensor(x, device=dev)
+            for x in (lr, cnt.astype(np.float64), lg)]
+
+
+def class_phase(dev, consts, net, res_k, M: int) -> dict:
+    """Phase 8 (see the module docstring); returns kernel 5's record with
+    its launches on this phase's main path and its max abs error against
+    its plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import batched as cb
+    from repro_torch.core.buzen import class_log_normalizing_constants
+    from repro_torch.core.complexity import round_complexity, wallclock_time
+    from repro_torch.core.energy import (PowerProfile, energy_per_round,
+                                         energy_per_round_classes)
+    from repro_torch.core.events import expand_class_stats
+    from repro_torch.core.jackson import expected_relative_delay, throughput
+    from repro_torch.core.optimize import time_optimal_classes
+    from repro_torch.kernels import buzen as kb
+    from repro_torch.scenario.spec import PAPER_CLUSTERS_TABLE1, ClassSpec
+    from repro_torch.sim import simulate_stats_classes_lanes
+
+    rng = np.random.default_rng(8)
+    base = ClassSpec.from_clusters(PAPER_CLUSTERS_TABLE1)
+    specs = {100: base, 10**6: ClassSpec(mu_c=base.mu_c, mu_d=base.mu_d,
+                                         mu_u=base.mu_u,
+                                         count=base.count * 10**4)}
+    classes = {n: s.class_params(device=dev) for n, s in specs.items()}
+
+    # -- 8.1 kernel 5 against its plain version and the float64 class DP --
+    err_plain = err_f64 = 0.0
+    for n, spec in specs.items():
+        for with_cs in (False, True):
+            lr, cnt, lg = class_rows(rng, M - 1, spec.count, spec.mu_c,
+                                     with_cs, dev)
+            got = kb.buzen_classes_batched(lr, cnt, lg, M)
+            want = kb.buzen_classes_batched_plain(lr, cnt, lg, M)
+            f64 = kb.reference_class_log_Z(lr, cnt, lg, M)
+            live = [i for i in range(cnt.shape[1])
+                    if i not in (spec.C, spec.C + 1)]
+            unpadded = kb.buzen_classes_batched(lr[:, live].contiguous(),
+                                                cnt[:, live].contiguous(),
+                                                lg, M)
+            torch.cuda.synchronize()
+            e = (got - want).abs()
+            check(bool((e <= 2e-5 + 2e-5 * want.abs()).all()),
+                  f"class kernel vs plain (n={n}, cs={with_cs}): max err "
+                  f"{float(e.max())}")
+            e64 = (got.double() - f64).abs()
+            check(bool((e64 <= 3e-4 + 3e-5 * f64.abs()).all()),
+                  f"class kernel vs float64 DP (n={n}, cs={with_cs}): max "
+                  f"err {float(e64.max())}")
+            check(torch.equal(unpadded, got),
+                  f"class kernel: padded != unpadded (n={n}, cs={with_cs})")
+            err_plain = max(err_plain, float(e.max()))
+            err_f64 = max(err_f64, float(e64.max()))
+    log(f"phase 8: class kernel == plain within 2e-5 (max abs err "
+        f"{err_plain:.3g}); vs float64 class DP max abs err {err_f64:.3g} "
+        f"(n = 100 and 1e6, C = 5 and 6 with CS, two padded columns, "
+        f"[{M - 1} rows], m_max={M}); padded == unpadded bitwise")
+
+    # -- 8.2 class closed forms == per-client forms on expand() ----------
+    power_c = PowerProfile.from_dvfs(
+        *[torch.as_tensor(np.array([getattr(c, k) for c in
+                                    PAPER_CLUSTERS_TABLE1]), device=dev)
+          for k in ("kappa", "mu_c", "P_u", "P_d")])
+
+    def forms_agree(cp, m, label):
+        prm = cp.expand()
+        cnt = cp.count
+        pw = PowerProfile(*[torch.repeat_interleave(x, cnt)
+                            for x in power_c[:3]])
+        rows = cp._replace(p=cp.p[None])
+        mm = torch.tensor([m], device=dev)
+        logZ = cb.batch_class_log_normalizing_constants(cp, rows.p, M,
+                                                        backend="torch")
+        got = {"lambda": cb.throughput_padded(logZ, mm)[0],
+               "delays": torch.repeat_interleave(
+                   cb.expected_relative_delay_classes(rows, mm, logZ, M)[0],
+                   cnt),
+               "K_eps": cb.round_complexity_classes(rows, mm, consts, logZ,
+                                                    M)[0],
+               "tau": cb.wallclock_time_classes(rows, mm, consts, logZ,
+                                                M)[0],
+               "energy/round": energy_per_round_classes(cp, power_c)}
+        want = {"lambda": throughput(prm, m),
+                "delays": expected_relative_delay(prm, m),
+                "K_eps": round_complexity(prm, m, consts),
+                "tau": wallclock_time(prm, m, consts),
+                "energy/round": energy_per_round(prm, pw)}
+        worst = 0.0
+        for k in got:
+            rel = float(((got[k] - want[k]).abs() / want[k].abs()).max())
+            check(rel <= 1e-10, f"class form {k} vs per-client on expand() "
+                  f"({label}): rel err {rel}")
+            worst = max(worst, rel)
+        return worst, got
+
+    worst, got0 = forms_agree(classes[100], 100, "uniform p, m=100")
+    check(abs(float(got0["lambda"]) - float(throughput(net, 100)))
+          <= 1e-10 * float(throughput(net, 100)),
+          "class lambda != phase 4's per-client lambda")
+    log(f"phase 8: class closed forms at n=100, uniform p, m=100 == "
+        f"per-client forms on expand() (lambda, delays, K_eps, tau, energy "
+        f"per round; max rel err {worst:.3g}); lambda="
+        f"{float(got0['lambda']):.12g}, tau={float(got0['tau']):.12g}")
+
+    # -- 8.3 the class path: sweep, then simulate at the optimum ---------
+    kb.buzen_classes_batched.launches = 0
+    t_main = time.perf_counter()
+    sweeps = {}
+    for n, cp in classes.items():
+        for be in ("kernel", "torch"):
+            t0 = time.perf_counter()
+            res = time_optimal_classes(cp, consts, M, steps=200, backend=be)
+            torch.cuda.synchronize()
+            sweeps[n, be] = (res, time.perf_counter() - t0)
+        (rk, sk), (rt, st) = sweeps[n, "kernel"], sweeps[n, "torch"]
+        vk = np.array([v for _, v in rk.history])
+        vt = np.array([v for _, v in rt.history])
+        rel = np.abs(vk - vt) / np.abs(vt)
+        check(bool(np.isfinite(vk).all()), f"class sweep n={n}: not finite")
+        check(float(rel.max()) <= 1e-4,
+              f"class sweep n={n}: kernel vs torch rel diff {rel.max()}")
+        mass = (rk.p * cp.count).tolist()
+        log(f"phase 8: time_optimal_classes n={n}: kernel m*={rk.m} "
+            f"tau*={rk.value:.10g} ({sk:.2f} s); torch m*={rt.m} "
+            f"tau*={rt.value:.10g} ({st:.2f} s); sweep max rel diff "
+            f"{rel.max():.3g}; class masses p*count = "
+            f"{[round(x, 6) for x in mass]}")
+    sweep_launches = kb.buzen_classes_batched.launches
+    r100 = sweeps[100, "kernel"][0]
+    log(f"phase 8: n=100 class optimum m*={r100.m} tau*={r100.value:.10g} "
+        f"beside phase 4's per-client m*={res_k.m} tau*={res_k.value:.10g}; "
+        f"kernel 5 launched {sweep_launches} times in the four sweeps")
+    worst, _ = forms_agree(classes[100]._replace(p=r100.p.detach()), r100.m,
+                           "p*, m*")
+    log(f"phase 8: class forms == per-client forms at the class optimum "
+        f"(n=100; max rel err {worst:.3g})")
+
+    def simulate(n, cp, m, chunk, updates=2000, power=None):
+        t0 = time.perf_counter()
+        out = simulate_stats_classes_lanes([cp] * 6, [m] * 6, updates,
+                                           warmup=400, seeds=range(6),
+                                           backend="batched", chunk=chunk,
+                                           power=power)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events = 3 * (updates + 400) + 3 * m + 8
+        log(f"phase 8: simulate_stats_classes_lanes[batched, n={n}, m={m}, "
+            f"E={chunk}{', power' if power is not None else ''}] "
+            f"{wall:.2f} s, {1e3 * wall / events:.4f} ms per lock-step "
+            f"event")
+        return out
+
+    rbig = sweeps[10**6, "kernel"][0]
+    cp_star = classes[10**6]._replace(p=rbig.p.detach())
+    m_star = rbig.m
+    e1 = simulate(10**6, cp_star, m_star, 1)
+    e8 = simulate(10**6, cp_star, m_star, 8)
+    for name, a, b in zip(e1._fields, e1, e8):
+        check(torch.equal(a, b), f"class lanes E=8 != E=1 ({name})")
+    logZ = class_log_normalizing_constants(cp_star, M, backend="torch")
+    lam = float(torch.exp(logZ[m_star - 1] - logZ[m_star]))
+    lam_sim = float(e1.throughput.mean())
+    check(abs(lam_sim - lam) <= 0.10 * lam,
+          f"class lanes throughput {lam_sim} vs Prop. 4 {lam}")
+    np.testing.assert_allclose(e1.mean_queue_counts.sum(-1).cpu().numpy(),
+                               m_star, rtol=1e-9)
+    pw = simulate(10**6, cp_star, m_star, 1, updates=500, power=power_c)
+    nopw = simulate(10**6, cp_star, m_star, 8, updates=500)
+    check(torch.equal(pw.throughput, nopw.throughput)
+          and torch.equal(pw.mean_queue_counts, nopw.mean_queue_counts),
+          "power changed the class trajectory")
+    check(bool(torch.isfinite(pw.energy).all() and (pw.energy > 0).all()),
+          f"class lanes energy {pw.energy.tolist()}")
+    small = simulate(100, classes[100]._replace(p=r100.p.detach()), r100.m,
+                     8, updates=POWER_UPDATES)
+    ex = expand_class_stats(small, classes[100].count)
+    check(ex.mean_delay.shape == (6, 100), "expand_class_stats shape")
+    main_s = time.perf_counter() - t_main
+    launches = kb.buzen_classes_batched.launches
+    check(launches == sweep_launches and launches > 0,
+          f"kernel 5 launches on the class path: {launches}")
+    log(f"phase 8: n=1e6 lanes at (p*, m*={m_star}): E = 1 and 8 bitwise on "
+        f"every statistic; throughput lanes {lam_sim:.6g} vs Prop. 4 "
+        f"{lam:.6g}; with power the same trajectory, energy "
+        f"{[round(x, 4) for x in pw.energy.tolist()]}; class path "
+        f"{main_s:.1f} s; launches {{'buzen_classes': {launches}}}")
+    return {"name": "buzen_classes", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/buzen.cu",
+            "replaces": "src/repro/kernels/buzen.py:230",
+            "launches": launches, "max_abs_err": err_plain}
+
+
 def main() -> int:
     import torch
 
@@ -371,15 +615,16 @@ def main() -> int:
                                          next_update, run_event_blocks,
                                          stack_blocks, stack_lanes)
     from repro_torch.core.jackson import expected_relative_delay, throughput
-    from repro_torch.core.optimize import time_optimal
+    from repro_torch.core.optimize import time_optimal, time_optimal_classes
     from repro_torch.kernels import build
     from repro_torch.kernels import buzen as kb
     from repro_torch.kernels import events as ke
     from repro_torch.kernels import fused_update as kf
-    from repro_torch.scenario.spec import (PAPER_CLUSTERS_TABLE1,
+    from repro_torch.scenario.spec import (PAPER_CLUSTERS_TABLE1, ClassSpec,
                                            LearningSpec, NetworkSpec)
     from repro_torch.sim import simulate_stats_lanes
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
@@ -574,7 +819,7 @@ def main() -> int:
     sim_kw = dict(warmup=400, seeds=range(6))
     sim_ms = {}  # wall ms per lock-step event
 
-    def simulate(m, be, chunk, updates=2000, **kw):
+    def simulate(m, be, chunk, updates=PHASE4_UPDATES, **kw):
         t0 = time.perf_counter()
         out = simulate_stats_lanes([p_star] * 6, [m] * 6, updates,
                                    backend=be, chunk=chunk, **sim_kw, **kw)
@@ -607,8 +852,8 @@ def main() -> int:
             f"throughput lanes {lam_sim:.6g} vs Prop. 4 {lam:.6g}")
     ones = torch.ones(n, dtype=torch.float64, device=dev)
     power = PowerProfile(P_c=2.0 * ones, P_u=ones, P_d=0.5 * ones)
-    pw1 = simulate(m_star, "kernel", 1, updates=500, power=power)
-    pw32 = simulate(m_star, "kernel", 32, updates=500, power=power)
+    pw1 = simulate(m_star, "kernel", 1, updates=POWER_UPDATES, power=power)
+    pw32 = simulate(m_star, "kernel", 32, updates=POWER_UPDATES, power=power)
     check(all(torch.equal(a, b) for a, b in zip(pw1, pw32)),
           "simulate with power: E=32 != E=1")
     check(bool(torch.isfinite(pw1.energy).all() and (pw1.energy > 0).all()),
@@ -699,6 +944,30 @@ def main() -> int:
                                                        chunk=c),
             lambda a=args, c=chunk: ke.megastep_tables_plain(
                 *a, has_cs=False, chunk=c), 200, 5)
+    # the class Buzen kernel as the class sweep calls it: rows m = 2..132
+    # over Table 1's five classes at n = 1e6 (uniform per-member routing),
+    # kernel and plain version both on the same built series, so that each
+    # time is the DP alone; the wrapper's float64 series build, which both
+    # share, and the wrapper's whole call are timed beside them
+    cls_big = ClassSpec(mu_c=[c.mu_c for c in PAPER_CLUSTERS_TABLE1],
+                        mu_d=[c.mu_d for c in PAPER_CLUSTERS_TABLE1],
+                        mu_u=[c.mu_u for c in PAPER_CLUSTERS_TABLE1],
+                        count=[c.count * 10**4 for c in PAPER_CLUSTERS_TABLE1]
+                        ).class_params(device=dev)
+    C5 = cls_big.C
+    c_lr = cls_big.log_rho.expand(B, C5).contiguous()
+    c_cnt = cls_big.count.to(torch.float64).expand(B, C5).contiguous()
+    c_lg = cls_big.log_gamma_total.expand(B).contiguous()
+    c_series = kb._class_series(c_lr, c_cnt, M + 1)
+    c_init = kb._init_rows(c_lg, M + 1)
+    calls["buzen_classes"] = (
+        lambda: kb._launch("buzen_classes_forward", kb.buzen_classes_batched,
+                           c_series, c_init, C5),
+        lambda: kb._fold_series_plain(c_init, c_series), 50, 5)
+    c_parts = {"series build": lambda: kb._class_series(c_lr, c_cnt, M + 1),
+               "wrapper call": lambda: kb.buzen_classes_batched(
+                   c_lr, c_cnt, c_lg, M)}
+    labels["buzen_classes"] = f"[{B}x{C5}], m_max={M}, n=1e6"
     # the fused update as the trainer calls it: 4 lanes of the CNN
     L4, N4 = 4, 408767
     fu_args = (torch.randn(L4, N4, device=dev),
@@ -711,6 +980,8 @@ def main() -> int:
     for name, (kern, plain, rk, rp) in calls.items():
         times[name] = {"kernel": (device_ms(kern, rk), time_ms(kern, rk)),
                        "plain": (device_ms(plain, rp), time_ms(plain, rp))}
+    c_parts = {name: (device_ms(fn, 50), time_ms(fn, 50))
+               for name, fn in c_parts.items()}
     profiled = all(t["kernel"][0] > 0 and t["plain"][0] > 0
                    for t in times.values())
     pick = 0 if profiled else 1  # device time when the profiler saw the card
@@ -764,6 +1035,17 @@ def main() -> int:
     fu_bytes = 3 * 4 * L4 * N4 + 2 * 4 * L4
     fu_ops = 4 * L4 * N4
     fu_bound_ms = 1e3 * max(fu_bytes / PEAK_BYTES, fu_ops / PEAK_F32_FLOPS)
+    # the class kernel: the same terms over C5 columns; the [B, C5, M+1]
+    # float32 series and the init row read, the output row written
+    c_terms = B * C5 * (M + 1) * (M + 2) / 2
+    c_ops = CLASS_OPS_PER_TERM * c_terms / PEAK_F32_FLOPS
+    c_bytes = 4 * (B * C5 * (M + 1) + 2 * B * (M + 1)) / PEAK_BYTES
+    class_times = {
+        "ms": times["buzen_classes"]["kernel"][pick],
+        "plain_ms": times["buzen_classes"]["plain"][pick],
+        "bound_ms": 1e3 * max(c_ops, c_bytes),
+        "bound_by": "operations" if c_ops >= c_bytes else "bytes",
+        "library_ms": None}
     for name, t in times.items():
         extra = ""
         if name in mega_shapes:
@@ -771,6 +1053,13 @@ def main() -> int:
             extra = f"; bound {1e3 * bound:.6f} ms (bytes)"
         if name == "fused_update":
             extra = f"; bound {fu_bound_ms:.6f} ms (bytes)"
+        if name == "buzen_classes":
+            extra = (f"; bound {class_times['bound_ms']:.6f} ms "
+                     f"({class_times['bound_by']}; {1e3 * c_ops:.6f} by "
+                     f"operations, {1e3 * c_bytes:.6f} by bytes); "
+                     + "; ".join(f"{part} device {d:.4f} ms / between "
+                                 f"events {w:.4f} ms"
+                                 for part, (d, w) in c_parts.items()))
         log(f"phase 5: {name} {labels[name]}: "
             f"kernel device {t['kernel'][0]:.4f} ms / between events "
             f"{t['kernel'][1]:.4f} ms; plain device {t['plain'][0]:.4f} ms "
@@ -786,16 +1075,20 @@ def main() -> int:
                               backend="kernel"), None),
         ("sweep[torch] 5 Adam steps",
          lambda: time_optimal(net, consts, m_max=M, steps=5,
-                              backend="torch"), None)]
-    sim_events = 3 * 300 + 3 * m_star + 8
+                              backend="torch"), None),
+        ("class sweep[kernel, n=1e6] 5 Adam steps",
+         lambda: time_optimal_classes(cls_big, consts, M, steps=5,
+                                      backend="kernel"), None)]
+    W = WINDOW_UPDATES
+    sim_events = 3 * W + 3 * m_star + 8
     for be, chunk, pw in (("kernel", 1, None), ("kernel", 8, None),
                           ("kernel", 32, None), ("batched", 1, None),
                           ("kernel", 1, power)):
         windows.append((
             f"simulate[{be}, E={chunk}{', power' if pw else ''}] 6 lanes "
-            f"x 300 updates",
+            f"x {W} updates",
             lambda be=be, chunk=chunk, pw=pw: simulate_stats_lanes(
-                [p_star] * 6, [m_star] * 6, 300, seeds=range(6), power=pw,
+                [p_star] * 6, [m_star] * 6, W, seeds=range(6), power=pw,
                 backend=be, chunk=chunk), sim_events))
     for name, fn, events in windows:
         fn()  # warm
@@ -810,8 +1103,9 @@ def main() -> int:
         log(f"phase 6: {name}: wall {wall_ms:.1f} ms{per_event}; device "
             f"busy {busy_share(traced_ms, busy_ms)}")
     # the energy integral rides along: same trajectory, finite energy
-    plain_run = results["simulate[kernel, E=1] 6 lanes x 300 updates"]
-    power_run = results["simulate[kernel, E=1, power] 6 lanes x 300 updates"]
+    plain_run = results[f"simulate[kernel, E=1] 6 lanes x {W} updates"]
+    power_run = results[f"simulate[kernel, E=1, power] 6 lanes x {W} "
+                        f"updates"]
     check(torch.equal(plain_run.throughput, power_run.throughput)
           and torch.equal(plain_run.mean_queue_counts,
                           power_run.mean_queue_counts),
@@ -821,7 +1115,7 @@ def main() -> int:
           f"simulated energy {power_run.energy.tolist()}")
     for chunk in (8, 32):
         check(all(torch.equal(a, b) for a, b in zip(
-            plain_run, results[f"simulate[kernel, E={chunk}] 6 lanes x 300 "
+            plain_run, results[f"simulate[kernel, E={chunk}] 6 lanes x {W} "
                                f"updates"])), f"window E={chunk} != E=1")
 
     # -- 7. training: AsyncSGD on the paper's CNN --------------------------
@@ -832,8 +1126,14 @@ def main() -> int:
         "plain_ms": times["fused_update"]["plain"][pick],
         "bound_ms": fu_bound_ms, "bound_by": "bytes", "library_ms": None})
 
+    # -- 8. the class-aggregated path: n = 100 and n = 1e6 ----------------
+    class_rec = class_phase(dev, consts, net, res_k, M)
+    class_rec.update(class_times)
+    log(f"chip_smoke: phases 1-8 passed in {time.perf_counter() - t_start:.1f}"
+        f" s")
+
     print(json.dumps({"kernels": [buzen_rec, event_rec, mega_rec,
-                                  fused_rec]}), flush=True)
+                                  fused_rec, class_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,9 +4,9 @@ Each function takes a mapping of field name to numpy array (what
 ``{k: np.asarray(v) for k, v in obj._asdict().items()}`` gives on the JAX
 side; ``None`` for an absent optional field) and returns the port's
 ``NamedTuple`` on ``device``, floats as ``dtype``; :func:`model_params`
-carries a model's weights across.  Fields the port does
-not carry (the PRNG ``key`` of an event state, the class ``member`` of an
-event block) are ignored.  Nothing here imports ``jax`` or ``repro``.
+carries a model's weights across.  The PRNG ``key`` of an event state,
+which the port does not carry, is ignored.  Nothing here imports ``jax``
+or ``repro``.
 """
 from __future__ import annotations
 
@@ -15,10 +15,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .core.buzen import NetworkParams
+from .core.buzen import ClassParams, NetworkParams
 from .core.complexity import LearningConstants
 from .core.energy import PowerProfile
-from .core.events import EventBlocks, EventState
+from .core.events import ClassEventState, EventBlocks, EventState
 from .core.numerics import DTYPE
 
 
@@ -42,6 +42,16 @@ def network_params(leaves: Mapping, *, device="cuda",
                                                device, torch.int64))
 
 
+def class_params(leaves: Mapping, *, device="cuda",
+                 dtype=DTYPE) -> ClassParams:
+    """``ClassParams`` (``p, mu_c, mu_d, mu_u, count, mu_cs``); ``count``
+    as int64."""
+    f = {k: _tensor(leaves.get(k), device, dtype)
+         for k in ("p", "mu_c", "mu_d", "mu_u", "mu_cs")}
+    return ClassParams(**f, count=_tensor(leaves["count"], device,
+                                          torch.int64))
+
+
 def learning_constants(leaves: Mapping) -> LearningConstants:
     return LearningConstants(**{k: float(v) for k, v in leaves.items()})
 
@@ -52,15 +62,26 @@ def power_profile(leaves: Mapping, *, device="cuda",
                            for k in ("P_c", "P_u", "P_d", "P_cs")})
 
 
-_STATE_INT = ("round", "seq_ctr", "client", "phase", "seq", "disp_round",
-              "warmup", "cap", "delay_cnt")
+_STATE_INT = ("round", "seq_ctr", "client", "cls", "member", "phase", "seq",
+              "disp_round", "warmup", "cap", "delay_cnt")
 
 
 def event_state(leaves: Mapping, *, device="cuda",
                 dtype=DTYPE) -> EventState:
     """``EventState`` without its key; integer leaves become int32."""
+    return _state(EventState, leaves, device, dtype)
+
+
+def class_event_state(leaves: Mapping, *, device="cuda",
+                      dtype=DTYPE) -> ClassEventState:
+    """``ClassEventState`` without its key; integer leaves (``cls`` and
+    ``member`` among them) become int32."""
+    return _state(ClassEventState, leaves, device, dtype)
+
+
+def _state(kind, leaves: Mapping, device, dtype):
     out = {}
-    for name in EventState._fields:
+    for name in kind._fields:
         x = leaves[name]
         if name == "cs_busy":
             out[name] = torch.as_tensor(np.array(x, dtype=bool),
@@ -69,22 +90,25 @@ def event_state(leaves: Mapping, *, device="cuda",
             out[name] = _tensor(x, device, torch.int32)
         else:
             out[name] = _tensor(x, device, dtype)
-    return EventState(**out)
+    return kind(**out)
 
 
 def event_blocks(leaves: Mapping, *, device="cuda",
                  dtype=DTYPE) -> EventBlocks:
-    """``EventBlocks`` (routed client as int64); a JAX block without a CS
-    carries ``svc_cs = ()``, which becomes ``None``."""
-    svc_cs = leaves.get("svc_cs")
-    if svc_cs is not None and np.asarray(svc_cs).size == 0:
-        svc_cs = None
+    """``EventBlocks`` (routed client or class, and member, as int64); a
+    JAX block without a CS carries ``svc_cs = ()`` and one of the
+    per-client engine ``member = ()``, which become ``None``."""
+    def opt(name):
+        x = leaves.get(name)
+        return None if x is None or np.asarray(x).size == 0 else x
+
     return EventBlocks(
         c_new=_tensor(leaves["c_new"], device, torch.int64),
         svc_down=_tensor(leaves["svc_down"], device, dtype),
         up=_tensor(leaves["up"], device, dtype),
         comp=_tensor(leaves["comp"], device, dtype),
-        svc_cs=_tensor(svc_cs, device, dtype))
+        svc_cs=_tensor(opt("svc_cs"), device, dtype),
+        member=_tensor(opt("member"), device, torch.int64))
 
 
 def model_params(leaves, model: torch.nn.Module) -> dict:

@@ -1,5 +1,6 @@
 """Batched (padded, traced-``m``) closed forms (port of
-``repro.core.batched``, per-client half).
+``repro.core.batched``): per client, and per class on a
+:class:`repro_torch.core.buzen.ClassParams` population.
 
 Where the JAX package writes each quantity for one ``(p, m, logZ)`` row
 and ``vmap``s it, the port writes the batch axis out: every function here
@@ -16,7 +17,11 @@ differentiates) in one pass.
     complexity, the joint objective, second moments, the delay Jacobian;
   * ``make_*_objective_padded`` — objectives ``obj(p, m, logZ) -> [B]``
     for :func:`repro_torch.core.optimize.batched_concurrency_sweep`;
-  * :func:`objective_surface` / :func:`tau_surface` — dense grids.
+  * :func:`objective_surface` / :func:`tau_surface` — dense grids;
+  * ``*_classes`` and :func:`batch_class_log_normalizing_constants` — the
+    same forms on class representatives (``p [B, C]``, ``count [C]``),
+    O(C) per row, the class DP on ``"torch"`` or the class kernel on
+    ``"kernel"``.
 """
 from __future__ import annotations
 
@@ -24,9 +29,10 @@ from typing import Callable, Optional
 
 import torch
 
-from .buzen import NetworkParams, get_backend, log_normalizing_constants
+from .buzen import (ClassParams, NetworkParams, class_log_normalizing_constants,
+                    get_backend, log_normalizing_constants)
 from .complexity import LearningConstants
-from .energy import PowerProfile, energy_per_round
+from .energy import PowerProfile, energy_per_round, energy_per_round_classes
 from .jackson import _log_geom_sum
 from .numerics import DTYPE, NEG_INF, seqsum
 from .optimize import _with_p  # shared routing-replace helper
@@ -302,6 +308,285 @@ def delay_jacobian_padded(params: NetworkParams, m: torch.Tensor,
     p_safe = torch.where(mask, params.p, 1.0)
     return torch.where(mask[None, :] & mask[:, None],
                        cov / p_safe[:, None, :], 0.0)
+
+
+# ---------------------------------------------------------------------------
+# class-space closed forms: O(#classes) per evaluation (ClassParams)
+# ---------------------------------------------------------------------------
+#
+# Each form is the padded per-client formula evaluated on class
+# representatives (one member stands for its ``count`` exchangeable
+# peers), with population sums weighted by ``count`` and taken
+# sequentially, so padded count-0 classes add exact zeros.  As above, the
+# batch axis is written out: ``classes.p`` is ``[B, C]`` per-member
+# routing (the rates and ``count`` stay ``[C]``), ``m [B]``, ``logZ [B,
+# m_max + 1]`` from the class DP.  They agree with the ``*_padded`` forms
+# on ``classes.expand()`` to float64 roundoff and are bitwise invariant to
+# class padding.
+
+def batch_class_log_normalizing_constants(classes: ClassParams,
+                                          p_batch: torch.Tensor, m_max: int,
+                                          *, backend: Optional[str] = None
+                                          ) -> torch.Tensor:
+    """``log Z_{n, 0..m_max}`` for every per-member routing row
+    ``p_batch [B, C]``: the class kernel (CUDA, float32 forward, float64
+    backward) with the CS station as one more count-1 column on
+    ``"kernel"``, the float64 class DP on ``"torch"``."""
+    backend = get_backend() if backend is None else backend
+    rows = classes._replace(p=p_batch)
+    if backend == "kernel":
+        from ..kernels.buzen import buzen_classes_log_Z_batched
+
+        log_rho = rows.log_rho
+        counts = classes.count.expand(p_batch.shape)
+        if classes.mu_cs is not None:
+            log_load_cs = (torch.log(seqsum(rows.mass))
+                           - torch.log(classes.mu_cs))
+            log_rho = torch.cat([log_rho, log_load_cs[:, None]], dim=-1)
+            counts = torch.cat([counts, torch.ones_like(counts[:, :1])],
+                               dim=-1)
+        return buzen_classes_log_Z_batched(log_rho, counts,
+                                           rows.log_gamma_total, m_max)
+    if backend != "torch":
+        raise ValueError(f"unknown buzen backend: {backend}")
+    return class_log_normalizing_constants(rows, m_max, backend="torch")
+
+
+def mean_member_counts_classes(classes: ClassParams, logZ: torch.Tensor,
+                               pop: torch.Tensor,
+                               m_max: int) -> torch.Tensor:
+    """``E[sum_s X_i^s]`` of one member of each class at population
+    ``pop [B]``: ``[B, C]`` (all members of a class share it)."""
+    comp = torch.exp(_padded_series_vs_Z(classes.log_rho, logZ, pop, 1,
+                                         m_max))
+    is_part = classes.gamma * torch.exp(
+        _lz(logZ, pop - 1) - _lz(logZ, pop))[:, None]
+    total = comp + is_part
+    if classes.mu_cs is not None:
+        msum = seqsum(classes.mass)
+        log_load_cs = torch.log(msum) - torch.log(classes.mu_cs)
+        cs_total = torch.exp(_padded_series_vs_Z(
+            log_load_cs[:, None], logZ, pop, 1, m_max))[:, 0]
+        total = total + classes.p / msum[:, None] * cs_total[:, None]
+    return total
+
+
+def expected_relative_delay_classes(classes: ClassParams, m: torch.Tensor,
+                                    logZ: torch.Tensor,
+                                    m_max: int) -> torch.Tensor:
+    """``E0[D_i]`` (Thm 2 Eq 3/5) of one member of each class: ``[B, C]``."""
+    return mean_member_counts_classes(classes, logZ, m - 1, m_max)
+
+
+def round_complexity_classes(classes: ClassParams, m: torch.Tensor,
+                             consts: LearningConstants, logZ: torch.Tensor,
+                             m_max: int) -> torch.Tensor:
+    """``K_eps(p, m)`` (Thm 3 Eq 9) with ``sum_i`` over clients as
+    ``sum_c count_c (member value)``; padded classes add exact zeros
+    through pinned-safe divisions (``p`` replaced by 1 where
+    ``count = 0``), in the value and in the gradient."""
+    cnt = classes.count.to(DTYPE)
+    n = classes.n_total.to(DTYPE)
+    mask = classes.count > 0
+    eps = consts.eps
+    delays = expected_relative_delay_classes(classes, m, logZ, m_max)
+    p_safe = torch.where(mask, classes.p, 1.0)
+    inv_np = torch.where(mask, cnt / (n * p_safe), 0.0)
+    stale_terms = torch.where(mask, cnt * delays / p_safe**2, 0.0)
+    first = (4.0 + consts.B / eps) * seqsum(inv_np)
+    staleness = seqsum(stale_terms)
+    mf = m.to(DTYPE)
+    raw = consts.C * (mf - 1.0) / eps * staleness
+    safe = torch.where(m > 1, raw, 1.0)
+    second = torch.where(m > 1, torch.sqrt(safe), 0.0)
+    return 24.0 * consts.L * consts.delta / (n * eps) * (first + second)
+
+
+def wallclock_time_classes(classes: ClassParams, m: torch.Tensor,
+                           consts: LearningConstants, logZ: torch.Tensor,
+                           m_max: int) -> torch.Tensor:
+    """``E0[tau_eps] = K_eps / lambda`` (Prop. 4/8), class-space."""
+    return (round_complexity_classes(classes, m, consts, logZ, m_max)
+            / throughput_padded(logZ, m))
+
+
+def energy_complexity_classes(classes: ClassParams, m: torch.Tensor,
+                              consts: LearningConstants,
+                              power: PowerProfile, logZ: torch.Tensor,
+                              m_max: int) -> torch.Tensor:
+    """``E0[E_eps]`` (Prop. 5/9), class-space (``power`` per class)."""
+    return (round_complexity_classes(classes, m, consts, logZ, m_max)
+            * energy_per_round_classes(classes, power))
+
+
+def joint_objective_classes(classes: ClassParams, m: torch.Tensor,
+                            consts: LearningConstants, power: PowerProfile,
+                            rho, tau_star, e_star, logZ: torch.Tensor,
+                            m_max: int) -> torch.Tensor:
+    """Normalized rho-scalarization (Eq. 18), class-space."""
+    k_eps = round_complexity_classes(classes, m, consts, logZ, m_max)
+    tau = k_eps / throughput_padded(logZ, m)
+    en = k_eps * energy_per_round_classes(classes, power)
+    return rho * en / e_star + (1.0 - rho) * tau / tau_star
+
+
+def second_moment_classes(classes: ClassParams, m: torch.Tensor,
+                          logZ: torch.Tensor, m_max: int):
+    """Member-representative second moments ``(cross [B, C, C], same [B,
+    C])``: ``cross[b, a, c] = E[S_i S_j]`` for a member ``i`` of class
+    ``a`` and a distinct member ``j`` of class ``c`` (on the diagonal, two
+    distinct members of one class), ``same[b, c] = E[S_i^2]``; together
+    the O(C^2) compression of the per-client ``[n, n]`` matrix
+    (:func:`expand_class_matrix` unrolls it)."""
+    dev = logZ.device
+    log_rho = classes.log_rho                                    # [B, C]
+    gamma = classes.gamma
+    mask = classes.count > 0
+    lr_safe = torch.where(mask, log_rho, 0.0)
+    pop = m - 1
+    pop_c = pop.clamp_min(1)
+
+    wlog = torch.log(2.0 * torch.arange(1, m_max + 1, device=dev,
+                                        dtype=DTYPE) - 1.0)
+    alpha_same = torch.exp(_padded_series_vs_Z(log_rho, logZ, pop_c, 1,
+                                               m_max, weights_log=wlog))
+    if m_max >= 2:
+        s = torch.arange(2, m_max + 1, device=dev)               # [S]
+        d = lr_safe[:, :, None] - lr_safe[:, None, :]            # [B, C, C]
+        lgs = _log_geom_sum(d[:, None], (s - 1)[None, :, None, None])
+        log_c = s[None, :, None, None] * lr_safe[:, None, None, :] + lgs
+        zlog = (_lz(logZ, pop_c[:, None] - s[None, :])
+                - _lz(logZ, pop_c)[:, None])[:, :, None, None]
+        valid = ((s[None, :] <= pop_c[:, None])[:, :, None, None]
+                 & (mask[:, None] & mask[None, :]))
+        alpha_cross = torch.exp(torch.logsumexp(
+            torch.where(valid, log_c + zlog, NEG_INF), dim=1))
+    else:
+        alpha_cross = torch.zeros(log_rho.shape + (classes.C,), dtype=DTYPE,
+                                  device=dev)
+
+    beta2 = torch.exp(_padded_series_vs_Z(log_rho, logZ, pop_c, 2, m_max))
+    z3 = torch.exp(_lz(logZ, pop_c - 2) - _lz(logZ, pop_c))
+    z2 = torch.exp(_lz(logZ, pop_c - 1) - _lz(logZ, pop_c))
+    cross = (alpha_cross + beta2[:, :, None] * gamma[:, None, :]
+             + beta2[:, None, :] * gamma[:, :, None]
+             + gamma[:, :, None] * gamma[:, None, :] * z3[:, None, None])
+    same = (alpha_same + 2.0 * beta2 * gamma + gamma**2 * z3[:, None]
+            + gamma * z2[:, None])
+    if classes.mu_cs is not None:
+        cross_cs, same_cs = _cs_second_moment_terms_classes(classes, logZ,
+                                                            pop_c, m_max)
+        cross = cross + cross_cs
+        same = same + same_cs
+    live = pop > 0
+    return (torch.where(live[:, None, None], cross, 0.0),
+            torch.where(live[:, None], same, 0.0))
+
+
+def _cs_second_moment_terms_classes(classes: ClassParams, logZ: torch.Tensor,
+                                    pop: torch.Tensor, m_max: int):
+    """Theorem 7 Eq (24) CS terms on class representatives (``(cross,
+    same)`` extras of :func:`second_moment_classes`; ``pop [B] >= 1``)."""
+    dev = logZ.device
+    p = classes.p
+    psum = seqsum(classes.mass)                                  # [B]
+    gamma = classes.gamma
+    log_rho = classes.log_rho
+    log_load_cs = torch.log(psum) - torch.log(classes.mu_cs)    # [B]
+
+    beta_cs2 = torch.exp(_padded_series_vs_Z(log_load_cs[:, None], logZ,
+                                             pop, 2, m_max))[:, 0]
+    k = torch.arange(1, m_max + 1, device=dev)
+    base = torch.where(
+        k[None, :] <= pop[:, None],
+        k * log_load_cs[:, None] + _lz(logZ, pop[:, None] - k[None, :])
+        - _lz(logZ, pop)[:, None], NEG_INF)                     # [B, K]
+    s0 = torch.exp(torch.logsumexp(base, dim=-1))
+    s1_terms = torch.where(
+        k > 1, base + torch.log(torch.clamp_min(k.to(DTYPE) - 1.0, 1e-300)),
+        NEG_INF)
+    s1 = torch.exp(torch.logsumexp(s1_terms, dim=-1))
+    pi = p / psum[:, None]
+    if m_max >= 2:
+        kk = torch.arange(1, m_max, device=dev)
+        ll = torch.arange(1, m_max, device=dev)
+        lz_kl = _lz(logZ, pop[:, None, None] - kk[None, :, None]
+                    - ll[None, None, :])                        # [B, K, L]
+        grid = (kk[None, None, :, None] * log_load_cs[:, None, None, None]
+                + ll[None, None, None, :] * log_rho[:, :, None, None]
+                + lz_kl[:, None]
+                - _lz(logZ, pop)[:, None, None, None])          # [B,C,K,L]
+        valid = ((kk[:, None] + ll[None, :])[None]
+                 <= pop[:, None, None])[:, None]
+        grid = torch.where(valid, grid, NEG_INF)
+        alpha_cs_i = torch.exp(torch.logsumexp(grid.flatten(2), dim=-1))
+    else:
+        alpha_cs_i = torch.zeros_like(p)
+
+    ps = psum[:, None, None]
+    pairs = pi[:, :, None] * pi[:, None, :] * 2.0 * s1[:, None, None] * ps * ps
+    betas = beta_cs2[:, None, None] * (pi[:, :, None] * gamma[:, None, :]
+                                       + pi[:, None, :] * gamma[:, :, None]) * ps
+    alphas = (pi[:, :, None] * alpha_cs_i[:, None, :] * ps
+              + pi[:, None, :] * alpha_cs_i[:, :, None] * ps)
+    cross = pairs + betas + alphas
+    p1 = psum[:, None]
+    same = (pi**2 * 2.0 * s1[:, None] * p1 * p1 + pi * p1 * s0[:, None]
+            + 2.0 * beta_cs2[:, None] * pi * gamma * p1
+            + 2.0 * pi * alpha_cs_i * p1)
+    return cross, same
+
+
+def delay_jacobian_classes(classes: ClassParams, m: torch.Tensor,
+                           logZ: torch.Tensor, m_max: int):
+    """Class-compressed delay Jacobian ``(J_cross [B, C, C], J_same [B,
+    C])`` (covariance identity, Thm 2 Eq 4 / Thm 7 Eq 22): ``J_cross[b, a,
+    c] = d E0[D_i] / d p_j`` for a member ``i`` of class ``a`` and a
+    distinct member ``j`` of class ``c``; ``J_same`` the own-mass
+    sensitivity.  Padded columns mask to zero."""
+    mean = mean_member_counts_classes(classes, logZ, m - 1, m_max)
+    cross, same = second_moment_classes(classes, m, logZ, m_max)
+    cov_cross = cross - mean[:, :, None] * mean[:, None, :]
+    cov_same = same - mean**2
+    mask = classes.count > 0
+    p_safe = torch.where(mask, classes.p, 1.0)
+    j_cross = torch.where(mask[:, None] & mask[None, :],
+                          cov_cross / p_safe[:, None, :], 0.0)
+    j_same = torch.where(mask, cov_same / p_safe, 0.0)
+    return j_cross, j_same
+
+
+def expand_class_matrix(cross: torch.Tensor, same: torch.Tensor,
+                        count: torch.Tensor) -> torch.Tensor:
+    """Unroll class-pair values to the per-client ``[..., n, n]`` matrix:
+    the diagonal from ``same``, every off-diagonal entry (across and
+    within classes) from ``cross`` (the oracle helper)."""
+    idx = torch.repeat_interleave(
+        torch.arange(count.shape[-1], device=count.device), count)
+    mat = cross[..., idx[:, None], idx[None, :]].clone()
+    diag = torch.arange(idx.shape[0], device=count.device)
+    mat[..., diag, diag] = same[..., idx]
+    return mat
+
+
+def make_time_objective_classes(classes: ClassParams,
+                                consts: LearningConstants, m_max: int):
+    """Class-space wall-clock objective ``obj(p [B, C], m [B], logZ)``."""
+    def obj(p, m, logZ):
+        return wallclock_time_classes(_with_p(classes, p), m, consts, logZ,
+                                      m_max)
+    obj.m_max = m_max  # consumed by the sweep-side padding guard
+    return obj
+
+
+def make_round_objective_classes(classes: ClassParams,
+                                 consts: LearningConstants, m_max: int):
+    """Class-space ``K_eps`` objective (the same protocol)."""
+    def obj(p, m, logZ):
+        return round_complexity_classes(_with_p(classes, p), m, consts, logZ,
+                                        m_max)
+    obj.m_max = m_max
+    return obj
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,18 @@
 """Buzen's algorithm for the closed-network normalising constants (port of
-``repro.core.buzen``, per-client half).
+``repro.core.buzen``).
 
 Proposition 15 (client-only network) and Proposition 19 (with the CS-side
 single-server queue), in log space.  ``method="aggregate"`` merges the
 ``2n`` infinite-server stations into one Poisson factor of total load
 ``gamma_tot``; ``method="literal"`` folds every station in the order of
 Prop. 15.  Both return ``logZ[..., k] = log Z_{n,k}`` for ``k = 0..m_max``.
+The class half (:class:`ClassParams`, :func:`pad_classes`,
+:func:`classes_from_network`, :func:`class_log_normalizing_constants`)
+folds ``count`` identical clients into one negative-binomial factor, so
+the DP is O(C m^2) whatever the population.
 
-Backends: ``"torch"`` (the float64 DP below, the default) and ``"kernel"``
-(the hand-written CUDA Buzen kernel of ``repro_torch.kernels.buzen``: a
+Backends: ``"torch"`` (the float64 DPs below, the default) and ``"kernel"``
+(the hand-written CUDA Buzen kernels of ``repro_torch.kernels.buzen``: a
 float32 forward with a float64 backward, ``aggregate`` only).  Select per
 call with ``backend=`` or process-wide with :func:`set_backend`; no
 environment variable is read.
@@ -116,6 +120,127 @@ def pad_network(params: NetworkParams, n_max: int) -> NetworkParams:
                                  device=params.device))
 
 
+class ClassParams(NamedTuple):
+    """Class-aggregated network: ``C`` client classes with multiplicities.
+
+    ``count[c]`` identical clients of profile ``(p, mu_c, mu_d, mu_u)``
+    fold into one class: their computation stations enter the Buzen DP as
+    one negative-binomial series (:func:`_negbinom_series`), the IS
+    stations through the aggregate Poisson factor, so the DP, the closed
+    forms and the event engine's statistics are O(C) whatever the
+    population.  ``p`` is the per-member routing mass (the class carries
+    ``count * p``).  Padded classes (:func:`pad_classes`) have ``count = 0``
+    and ``p = 0`` and are bitwise invisible.  Leaves may carry a leading
+    lane or batch axis (``p [..., C]``).  :meth:`expand` unrolls to the
+    per-client :class:`NetworkParams`, the oracle of every class form.
+    """
+
+    p: torch.Tensor        # [C] per-member routing mass (0 on padded)
+    mu_c: torch.Tensor     # [C] computation rates
+    mu_d: torch.Tensor     # [C] downlink rates
+    mu_u: torch.Tensor     # [C] uplink rates
+    count: torch.Tensor    # [C] int64 multiplicity (0 = padded class)
+    mu_cs: Optional[torch.Tensor] = None  # scalar CS rate (None = no CS)
+
+    @property
+    def C(self) -> int:
+        return self.p.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.p.device
+
+    @property
+    def n_total(self) -> torch.Tensor:
+        """Total population ``sum_c count[c]`` (sequential; int64)."""
+        return seqsum(self.count)
+
+    @property
+    def mass(self) -> torch.Tensor:
+        """Class routing mass ``count * p`` (what routing draws on)."""
+        return self.count.to(self.p.dtype) * self.p
+
+    @property
+    def log_rho(self) -> torch.Tensor:
+        """Per-member log-load of one computation station: the reference's
+        ``log p - log mu_c`` (``-inf`` where ``p = 0``), with the ``log``
+        taken of a pinned-safe ``p`` so that a zero-mass class passes a
+        zero gradient to ``p`` rather than ``0 / 0`` (a sweep over
+        :func:`pad_classes` stays finite)."""
+        live = self.p > 0
+        lr = torch.log(torch.where(live, self.p, 1.0)) - torch.log(self.mu_c)
+        return torch.where(live, lr, -torch.inf)
+
+    @property
+    def gamma(self) -> torch.Tensor:
+        """Per-member aggregate IS load (Theorem 2)."""
+        return self.p * (1.0 / self.mu_d + 1.0 / self.mu_u)
+
+    @property
+    def log_gamma_total(self) -> torch.Tensor:
+        """Aggregate IS log-load of the whole population (sequential)."""
+        return torch.log(seqsum(self.count.to(self.p.dtype) * self.gamma))
+
+    def with_cs(self, mu_cs) -> "ClassParams":
+        return self._replace(mu_cs=torch.as_tensor(
+            mu_cs, dtype=self.p.dtype, device=self.device))
+
+    def expand(self) -> NetworkParams:
+        """Unroll to the per-client network (O(n); the test oracle)."""
+        reps = self.count.to(torch.int64)
+
+        def rep(x):
+            return torch.repeat_interleave(x, reps)
+
+        return NetworkParams(p=rep(self.p), mu_c=rep(self.mu_c),
+                             mu_d=rep(self.mu_d), mu_u=rep(self.mu_u),
+                             mu_cs=self.mu_cs)
+
+
+def pad_classes(classes: ClassParams, c_max: int) -> ClassParams:
+    """Pad to ``c_max`` classes: zero count, zero routing mass and unit
+    rates — bitwise invisible to the class DP, the class forms and the
+    class event engine (the class analogue of :func:`pad_network`)."""
+    C = classes.C
+    if c_max < C:
+        raise ValueError(f"c_max={c_max} is smaller than the class-set "
+                         f"size C={C}")
+
+    def pad(x, fill):
+        tail = torch.full(x.shape[:-1] + (c_max - C,), fill, dtype=x.dtype,
+                          device=x.device)
+        return torch.cat([x, tail], dim=-1)
+
+    return classes._replace(
+        p=pad(classes.p, 0.0), mu_c=pad(classes.mu_c, 1.0),
+        mu_d=pad(classes.mu_d, 1.0), mu_u=pad(classes.mu_u, 1.0),
+        count=pad(classes.count, 0))
+
+
+def classes_from_network(params: NetworkParams) -> ClassParams:
+    """Group the clients of a concrete network with bitwise-equal
+    ``(p, mu_c, mu_d, mu_u)`` profiles into classes, in order of first
+    occurrence (the class order is the DP's fold order).  Padded rows
+    (beyond ``n_active``) are dropped.  Host-side."""
+    n = params.n if params.n_active is None else int(params.n_active)
+    cols = np.stack([x.detach().cpu().numpy()[:n] for x in
+                     (params.p, params.mu_c, params.mu_d, params.mu_u)],
+                    axis=1)
+    _, first, counts = np.unique(cols, axis=0, return_index=True,
+                                 return_counts=True)
+    order = np.argsort(first)  # undo np.unique's lexicographic sort
+    cols_u = cols[np.sort(first)]
+
+    def t(x):
+        return torch.as_tensor(x, dtype=params.p.dtype, device=params.device)
+
+    return ClassParams(p=t(cols_u[:, 0]), mu_c=t(cols_u[:, 1]),
+                       mu_d=t(cols_u[:, 2]), mu_u=t(cols_u[:, 3]),
+                       count=torch.as_tensor(counts[order], dtype=torch.int64,
+                                             device=params.device),
+                       mu_cs=params.mu_cs)
+
+
 @functools.lru_cache(maxsize=None)
 def _conv_index(M: int, device: torch.device):
     """``rev[m, k] = m - k`` clipped at 0, and the ``k <= m`` mask."""
@@ -147,6 +272,38 @@ def _poisson_series(log_load: torch.Tensor, m_max: int) -> torch.Tensor:
     k = torch.arange(m_max + 1, device=log_load.device, dtype=log_load.dtype)
     return torch.where(k == 0, 0.0,
                        k * log_load[..., None] - torch.lgamma(k + 1.0))
+
+
+def _negbinom_series(log_rho: torch.Tensor, count: torch.Tensor,
+                     m_max: int) -> torch.Tensor:
+    """Series of ``count`` identical single-server stations of per-member
+    load ``rho`` (trailing axis): ``(1 - rho x)^{-count}``, in log space
+
+        ``coef[j] = j log_rho + lgamma(j + count) - lgamma(j + 1)
+                    - lgamma(count)``.
+
+    ``count = 0`` (a padded class) makes every ``j >= 1`` coefficient
+    ``-inf``; the ``j = 0`` term (``NaN`` there, ``inf - inf``) is pinned
+    to exactly 0 after it is formed, so the class is the convolution
+    identity.  ``count = 1`` gives the geometric series exactly."""
+    log_rho = torch.as_tensor(log_rho)
+    j = torch.arange(m_max + 1, device=log_rho.device, dtype=log_rho.dtype)
+    cnt = torch.as_tensor(count, device=log_rho.device).to(
+        log_rho.dtype)[..., None]
+    lw = torch.lgamma(j + cnt) - torch.lgamma(j + 1.0) - torch.lgamma(cnt)
+    return torch.where(j == 0, 0.0, j * log_rho[..., None] + lw)
+
+
+def aggregate_class_log_Z(log_rho: torch.Tensor, counts: torch.Tensor,
+                          log_gamma_total: torch.Tensor,
+                          m_max: int) -> torch.Tensor:
+    """Class DP on the ``[..., S]`` / ``[...]`` layout: the Poisson row of
+    ``gamma_tot``, then one negative-binomial fold per class column."""
+    logZ = _poisson_series(log_gamma_total, m_max)
+    for s in range(log_rho.shape[-1]):
+        logZ = _log_conv(logZ, _negbinom_series(log_rho[..., s],
+                                                counts[..., s], m_max))
+    return logZ
 
 
 def aggregate_log_Z(log_rho: torch.Tensor, log_gamma_total: torch.Tensor,
@@ -208,6 +365,43 @@ def log_normalizing_constants(params: NetworkParams, m_max: int, *,
         # the multinomial class structure of Eq. (20) sums out to one
         # geometric factor of load sum_j p_j / mu_cs
         log_load_cs = torch.log(seqsum(params.p)) - torch.log(params.mu_cs)
+        logZ = _log_conv(logZ, _geometric_series(log_load_cs, m_max))
+    return logZ
+
+
+def class_log_normalizing_constants(classes: ClassParams, m_max: int, *,
+                                    backend: Optional[str] = None
+                                    ) -> torch.Tensor:
+    """Class-space ``log Z_{n, 0..m_max}`` in O(C m^2) instead of O(n m^2).
+
+    The IS stations enter through the aggregate Poisson factor and each
+    class's computation stations as one negative-binomial fold; the CS
+    station, when set, is one geometric fold of load ``sum(mass) / mu_cs``.
+    Agrees with :func:`log_normalizing_constants` on ``classes.expand()``
+    to float64 roundoff and is bitwise invariant to :func:`pad_classes`.
+    ``backend="kernel"`` runs the CUDA class Buzen kernel (float32
+    forward, float64 backward) with the CS station as a count-1 column.
+    ``classes.p`` may carry leading batch axes (``count`` stays ``[C]``).
+    """
+    backend = _backend if backend is None else backend
+    if backend == "kernel":
+        from .batched import batch_class_log_normalizing_constants
+
+        p = classes.p
+        rows = p.reshape(-1, p.shape[-1])
+        out = batch_class_log_normalizing_constants(classes, rows, m_max,
+                                                    backend="kernel")
+        return out.reshape(p.shape[:-1] + (m_max + 1,))
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown buzen backend: {backend!r}")
+    logZ = aggregate_class_log_Z(classes.log_rho,
+                                 classes.count.expand(classes.p.shape),
+                                 classes.log_gamma_total, m_max)
+    if classes.mu_cs is not None:
+        # the per-client DP's geometric CS factor, with the class-mass
+        # sequential sum standing in for sum_j p_j
+        log_load_cs = (torch.log(seqsum(classes.mass))
+                       - torch.log(classes.mu_cs))
         logZ = _log_conv(logZ, _geometric_series(log_load_cs, m_max))
     return logZ
 

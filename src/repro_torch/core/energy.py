@@ -1,5 +1,5 @@
-"""Energy complexity of Generalized AsyncSGD (port of ``repro.core.energy``,
-per-client forms).
+"""Energy complexity of Generalized AsyncSGD (port of ``repro.core.energy``:
+the per-client forms and the class-space energy per round).
 
 The phase-dependent power model (Eq. 13/14) with cubic DVFS computation
 power, Prop. 5/9 (``E0[E_eps] = K_eps * energy per round``), the
@@ -19,7 +19,9 @@ from .numerics import seqsum
 
 
 class PowerProfile(NamedTuple):
-    """Per-client phase powers (Section 6.1)."""
+    """Per-client phase powers (Section 6.1); for a class network the
+    leaves are per-class ``[C]`` arrays (members share their class's
+    ratings)."""
 
     P_c: torch.Tensor  # [n] computation power
     P_u: torch.Tensor  # [n] uplink transmission power
@@ -47,6 +49,21 @@ def energy_per_round(params: NetworkParams, power: PowerProfile) -> torch.Tensor
         if params.mu_cs is None:
             raise ValueError("P_cs given but params.mu_cs is None")
         e = e + power.P_cs / params.mu_cs
+    return e
+
+
+def energy_per_round_classes(classes, power: PowerProfile) -> torch.Tensor:
+    """Class-space :func:`energy_per_round` with ``power`` holding
+    per-class arrays: ``sum_c count_c p_c E_c / sum_c count_c p_c``, the
+    class masses weighting the per-member task energies; padded classes
+    add exact zeros to both sequential sums."""
+    mass = classes.mass
+    e = seqsum(mass / seqsum(mass)[..., None]
+               * per_task_energy(classes, power))
+    if power.P_cs is not None:
+        if classes.mu_cs is None:
+            raise ValueError("P_cs given but classes.mu_cs is None")
+        e = e + power.P_cs / classes.mu_cs
     return e
 
 

@@ -26,6 +26,15 @@ the port is held bitwise to the JAX engine.  Same-seed parity with
 
 Every state leaf carries a leading lane axis ``[K, ...]`` in the step;
 :func:`init_state` builds one lane and :func:`stack_lanes` stacks them.
+
+The class-aggregated engine (:class:`ClassEventState`, over
+:class:`repro_torch.core.buzen.ClassParams`) runs the same dynamics with
+each task owned by a ``(class, member)`` pair: the task table and the
+FIFO promotions are those of the expanded network, while the statistics
+and occupancy carries are per class, so a lane is O(#classes) wide at any
+population.  It shares the draw cursor, the statistics replay, the event
+loop (:func:`run_events`) and :func:`finalize_stats` with the per-client
+engine; its table transition has no kernel (nor has the JAX package's).
 """
 from __future__ import annotations
 
@@ -35,7 +44,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..scenario.laws import get_law
-from .buzen import NetworkParams
+from .buzen import ClassParams, NetworkParams
 from .numerics import DTYPE, fma, seqcumsum, seqsum
 
 # task phases
@@ -119,11 +128,40 @@ class EventBlocks(NamedTuple):
     the law's unit parts and rate-applied inside the step.
     """
 
-    c_new: torch.Tensor     # routed client (int64)
+    c_new: torch.Tensor     # routed client (class, for the class engine)
     svc_down: torch.Tensor  # downlink service of the re-dispatched task
     up: torch.Tensor        # uplink unit part
     comp: torch.Tensor      # computation unit part
     svc_cs: Optional[torch.Tensor] = None  # CS service; None without CS
+    member: Optional[torch.Tensor] = None  # routed member (class engine)
+
+
+class ClassEventState(NamedTuple):
+    """Carry of the class-aggregated event loop: the task table of
+    :class:`EventState` with each task owned by a ``(cls, member)`` pair,
+    and per-class statistics (members of a class are exchangeable)."""
+
+    t: torch.Tensor
+    round: torch.Tensor
+    seq_ctr: torch.Tensor
+    cls: torch.Tensor        # [m_max] owning class of each task
+    member: torch.Tensor     # [m_max] member index within the class
+    phase: torch.Tensor
+    finish: torch.Tensor
+    seq: torch.Tensor
+    disp_round: torch.Tensor
+    warmup: torch.Tensor
+    cap: torch.Tensor
+    t_cap: torch.Tensor
+    t0: torch.Tensor
+    t1: torch.Tensor
+    delay_sum: torch.Tensor  # [C] per-class relative-delay sums
+    delay_cnt: torch.Tensor  # [C]
+    energy: torch.Tensor
+    occ_int: torch.Tensor    # [3C+1] time-weighted per-class occupancy
+    occ: torch.Tensor        # [3C+1] current per-class occupancy
+    serving: torch.Tensor    # [C] busy compute servers of each class
+    cs_busy: torch.Tensor
 
 
 def _route_client(p: torch.Tensor, u: torch.Tensor, n_act,
@@ -154,6 +192,52 @@ def draw_event_blocks(params: NetworkParams, generator: torch.Generator,
               if params.mu_cs is not None else None)
     return EventBlocks(c_new=c_new, svc_down=svc_down, up=up, comp=comp,
                        svc_cs=svc_cs)
+
+
+def _route_class(mass: torch.Tensor, count: torch.Tensor, u: torch.Tensor,
+                 u_member: torch.Tensor,
+                 prefix: Optional[torch.Tensor] = None):
+    """Dispatch routing of the class engine: ``(class, member)`` per pair
+    of uniforms.  The class by inverse CDF on the sequential prefix of the
+    class masses (as :func:`_route_client`; count-0 classes repeat the
+    total and are never hit), clipped to the last class with a nonzero
+    count; the member uniform over ``[0, count[class])``, as ``floor(u
+    count)`` in float64 (uniform to 2^-53 for any count an int64 holds).
+    Bitwise invariant to trailing class padding."""
+    if prefix is None:
+        prefix = seqcumsum(mass)
+    idx = torch.searchsorted(prefix, u * prefix[-1], right=True)
+    cum = seqcumsum(count)
+    c_last = torch.searchsorted(cum, cum[-1:] - 1, right=True)
+    c = torch.minimum(idx, c_last)
+    cnt = count[c]
+    mb = torch.minimum(torch.floor(u_member * cnt.to(u_member.dtype)).long(),
+                       cnt - 1)
+    return c, mb
+
+
+def draw_class_event_blocks(classes: ClassParams,
+                            generator: torch.Generator, chunk: int, *,
+                            distribution: str = "exponential",
+                            route_prefix: Optional[torch.Tensor] = None
+                            ) -> EventBlocks:
+    """The class engine's :func:`draw_event_blocks`: the routing draw
+    resolves a ``(class, member)`` pair per event (``c_new``, ``member``),
+    the downlink service comes from the routed class's rate."""
+    law = get_law(distribution)
+    dev = classes.device
+    u = torch.rand(chunk, generator=generator, dtype=DTYPE, device=dev)
+    u_member = torch.rand(chunk, generator=generator, dtype=DTYPE,
+                          device=dev)
+    c_new, member = _route_class(classes.mass, classes.count, u, u_member,
+                                 route_prefix)
+    svc_down = law.device_draw(generator, classes.mu_d[c_new])
+    up = law.unit_draw(generator, (chunk,), DTYPE, dev)
+    comp = law.unit_draw(generator, (chunk,), DTYPE, dev)
+    svc_cs = (law.device_draw(generator, classes.mu_cs.expand(chunk))
+              if classes.mu_cs is not None else None)
+    return EventBlocks(c_new=c_new, svc_down=svc_down, up=up, comp=comp,
+                       svc_cs=svc_cs, member=member)
 
 
 def _station_counts(phase, client, n):
@@ -193,17 +277,47 @@ def init_state(params: NetworkParams, m, generator: torch.Generator, *,
     of the ``m_max`` table are inactive.  Under the padded-``n`` convention
     only real clients are drawn."""
     law = get_law(distribution)
-    n = params.n
-    dev = params.device
     m_max = int(m) if m_max is None else m_max
     clients = torch.randint(0, int(params.active_count), (m_max,),
-                            generator=generator, device=dev)
-    active = torch.arange(m_max, device=dev) < m
+                            generator=generator, device=params.device)
     svc = law.device_draw(generator, params.mu_d[clients])
+    return EventState(client=clients.to(torch.int32), **_init_leaves(
+        clients, svc, m, params.n, warmup, cap, t_cap))
+
+
+def init_class_state(classes: ClassParams, m, generator: torch.Generator, *,
+                     m_max: Optional[int] = None,
+                     distribution: str = "exponential", warmup=0,
+                     cap=_NO_CAP, t_cap=math.inf) -> ClassEventState:
+    """The class engine's initial state: ``m`` tasks dispatched uniformly
+    over the ``n_total`` members at ``t = 0``.  The member is drawn as a
+    flat index in ``[0, n_total)`` and split into ``(class, member)``
+    against the sequential count prefix: the distribution of
+    :func:`init_state` on the expanded network, bitwise invariant to
+    trailing class padding."""
+    law = get_law(distribution)
+    m_max = int(m) if m_max is None else m_max
+    cum = seqcumsum(classes.count)
+    idx = torch.randint(0, int(cum[-1]), (m_max,), generator=generator,
+                        device=classes.device)
+    cls = torch.searchsorted(cum, idx, right=True)
+    member = idx - torch.where(cls > 0, cum[(cls - 1).clamp_min(0)], 0)
+    svc = law.device_draw(generator, classes.mu_d[cls])
+    return ClassEventState(
+        cls=cls.to(torch.int32), member=member.to(torch.int32),
+        **_init_leaves(cls, svc, m, classes.C, warmup, cap, t_cap))
+
+
+def _init_leaves(owner, svc, m, n: int, warmup, cap, t_cap) -> dict:
+    """The leaves both engines share at ``t = 0``: ``owner [m_max]`` (a
+    client, or a class) and the downlink services ``svc`` of the first
+    ``m`` slots; statistics over ``n`` owners."""
+    dev = owner.device
+    m_max = owner.shape[0]
+    active = torch.arange(m_max, device=dev) < m
     phase0 = torch.where(active, DOWN, INACTIVE).to(torch.int32)
-    client0 = clients.to(torch.int32)
     down, comp_total, comp_serving, up, cs_total, cs_busy = _station_counts(
-        phase0, client0, n)
+        phase0, owner, n)
 
     def i32(x):
         return torch.as_tensor(x, dtype=torch.int32, device=dev)
@@ -211,9 +325,8 @@ def init_state(params: NetworkParams, m, generator: torch.Generator, *,
     def f64(x):
         return torch.as_tensor(x, dtype=DTYPE, device=dev)
 
-    return EventState(
-        t=f64(0.0), round=i32(0), seq_ctr=i32(0),
-        client=client0, phase=phase0,
+    return dict(
+        t=f64(0.0), round=i32(0), seq_ctr=i32(0), phase=phase0,
         finish=torch.where(active, svc, torch.inf),
         seq=torch.zeros(m_max, dtype=torch.int32, device=dev),
         disp_round=torch.zeros(m_max, dtype=torch.int32, device=dev),
@@ -253,8 +366,9 @@ def _unit_scalars(blk: EventBlocks, distribution: str):
     """The kernels' per-event scalars of ``blk``: ``[..., 4]`` float64
     ``[e_up, e_comp, svc_down, svc_cs]`` with the unit parts at unit rate
     (the kernels rescale them by the completing client's rate, ``e /
-    mu[c]``: the law's own ``unit_apply``), and the routed clients as
-    int32."""
+    mu[c]``: the law's own ``unit_apply``), the routed clients (classes)
+    as int32, and the routed members as int32 (``None`` for the
+    per-client engine)."""
     law = get_law(distribution)
     one = torch.ones((), dtype=DTYPE, device=blk.svc_down.device)
     svc_cs = (blk.svc_cs if blk.svc_cs is not None
@@ -262,7 +376,8 @@ def _unit_scalars(blk: EventBlocks, distribution: str):
     fs = torch.stack([law.unit_apply(blk.up, one),
                       law.unit_apply(blk.comp, one), blk.svc_down, svc_cs],
                      dim=-1)
-    return fs, blk.c_new.to(torch.int32)
+    mb = None if blk.member is None else blk.member.to(torch.int32)
+    return fs, blk.c_new.to(torch.int32), mb
 
 
 class EventStream:
@@ -276,6 +391,8 @@ class EventStream:
     lane moves on by exactly the events it retired (:meth:`advance`).
     :meth:`from_blocks` feeds the cursor blocks drawn elsewhere (e.g. by
     the JAX package, converted by :mod:`repro_torch.convert`) instead.
+    Lanes of :class:`ClassParams` draw ``(class, member)`` pairs
+    (:func:`draw_class_event_blocks`).
     """
 
     def __init__(self, lane_params, generators, *,
@@ -288,12 +405,13 @@ class EventStream:
                              f"{len(self._params)} lanes")
         if block < 1:
             raise ValueError(f"block must be >= 1, got {block}")
-        self._prefix = [seqcumsum(prm.p) for prm in self._params]
+        self._prefix = [seqcumsum(prm.mass if isinstance(prm, ClassParams)
+                                  else prm.p) for prm in self._params]
         self._dist = distribution
         self._block = int(block)
         self._total = total
         self._drawn = 0  # events drawn so far, the same for every lane
-        self._fs = self._cn = None
+        self._fs = self._cn = self._mb = None
         self._off = [0] * len(self._gens)
 
     @classmethod
@@ -301,8 +419,9 @@ class EventStream:
                     distribution: str = "exponential") -> "EventStream":
         """A cursor over the ``[events, K]`` leaves of ``blocks`` alone."""
         self = cls([], [], distribution=distribution)
-        fs, cn = _unit_scalars(blocks, distribution)
+        fs, cn, mb = _unit_scalars(blocks, distribution)
         self._fs, self._cn = fs.transpose(0, 1), cn.transpose(0, 1)
+        self._mb = None if mb is None else mb.transpose(0, 1)
         self._drawn = self._total = fs.shape[0]
         self._off = [0] * fs.shape[1]
         return self
@@ -319,41 +438,54 @@ class EventStream:
             return False
         blk = EventBlocks(*[None if x[0] is None else torch.stack(x)
                             for x in zip(*[
-                                draw_event_blocks(prm, g, size,
-                                                  distribution=self._dist,
-                                                  route_prefix=pre)
+                                (draw_class_event_blocks
+                                 if isinstance(prm, ClassParams)
+                                 else draw_event_blocks)(
+                                    prm, g, size, distribution=self._dist,
+                                    route_prefix=pre)
                                 for prm, g, pre in zip(self._params,
                                                        self._gens,
                                                        self._prefix)])])
-        fs, cn = _unit_scalars(blk, self._dist)
+        fs, cn, mb = _unit_scalars(blk, self._dist)
         if self._cn is not None:
             # drop what every lane has consumed
             lo = min(self._off)
             self._off = [o - lo for o in self._off]
             fs = torch.cat([self._fs[:, lo:], fs], dim=1)
             cn = torch.cat([self._cn[:, lo:], cn], dim=1)
-        self._fs, self._cn = fs, cn
+            if mb is not None:
+                mb = torch.cat([self._mb[:, lo:], mb], dim=1)
+        self._fs, self._cn, self._mb = fs, cn, mb
         self._drawn += size
         return True
 
     def window(self, chunk: int):
         """The next ``chunk`` events of every lane from its cursor:
-        ``(fs [K, chunk, 4], c_new [K, chunk])`` (see
-        :func:`_unit_scalars`).  Past the end of a finite stream the
-        window is zero-filled: those events must be masked."""
+        ``(fs [K, chunk, 4], c_new [K, chunk], member [K, chunk])`` (see
+        :func:`_unit_scalars`; ``member`` is ``None`` for per-client
+        lanes).  Past the end of a finite stream the window is
+        zero-filled: those events must be masked."""
         while self._width() < max(self._off) + chunk and self._draw():
             pass
-        fs, cn, off = self._fs, self._cn, self._off
+        off = self._off
         short = max(off) + chunk - self._width()
-        if short > 0:
-            fs = torch.cat([fs, fs.new_zeros((fs.shape[0], short, 4))], 1)
-            cn = torch.cat([cn, cn.new_zeros((cn.shape[0], short))], 1)
-        if min(off) == max(off):
-            return fs[:, off[0]:off[0] + chunk], cn[:, off[0]:off[0] + chunk]
-        idx = (torch.as_tensor(off, device=cn.device)[:, None]
-               + torch.arange(chunk, device=cn.device)[None, :])
-        return (fs.gather(1, idx[..., None].expand(-1, -1, 4)),
-                cn.gather(1, idx))
+        idx = None
+        if min(off) != max(off):
+            idx = (torch.as_tensor(off, device=self._cn.device)[:, None]
+                   + torch.arange(chunk, device=self._cn.device)[None, :])
+
+        def cut(x):
+            if x is None:
+                return None
+            if short > 0:
+                x = torch.cat([x, x.new_zeros((x.shape[0], short)
+                                              + x.shape[2:])], 1)
+            if idx is None:
+                return x[:, off[0]:off[0] + chunk]
+            return x.gather(1, idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+                            .expand((-1, -1) + x.shape[2:]))
+
+        return cut(self._fs), cut(self._cn), cut(self._mb)
 
     def advance(self, taken) -> None:
         """Move lane ``k``'s cursor by ``taken[k]`` events (an ``int``
@@ -505,6 +637,41 @@ def step_event_lanes(params, state, fs, c_new, *, table_step, power=None,
     return new_state, out
 
 
+_CLASS_TABLES = ("finish", "phase", "cls", "member", "seq", "disp_round")
+
+
+def step_class_event_lanes(classes, state: ClassEventState, fs, c_new,
+                           member, *, power=None, keep=None):
+    """One event for every lane of the class engine: ``state`` leaves
+    ``[K, ...]``, ``classes``/``power`` leaves ``[K, C]`` (scalars
+    ``[K]``), ``fs [K, 4]``, ``c_new [K]`` and ``member [K]`` the event's
+    scalars and routed ``(class, member)`` pairs.  The transition is
+    :func:`repro_torch.kernels.events.class_step_tables_plain`, the
+    statistics :func:`replay_event` over ``C`` owners.  Lanes where
+    ``keep [K]`` is false stay as they were.  Returns ``(ClassEventState,
+    EventOut)`` (``client`` reports the completing task's class)."""
+    from ..kernels.events import class_step_tables_plain
+
+    C = classes.p.shape[-1]
+    has_cs = classes.mu_cs is not None
+    iscal = torch.stack([c_new, state.seq_ctr, state.round, member],
+                        dim=-1).to(torch.int32)
+    *tables, t_col, int_col = class_step_tables_plain(
+        state.finish, state.phase, state.cls, state.member, state.seq,
+        state.disp_round, classes.mu_c, classes.mu_u, fs, iscal,
+        has_cs=has_cs)
+    new_state = replay_event(state, t_col[:, 0], int_col, iscal[:, 0], n=C,
+                             has_cs=has_cs, power=power, keep=keep)
+    if keep is not None:
+        tables = [_select(keep, a, getattr(state, k))
+                  for k, a in zip(_CLASS_TABLES, tables)]
+    new_state = new_state._replace(**dict(zip(_CLASS_TABLES, tables)))
+    out = EventOut(is_update=int_col[:, 2] > 0, time=t_col[:, 0],
+                   slot=int_col[:, 0], client=int_col[:, 1],
+                   delay=int_col[:, 3])
+    return new_state, out
+
+
 class MegastepOut(NamedTuple):
     """Per-event descriptors of one megastep (leaves ``[K, chunk]``, for
     masked events too: consumers gate on ``keep``)."""
@@ -570,17 +737,30 @@ def run_events(params: NetworkParams, state: EventState,
     ``chunk = 1`` runs one table transition per event (the event kernel
     under ``"kernel"``); ``chunk > 1`` runs ``ceil(num_events / chunk)``
     megasteps (the megastep kernel under ``"kernel"``), the events past
-    ``num_events`` masked.  Both are bitwise the same trajectory.
+    ``num_events`` masked.  Both are bitwise the same trajectory.  With
+    :class:`ClassParams` lanes every event runs the class transition
+    (:func:`step_class_event_lanes`), ``chunk`` events taken from the
+    stream at a time.
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    table_step, megastep = _transitions(backend)
+    classes = isinstance(params, ClassParams)
+    if not classes:
+        table_step, megastep = _transitions(backend)
+    elif backend == "kernel":
+        raise ValueError(
+            "the class-aggregated event engine has no kernel; pin "
+            "backend='batched' or 'reference' for class lanes")
     K = state.finish.shape[0]
     done = 0
     while done < num_events:
         rem = min(chunk, num_events - done)
-        fs, cn = stream.window(chunk)
-        if chunk == 1:
+        fs, cn, mb = stream.window(chunk)
+        if classes:
+            for i in range(rem):
+                state, _ = step_class_event_lanes(
+                    params, state, fs[:, i], cn[:, i], mb[:, i], power=power)
+        elif chunk == 1:
             state, _ = step_event_lanes(params, state, fs[:, 0], cn[:, 0],
                                         table_step=table_step, power=power)
         else:
@@ -602,9 +782,19 @@ def step_event_block(params: NetworkParams, state: EventState,
     (its plain version for CPU tensors); ``"batched"``/``"reference"`` run
     the plain PyTorch transition; both go through :func:`step_event_lanes`.
     """
-    fs, cn = _unit_scalars(blk, distribution)
+    fs, cn, _ = _unit_scalars(blk, distribution)
     return step_event_lanes(params, state, fs, cn,
                             table_step=_transitions(backend)[0], power=power)
+
+
+def step_class_event_block(classes, state: ClassEventState,
+                           blk: EventBlocks, *,
+                           distribution: str = "exponential", power=None
+                           ) -> tuple[ClassEventState, EventOut]:
+    """The class engine's :func:`step_event_block`: one event per lane
+    with its randomness (and routed member) pre-resolved in ``blk``."""
+    fs, cn, mb = _unit_scalars(blk, distribution)
+    return step_class_event_lanes(classes, state, fs, cn, mb, power=power)
 
 
 def run_event_blocks(params: NetworkParams, state: EventState,
@@ -616,6 +806,18 @@ def run_event_blocks(params: NetworkParams, state: EventState,
     stream = EventStream.from_blocks(blocks, distribution=distribution)
     return run_events(params, state, stream, blocks.c_new.shape[0],
                       chunk=chunk, power=power, backend=backend)
+
+
+def step_class_event(classes, state: ClassEventState, generators, *,
+                     distribution: str = "exponential", power=None
+                     ) -> tuple[ClassEventState, EventOut]:
+    """Advance every lane of the class engine by exactly one event."""
+    blk = stack_blocks([draw_class_event_blocks(lane(classes, i), g, 1,
+                                                distribution=distribution)
+                        for i, g in enumerate(generators)])
+    blk = EventBlocks(*[None if x is None else x[0] for x in blk])
+    return step_class_event_block(classes, state, blk,
+                                  distribution=distribution, power=power)
 
 
 def step_event(params: NetworkParams, state: EventState, generators, *,
@@ -665,7 +867,7 @@ def next_update(params: NetworkParams, state: EventState,
     active = [max_steps > 0] * K
     while any(active):
         rem = [max_steps - s if a else 0 for s, a in zip(steps, active)]
-        fs, cn = stream.window(chunk)
+        fs, cn, _ = stream.window(chunk)
         if chunk == 1:
             keep = torch.as_tensor(active, device=dev)
             state, ev = step_event_lanes(params, state, fs[:, 0], cn[:, 0],
@@ -768,3 +970,61 @@ def simulate_stats(params: NetworkParams, m, num_updates: int, *,
                       backend=resolve_backend(backend), chunk=int(chunk),
                       draw_events=int(draw_events))
     return lane(stats, 0)
+
+
+def simulate_stats_classes(classes: ClassParams, m, num_updates: int, *,
+                           warmup: int = 0,
+                           generator: Optional[torch.Generator] = None,
+                           seed: int = 0, distribution: str = "exponential",
+                           power=None, m_max: Optional[int] = None,
+                           backend: Optional[str] = None, chunk: int = 1,
+                           draw_events: int = DRAW_EVENTS) -> EventStats:
+    """Class-aggregated :func:`simulate_stats`: statistics over
+    ``num_updates`` rounds with O(#classes) per-event state.
+
+    The per-client fields of the result are per-class aggregates
+    (``mean_delay``/``delay_counts`` ``[C]``, occupancy ``[3C+1]``);
+    :func:`expand_class_stats` gives the per-member view.  ``power`` holds
+    per-class ``[C]`` arrays.  ``backend`` is ``"batched"`` or
+    ``"reference"`` (the class transition has no kernel; ``"kernel"``
+    raises), and every ``chunk`` gives bitwise the same statistics.
+    """
+    from ..sim.batched_events import simulate_stats_classes_lanes
+
+    if generator is None:
+        generator = torch.Generator(device=classes.device).manual_seed(seed)
+    stats = simulate_stats_classes_lanes(
+        [classes], [m], num_updates, warmup=warmup, generators=[generator],
+        distribution=distribution,
+        power=None if power is None else [power],
+        m_max=int(m) if m_max is None else m_max, backend=backend,
+        chunk=chunk, draw_events=draw_events)
+    return lane(stats, 0)
+
+
+def expand_class_stats(stats: EventStats, count) -> EventStats:
+    """Per-class :class:`EventStats` to the per-member view (O(n), on
+    demand).  Members of a class are exchangeable, so ``mean_delay``
+    repeats the class mean, ``delay_counts`` becomes the mean count per
+    member (``cnt_c / count_c``, a float) and each per-class occupancy
+    segment divides equally among the members.  Padded count-0 classes are
+    dropped; any leading lane axes are kept."""
+    count = torch.as_tensor(count).to(stats.mean_delay.device)
+    keep = count > 0
+    reps = count[keep]
+    w = reps.to(DTYPE)
+    C = count.shape[0]
+
+    def rep(x, per_member=False):
+        x = x[..., keep]
+        if per_member:
+            x = x / w
+        return torch.repeat_interleave(x, reps, dim=-1)
+
+    occ = stats.mean_queue_counts
+    return stats._replace(
+        mean_delay=rep(stats.mean_delay),
+        delay_counts=rep(stats.delay_counts, per_member=True),
+        mean_queue_counts=torch.cat(
+            [rep(occ[..., 0:C], True), rep(occ[..., C:2 * C], True),
+             rep(occ[..., 2 * C:3 * C], True), occ[..., 3 * C:]], dim=-1))

@@ -13,7 +13,9 @@ The routing vector lives on the simplex via ``p = softmax(theta)``
     (``"torch"`` or ``"kernel"`` backend) and the summed loss decouples
     row-wise, so the step is exactly ``B`` independent Adam runs;
   * :func:`time_optimal` (``search="batched"``), :func:`round_optimal`,
-    :func:`max_throughput`.
+    :func:`max_throughput`;
+  * :func:`time_optimal_classes` — the same sweep over a class-aggregated
+    population (:class:`ClassParams`), with logits on the class masses.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .buzen import NetworkParams
+from .buzen import ClassParams, NetworkParams
 from .complexity import LearningConstants, round_complexity, wallclock_time
 from .energy import PowerProfile, energy_complexity, joint_objective
 from .jackson import throughput
@@ -91,7 +93,7 @@ def optimize_routing(objective: Callable, n: int, m: int, *,
                      history=[float(v) for v in vals.cpu()])
 
 
-def batched_concurrency_sweep(objective: Callable, params: NetworkParams, *,
+def batched_concurrency_sweep(objective: Callable, params, *,
                               m_grid, ctx=None, steps: int = 400,
                               lr: float = 0.05,
                               p_init: Optional[torch.Tensor] = None,
@@ -104,14 +106,30 @@ def batched_concurrency_sweep(objective: Callable, params: NetworkParams, *,
     :mod:`repro_torch.core.batched`: ``obj(p [B, n], m [B], logZ [B,
     m_max+1])`` (plus ``ctx [B]`` when given) returns one value per row.
     Rows never interact, so the summed loss is ``B`` independent problems.
+
+    ``params`` may be a :class:`ClassParams`: rows are then per-member
+    routing over classes and the O(C) class DP replaces the O(n) one.  The
+    logits parameterise class masses ``q`` (a softmax, summing to 1),
+    members share ``p = q / count``, and padded (count-0) classes are
+    pinned to ``-inf`` logits, so they carry ``p = 0`` and a zero
+    gradient.
     """
-    from .batched import batch_log_normalizing_constants
+    from .batched import (batch_class_log_normalizing_constants,
+                          batch_log_normalizing_constants)
 
     dev = params.device
     m_grid = torch.as_tensor(np.asarray(m_grid), dtype=torch.int64,
                              device=dev)
     B = int(m_grid.shape[0])
-    n = params.n
+    is_classes = isinstance(params, ClassParams)
+    if is_classes:
+        n = params.C
+        cmask = params.count > 0
+        cnt = params.count.to(DTYPE)
+        cnt_safe = torch.where(cmask, cnt, 1.0)
+        n_total = float(params.n_total)
+    else:
+        n = params.n
     m_top = int(m_grid.max())
     m_pad = m_top if m_max is None else m_max
     if m_pad < m_top:
@@ -126,17 +144,27 @@ def batched_concurrency_sweep(objective: Callable, params: NetworkParams, *,
     if ctx is not None:
         ctx = torch.as_tensor(ctx, dtype=DTYPE, device=dev)
 
-    p0 = (torch.full((n,), 1.0 / n, dtype=DTYPE, device=dev)
-          if p_init is None else torch.as_tensor(p_init, dtype=DTYPE,
-                                                 device=dev))
-    theta0 = torch.log(torch.clamp(p0, min=1e-12))
+    if p_init is not None:
+        p0 = torch.as_tensor(p_init, dtype=DTYPE, device=dev)
+    else:
+        p0 = torch.full((n,), 1.0 / (n_total if is_classes else n),
+                        dtype=DTYPE, device=dev)
+    theta0 = torch.log(torch.clamp(cnt * p0 if is_classes else p0,
+                                   min=1e-12))
     if theta0.dim() == 1:
         theta0 = theta0.expand(B, n)
 
+    def to_p(thetas):
+        if is_classes:
+            th = torch.where(cmask, thetas, -torch.inf)
+            return torch.softmax(th, dim=-1) / cnt_safe
+        return torch.softmax(thetas, dim=-1)
+
     def row_values(thetas):
-        ps = torch.softmax(thetas, dim=-1)
-        logZ = batch_log_normalizing_constants(params, ps, m_pad,
-                                               backend=backend)
+        ps = to_p(thetas)
+        dp = (batch_class_log_normalizing_constants if is_classes
+              else batch_log_normalizing_constants)
+        logZ = dp(params, ps, m_pad, backend=backend)
         if ctx is None:
             return ps, objective(ps, m_grid, logZ)
         return ps, objective(ps, m_grid, logZ, ctx)
@@ -215,6 +243,25 @@ def time_optimal(params: NetworkParams, consts: LearningConstants,
     m_max = m_max or params.n + 32
     res = batched_concurrency_sweep(
         make_time_objective_padded(params, consts, m_max), params,
+        m_grid=np.arange(2, m_max + 1), m_max=m_max, **kw)
+    return res.best
+
+
+def time_optimal_classes(classes: ClassParams, consts: LearningConstants,
+                         m_max: int, *, search: str = "batched",
+                         **kw) -> OptResult:
+    """Class-space :func:`time_optimal`: O(C) per Adam step instead of
+    O(n), one batched sweep over ``m = 2..m_max``.  ``m_max`` is explicit
+    (a concurrency budget; ``n + 32`` would be absurd at ``n = 10^6``).
+    Returns per-member routing ``p`` (length ``C``) with ``sum_c count_c
+    p_c = 1``.  ``search="pruned"`` is not ported yet."""
+    from .batched import make_time_objective_classes
+
+    if search != "batched":
+        raise ValueError(f"unknown search mode: {search!r}; the port "
+                         "implements 'batched'")
+    res = batched_concurrency_sweep(
+        make_time_objective_classes(classes, consts, m_max), classes,
         m_grid=np.arange(2, m_max + 1), m_max=m_max, **kw)
     return res.best
 

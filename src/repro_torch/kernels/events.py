@@ -48,6 +48,35 @@ def event_step_tables_plain(finish, phase, client, seq, disp_round, mu_c,
                             mu_u, fscal, iscal, *, has_cs: bool):
     """One event per lane in PyTorch — the contract of the CUDA kernel
     (and of the JAX package's ``event_step_oracle``)."""
+    return _step_plain(finish, phase, client, seq, disp_round, mu_c, mu_u,
+                       fscal, iscal, has_cs=has_cs)[:7]
+
+
+def class_step_tables_plain(finish, phase, cls, member, seq, disp_round,
+                            mu_c, mu_u, fscal, iscal, *, has_cs: bool):
+    """One event per lane of the class-aggregated engine, in PyTorch.
+
+    The transition of :func:`event_step_tables_plain` with each task owned
+    by a ``(cls, member)`` pair: rates are per class (``mu_c``/``mu_u``
+    ``[K, C]``), the compute FIFO promotes within the completing task's
+    member (every member is its own single-server station), and ``iscal``
+    carries a fourth column, the routed member.  Returns the six updated
+    tables ``(finish, phase, cls, member, seq, disp_round)``, ``t_new [K,
+    1]`` and the nine descriptors (``c`` is the completing task's class).
+    The JAX package has no kernel for this engine, so neither has the
+    port: it runs on the plain transition on every device.
+    """
+    finish, phase, cls, seq, disp, t_col, desc, member = _step_plain(
+        finish, phase, cls, seq, disp_round, mu_c, mu_u, fscal, iscal,
+        has_cs=has_cs, member=member)
+    return finish, phase, cls, member, seq, disp, t_col, desc
+
+
+def _step_plain(finish, phase, client, seq, disp_round, mu_c, mu_u, fscal,
+                iscal, *, has_cs: bool, member=None):
+    """The shared body: ``client`` owns the rates; with ``member`` given a
+    task's compute station is its ``(client, member)`` pair and the
+    routed member is ``iscal[:, 3]``."""
     K, M = finish.shape
     dev = finish.device
     idx = torch.arange(M, device=dev)
@@ -85,9 +114,14 @@ def event_step_tables_plain(finish, phase, client, seq, disp_round, mu_c,
     client = torch.where(onej, client_j[:, None], client).to(torch.int32)
     disp = torch.where(onej, disp_j[:, None], disp_round).to(torch.int32)
 
-    # FIFO promotion at the compute station of client c
+    # FIFO promotion at the compute station of client c (of member (c, mb))
     promo_comp = is_down | is_comp
     mine = client == c[:, None]
+    if member is not None:
+        mb = member[lanes, j]
+        member_j = torch.where(is_update, iscal[:, 3], mb)
+        member = torch.where(onej, member_j[:, None], member).to(torch.int32)
+        mine = mine & (member == mb[:, None])
     serving_c = ((phase == E.COMP_SERV) & mine).any(dim=1)
     waiting_c = (phase == E.COMP_WAIT) & mine
     _, pick = _first_index_min(torch.where(waiting_c, seq, E._BIG_SEQ), idx)
@@ -112,7 +146,7 @@ def event_step_tables_plain(finish, phase, client, seq, disp_round, mu_c,
     int_col = torch.stack([j, c, is_update, delay, new_seq_ctr, new_round, ph,
                            do_comp, do_cs], dim=-1).to(torch.int32)
     return (finish, phase.to(torch.int32), client, seq, disp, t_new[:, None],
-            int_col)
+            int_col, member)
 
 
 def megastep_tables_plain(finish, phase, client, seq, disp_round, mu_c,

@@ -14,6 +14,11 @@ Each lane draws from its own ``torch.Generator``, in blocks of
 :class:`repro_torch.core.events.EventStream`, so a lane run alone and the
 same lane among others, at any ``chunk``, consume identical draws: lanes
 equal singles and every ``chunk`` equals ``chunk = 1``, bitwise.
+
+:func:`simulate_stats_classes_lanes` runs lanes of class-aggregated
+networks (:class:`repro_torch.core.buzen.ClassParams`) through the same
+loop on ``"reference"`` and ``"batched"``; the class transition has no
+kernel, so ``"kernel"`` raises for class lanes.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from typing import Optional
 import torch
 
 from ..core import events
-from ..core.buzen import NetworkParams
+from ..core.buzen import ClassParams, NetworkParams
 from ..core.events import (DRAW_EVENTS, EventStats, finalize_stats, lane,
                            stack_lanes)
 from ..scenario.laws import get_law
@@ -36,7 +41,8 @@ def run_lanes(lane_params: NetworkParams, ms, generators, num_updates: int,
     """The lock-step loop: ``lane_params``/``power`` lane-stacked, one
     concurrency and one generator per lane; ``ceil(num_events / chunk)``
     steps of ``chunk`` events, the events past ``num_events`` masked.
-    ``"reference"`` runs the lanes one at a time through the same loop."""
+    ``"reference"`` runs the lanes one at a time through the same loop.
+    :class:`ClassParams` lanes run the class engine."""
     if backend == "reference":
         outs = [run_lanes(stack_lanes([lane(lane_params, i)]), [ms[i]],
                           [generators[i]], num_updates, warmup=warmup,
@@ -51,9 +57,11 @@ def run_lanes(lane_params: NetworkParams, ms, generators, num_updates: int,
     num_events = mult * (num_updates + warmup) + mult * m_max + 8
     cap = warmup + num_updates
     singles = [lane(lane_params, i) for i in range(len(generators))]
+    init = (events.init_class_state if isinstance(lane_params, ClassParams)
+            else events.init_state)
     st = stack_lanes([
-        events.init_state(prm, m, g, m_max=m_max, distribution=distribution,
-                          warmup=warmup, cap=cap)
+        init(prm, m, g, m_max=m_max, distribution=distribution,
+             warmup=warmup, cap=cap)
         for prm, m, g in zip(singles, ms, generators)])
     stream = events.EventStream(singles, generators,
                                 distribution=distribution, block=draw_events,
@@ -81,10 +89,46 @@ def simulate_stats_lanes(params, ms, num_updates: int, *, warmup: int = 0,
     blocks of ``draw_events``.  Returns :class:`EventStats` with a leading
     ``[L]`` lane axis.
     """
+    return _lanes(NetworkParams, params, ms, num_updates, warmup=warmup,
+                  generators=generators, seeds=seeds,
+                  distribution=distribution, power=power, m_max=m_max,
+                  backend=backend, chunk=chunk, draw_events=draw_events)
+
+
+def simulate_stats_classes_lanes(classes, ms, num_updates: int, *,
+                                 warmup: int = 0, generators=None,
+                                 seeds=None,
+                                 distribution: str = "exponential",
+                                 power=None, m_max: Optional[int] = None,
+                                 backend: Optional[str] = None,
+                                 chunk: int = 1,
+                                 draw_events: int = DRAW_EVENTS
+                                 ) -> EventStats:
+    """:func:`simulate_stats_lanes` for class-aggregated lanes: ``classes``
+    a list of per-lane :class:`ClassParams` (or one lane-stacked with
+    ``[L, C]`` leaves), ``power`` per-class profiles.  The per-client
+    fields of the result are per class (``[L, C]``, occupancy ``[L,
+    3C+1]``; :func:`repro_torch.core.events.expand_class_stats` expands
+    them).  ``backend`` ``"batched"`` or ``"reference"``; ``"kernel"``
+    raises (no kernel exists for the class transition)."""
+    return _lanes(ClassParams, classes, ms, num_updates, warmup=warmup,
+                  generators=generators, seeds=seeds,
+                  distribution=distribution, power=power, m_max=m_max,
+                  backend=backend, chunk=chunk, draw_events=draw_events)
+
+
+def _lanes(kind, params, ms, num_updates: int, *, warmup, generators, seeds,
+           distribution, power, m_max, backend, chunk,
+           draw_events) -> EventStats:
+    """Stack the lanes of ``kind`` (:class:`NetworkParams` or
+    :class:`ClassParams`), their generators and power profiles, and run
+    :func:`run_lanes`."""
     get_law(distribution)  # eager: unknown laws fail listing the options
     backend = resolve_backend(backend)
-    lane_params = (params if isinstance(params, NetworkParams)
-                   else stack_lanes(params))
+    lane_params = params if isinstance(params, kind) else stack_lanes(params)
+    if not isinstance(lane_params, kind):
+        raise TypeError(f"expected {kind.__name__} lanes, got "
+                        f"{type(lane_params).__name__}")
     L = lane_params.p.shape[0]
     ms = [int(m) for m in ms]
     if len(ms) != L:

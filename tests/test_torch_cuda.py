@@ -5,9 +5,11 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the Buzen kernel within ``rtol/atol 2e-5`` of its plain float32
-version (same arithmetic, other rounding: fused multiply-adds and another
-reduction order); the event and megastep kernels bitwise (IEEE division, no
+Tolerances: the Buzen kernels (per client and per class) within ``rtol/atol
+2e-5`` of their plain float32 versions (same arithmetic, other rounding:
+fused multiply-adds and another reduction order), the class kernel's sweep
+within ``rtol 1e-4`` of the float64 one (as the per-client sweep on the
+card); the event and megastep kernels bitwise (IEEE division, no
 contraction); the fused update bitwise on the new parameters (a rounded
 multiply, then a rounded subtract) and within ``rtol 1e-5`` on the squared
 gradient norm (another summation order), and the trainer with it bitwise
@@ -22,7 +24,11 @@ from repro_torch.core.buzen import NetworkParams
 from repro_torch.kernels import buzen as kb
 from repro_torch.kernels import events as ke
 from repro_torch.kernels import fused_update as kf
-from repro_torch.sim import simulate_stats_lanes
+from repro_torch.core.buzen import pad_classes
+from repro_torch.core.optimize import time_optimal_classes
+from repro_torch.scenario.spec import (PAPER_CLUSTERS_TABLE1, ClassSpec,
+                                       LearningSpec)
+from repro_torch.sim import simulate_stats_classes_lanes, simulate_stats_lanes
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +77,74 @@ def test_buzen_kernel_matches_plain(cuda, S, m_max):
     torch.cuda.synchronize()
     assert kb.buzen_batched.launches == before + 1
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _class_rows(seed, B, S, scale, with_cs):
+    """Table 1's profiles as ``S`` class columns (counts x ``scale``), two
+    more count-0 columns, random per-member routing, and the CS station as
+    a count-1 column when ``with_cs``."""
+    rng = np.random.default_rng(seed)
+    base = np.array([c.count for c in PAPER_CLUSTERS_TABLE1] * 2)[:S]
+    counts = np.tile(np.concatenate([base * scale, [0, 0]]), (B, 1))
+    mu_c = np.array([c.mu_c for c in PAPER_CLUSTERS_TABLE1] * 2)[:S]
+    mass = rng.dirichlet(np.ones(S), size=B)
+    lr = np.concatenate([np.log(mass / counts[:, :S]) - np.log(mu_c),
+                         np.full((B, 2), -np.inf)], axis=1)
+    if with_cs:
+        lr = np.concatenate([lr, np.log(rng.uniform(0.1, 1.0, (B, 1)))], 1)
+        counts = np.concatenate([counts, np.ones((B, 1), np.int64)], 1)
+    return lr, counts.astype(np.float64), np.log(rng.uniform(0.5, 3.0, B))
+
+
+@pytest.mark.parametrize("scale", [1, 10_000])
+@pytest.mark.parametrize("S,with_cs", [(5, False), (5, True), (6, False)])
+def test_buzen_classes_kernel_matches_plain(cuda, S, with_cs, scale):
+    lr, cnt, lg = [torch.as_tensor(x, device=cuda)
+                   for x in _class_rows(S + scale, 131, S, scale, with_cs)]
+    want = kb.buzen_classes_batched_plain(lr, cnt, lg, 132)
+    before = kb.buzen_classes_batched.launches
+    got = kb.buzen_classes_batched(lr, cnt, lg, 132)
+    torch.cuda.synchronize()
+    assert kb.buzen_classes_batched.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    f64 = kb.reference_class_log_Z(lr, cnt, lg, 132)
+    torch.testing.assert_close(got.double(), f64, rtol=3e-5, atol=3e-4)
+    # the padded (count-0) columns are identities, bitwise
+    keep = [i for i in range(cnt.shape[1]) if i not in (S, S + 1)]
+    unpadded = kb.buzen_classes_batched(lr[:, keep].contiguous(),
+                                        cnt[:, keep].contiguous(), lg, 132)
+    assert torch.equal(unpadded, got)
+
+
+def test_time_optimal_classes_kernel_matches_torch(cuda):
+    cp = ClassSpec.from_clusters(PAPER_CLUSTERS_TABLE1).class_params(
+        device=cuda)
+    consts = LearningSpec().consts
+    kb.buzen_classes_batched.launches = 0
+    got = time_optimal_classes(cp, consts, 40, steps=30, backend="kernel")
+    assert kb.buzen_classes_batched.launches == 31
+    want = time_optimal_classes(cp, consts, 40, steps=30, backend="torch")
+    np.testing.assert_allclose([v for _, v in got.history],
+                               [v for _, v in want.history], rtol=1e-4)
+    padded = time_optimal_classes(pad_classes(cp, 7), consts, 40, steps=30,
+                                  backend="kernel")
+    assert padded.value == got.value and padded.m == got.m
+
+
+def test_class_lanes_on_the_card(cuda):
+    cp = ClassSpec.from_clusters(PAPER_CLUSTERS_TABLE1, scale=10).class_params(
+        mu_cs=4.0, device=cuda)
+    kw = dict(warmup=50, seeds=range(3), distribution="exponential")
+    want = simulate_stats_classes_lanes([cp] * 3, [5, 6, 7], 200,
+                                        backend="batched", **kw)
+    for chunk in (1, 8):
+        got = simulate_stats_classes_lanes([cp] * 3, [5, 6, 7], 200,
+                                           backend="reference", chunk=chunk,
+                                           **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="no kernel"):
+        simulate_stats_classes_lanes([cp], [5], 10, backend="kernel")
 
 
 @pytest.mark.parametrize("has_cs", [False, True])
