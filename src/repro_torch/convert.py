@@ -154,3 +154,27 @@ def model_params(leaves, model: torch.nn.Module) -> dict:
         raise ValueError(f"reference leaves with no parameter: "
                          f"{sorted(flat)}")
     return out
+
+
+def lm_params_from_jax(cfg, params, *, device="cuda") -> dict:
+    """The JAX package's LM parameter tree (``init``'s nested dicts and
+    lists, numpy or JAX leaves, groups stacked on axis 0) as the port's:
+    the same tree of tensors in ``cfg.param_dtype`` on ``device``.  Weights
+    keep the ``[in, out]`` layout, so every leaf is a copy, never a
+    transpose."""
+    dtype = getattr(torch, cfg.param_dtype)
+
+    def leaf(x):
+        arr = np.asarray(x)
+        if arr.dtype != np.float32:  # bfloat16 leaves come as ml_dtypes
+            arr = arr.astype(np.float32)
+        return torch.as_tensor(np.array(arr), device=device).to(dtype)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return leaf(node)
+
+    return walk(params)

@@ -13,7 +13,11 @@ card); the event and megastep kernels bitwise (IEEE division, no
 contraction); the fused update bitwise on the new parameters (a rounded
 multiply, then a rounded subtract) and within ``rtol 1e-5`` on the squared
 gradient norm (another summation order), and the trainer with it bitwise
-the trainer without it.
+the trainer without it; flash attention within ``2e-5`` of its plain
+version in float32 and ``2e-2`` in bfloat16 (``tests/test_kernels.py``'s
+bounds: float32 FFMA in another summation order; the output rounded to
+bfloat16), and the reduced qwen3 LM on the ``kernel`` route within ``1e-4``
+of the ``ref`` route in float32.
 """
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ from repro_torch.core import events as E
 from repro_torch.core.buzen import NetworkParams
 from repro_torch.kernels import buzen as kb
 from repro_torch.kernels import events as ke
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import fused_update as kf
 from repro_torch.core.buzen import pad_classes
 from repro_torch.core.optimize import time_optimal_classes
@@ -312,3 +317,69 @@ def test_trainer_fused_update_bitwise_on_the_card(cuda, monkeypatch):
         assert a.losses == b.losses and a.updates == b.updates
         assert a.throughput == b.throughput and a.energy == b.energy
         assert np.isfinite(a.losses).all() and a.updates[-1] > 10
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None), (False, 100)])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D", [
+    (1, 128, 128, 4, 4, 64),     # MHA, tile-aligned
+    (2, 100, 100, 8, 2, 64),     # GQA 4:1, ragged
+    (1, 33, 257, 4, 1, 128),     # MQA, Sq != Sk, ragged tiles
+    (2, 300, 300, 16, 2, 128),   # GQA 8:1, several query tiles
+    (1, 2047, 2047, 8, 1, 128),  # MQA, ragged at the main path's length
+    (1, 200, 70, 2, 1, 64),      # Sq > Sk: rows with no valid key
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, D,
+                                              causal, window, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk + H)
+    q = torch.randn((B, Sq, H, D), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, Sk, KV, D), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, Sk, KV, D), generator=gen, device=cuda).to(dtype)
+    want = kfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    before = kfa.flash_attention.launches
+    got = kfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        kfa.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 8, 64), device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        kfa.flash_attention(q, q, q)
+    q = q.contiguous()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kfa.flash_attention(q.half(), q.half(), q.half())
+
+
+def test_reduced_lm_kernel_route_matches_ref_on_the_card(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen3-8b").reduced()
+    ref = build_model(cfg, device=cuda)
+    ker = build_model(cfg, attention_impl="kernel", device=cuda)
+    params = ref.init(torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 150), generator=gen,
+                           device=cuda)
+    batch = {"tokens": tokens, "targets": tokens.roll(-1, 1)}
+    before = kfa.flash_attention.launches
+    logits, cache = ker.prefill(params, batch)
+    loss, _ = ker.loss_fn(params, batch)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches == before + 2 * cfg.n_layers
+    want_logits, want_cache = ref.prefill(params, batch)
+    want_loss, _ = ref.loss_fn(params, batch)
+    torch.testing.assert_close(logits, want_logits, rtol=1e-4, atol=1e-4)
+    for name in ("k", "v"):
+        torch.testing.assert_close(getattr(cache["groups"]["slot0"], name),
+                                   getattr(want_cache["groups"]["slot0"],
+                                           name), rtol=1e-4, atol=1e-4)
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
