@@ -103,7 +103,31 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      kernel's time at the main path's shape (B = 2, S = 2048, bfloat16,
      causal), its plain version's and the library call's
      (``scaled_dot_product_attention``, timed here only, never used by the
-     port) beside the bound.
+     port) beside the bound;
+ 10. the dense LM's decode and the serve loop (Qwen3-8B): (a) the
+     decode-attention kernel against its plain version, float32 within
+     2e-5 and bfloat16 within 2e-2, at ``tests/test_kernels.py``'s shapes,
+     the serve shape (B = 16, S = 320, H = 32, KV = 8, D = 128),
+     granite-34b's MQA (H = 48, KV = 1), ragged S = 1000 and a full
+     8,192-entry ring, each with a scalar, the full and per-batch lengths;
+     (b) Qwen3-8B at full width cut to 2 layers in float32, B = 2: 16
+     decode steps on the ``kernel`` route against ``lm_forward``'s logits
+     and against the ``ref`` route (logits and cache), and
+     ``window_override=64`` over 100 steps (a ring of 64) against
+     ``lm_forward(window=64)``, all within atol 1e-4 + rtol 1e-4; (c)
+     Qwen3-8B at full width and depth in bfloat16 through the serve
+     loop (``launch.serve.generate``): B = 16 prompts of 256 tokens from
+     ``--seed`` stepped one token at a time, then 64 tokens generated
+     greedily, with the kernel's count zeroed just before and read just
+     after (36 launches a step), finite logits, the logits after the
+     prompt within a relative L2 distance of 0.1 of ``prefill``'s (kernel
+     6), the ``ref`` route teacher-forced on the generated tokens within
+     0.1 at every step, ms per step, generated tokens/s, kernel 7's share
+     of a traced step's device time, the top kernels and peak memory; (d)
+     the kernel's, its plain version's and the library call's times
+     (``scaled_dot_product_attention`` with ``enable_gqa``, timed here
+     only) at decode_32k's per-layer shape (B = 128, a full 8,192-entry
+     ring, bfloat16) beside its bytes bound, and at the serve shape.
 
 Phase 3 also holds the fused-update kernel against its plain version
 (bitwise on the new parameters, ``rtol 1e-5`` on the squared norm) at
@@ -866,6 +890,244 @@ def lm_phase(dev, card: str, seed: int) -> dict:
             else "bytes", "library_ms": times["library"][1]}
 
 
+def rel_l2(a, b) -> float:
+    """``|a - b| / |b|`` over all elements, in float32."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def decode_phase(dev, card: str, seed: int) -> dict:
+    """Phase 10 (see the module docstring); returns kernel 7's record with
+    its launches on the serve loop's run at full depth."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import lm_forward
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    # -- 10a. kernel 7 against its plain version ----------------------------
+    shapes = [(2, 256, 8, 2, 64, 200), (1, 100, 4, 4, 128, 100),
+              (3, 513, 4, 1, 64, 77),        # tests/test_kernels.py
+              (16, 320, 32, 8, 128, 257),    # Qwen3-8B, the serve shape
+              (2, 1024, 48, 1, 128, 700),    # granite-34b, MQA
+              (4, 1000, 32, 8, 128, 999),    # ragged S
+              (8, 8192, 32, 8, 128, 8192)]   # a full 8,192-entry ring
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = 0
+    for B, S, H, KV, D, n in shapes:
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            per_batch = torch.randint(0, S + 1, (B,), generator=gen,
+                                      device=dev, dtype=torch.int32)
+            for length in (n, S, per_batch):
+                got = kda.decode_attention(q, k, v, length).float()
+                want = kda.decode_attention_plain(q, k, v, length).float()
+                torch.cuda.synchronize()
+                e = (got - want).abs()
+                form = "per-batch" if torch.is_tensor(length) else length
+                check(bool((e <= tol + tol * want.abs()).all()),
+                      f"decode attention kernel vs plain ({dtype}, "
+                      f"{(B, S, H, KV, D)}, length {form}): max err "
+                      f"{float(e.max())}")
+                err[dtype] = max(err[dtype], float(e.max()))
+                cases += 1
+    log(f"phase 10: decode attention kernel == plain ({cases} cases: "
+        f"{len(shapes)} shapes x 2 types x scalar, full and per-batch "
+        f"lengths; max abs err float32 {err[torch.float32]:.3g} (bound "
+        f"2e-5), bfloat16 {err[torch.bfloat16]:.3g} (bound 2e-2)) "
+        f"[{time.perf_counter() - t_phase:.1f} s]")
+    rng = np.random.default_rng(seed)
+
+    def decode(bundle, params, tokens, cache_len):
+        cache = bundle.init_cache(tokens.shape[0], cache_len)
+        logits = []
+        for t in range(tokens.shape[1]):
+            lg, cache = bundle.decode_step(params, cache, tokens[:, t:t + 1],
+                                           t)
+            logits.append(lg[:, 0])
+        torch.cuda.synchronize()
+        return torch.stack(logits, dim=1), cache
+
+    def close(what, a, b, atol, rtol):
+        e = (a - b).abs()
+        check(bool((e <= atol + rtol * b.abs()).all()),
+              f"{what}: max err {float(e.max())}")
+        return float(e.max())
+
+    # -- 10b. full width, 2 layers, float32 ---------------------------------
+    cfg2 = dataclasses.replace(get_config("qwen3-8b"), n_layers=2,
+                               dtype="float32", param_dtype="float32")
+    ker2 = build_model(cfg2, attention_impl="kernel", device=dev)
+    ref2 = build_model(cfg2, device=dev)
+    params = ker2.init(gen)
+    B, T = 2, 16
+    tokens = torch.as_tensor(rng.integers(0, cfg2.vocab, (B, 100)),
+                             device=dev)
+    kda.decode_attention.launches = 0
+    lk, ck = decode(ker2, params, tokens[:, :T], T)
+    launches2 = kda.decode_attention.launches
+    check(launches2 == T * cfg2.n_layers,
+          f"decode attention launched {launches2} times in {T} steps")
+    lr, cr = decode(ref2, params, tokens[:, :T], T)
+    full = lm_forward(params, cfg2, tokens[:, :T]).logits
+    worst = {"forward": close("2 layers: decode vs lm_forward logits", lk,
+                              full, 1e-4, 1e-4)}
+    worst["ref route"] = max(
+        close("2 layers: kernel vs ref route logits", lk, lr, 1e-4, 1e-4),
+        *(close(f"2 layers: kernel vs ref route cache {name}",
+                getattr(ck["groups"]["slot0"], name),
+                getattr(cr["groups"]["slot0"], name), 1e-4, 1e-4)
+          for name in ("k", "v")))
+    ring = build_model(cfg2, attention_impl="kernel", window_override=64,
+                       device=dev)
+    lw, cw = decode(ring, params, tokens, 100)
+    check(cw["groups"]["slot0"].k.shape[2] == 64, "ring of 64 entries")
+    worst["ring"] = close("2 layers: ring decode vs lm_forward(window=64)",
+                          lw, lm_forward(params, cfg2, tokens,
+                                         window=64).logits, 1e-4, 1e-4)
+    log(f"phase 10: Qwen3-8B full width x 2 layers, float32, B = {B}: "
+        f"{T} decode steps on the kernel route ({launches2} launches) == "
+        f"lm_forward (max abs err {worst['forward']:.3g}) and == the ref "
+        f"route on logits and cache ({worst['ref route']:.3g}); "
+        f"window_override=64 over 100 steps (a ring of 64) == "
+        f"lm_forward(window=64) ({worst['ring']:.3g}); bound atol 1e-4 + "
+        f"rtol 1e-4 [{time.perf_counter() - t_phase:.1f} s]")
+    del params, lk, ck, lr, cr, full, lw, cw
+    torch.cuda.empty_cache()
+
+    # -- 10c. full width and depth, bfloat16, through the serve loop -----
+    cfg = get_config("qwen3-8b")
+    ker = build_model(cfg, attention_impl="kernel", device=dev)
+    ref = build_model(cfg, device=dev)
+    params = ker.init(gen)
+    B, P, N = 16, 256, 64
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kda.decode_attention.launches = 0
+    out = generate(ker, params, prompts, N, keep_logits=True)
+    launches = kda.decode_attention.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    kept_gb = out.step_logits.numel() * 4 / 1e9
+    steps = P + N - 1
+    check(launches == cfg.n_layers * steps,
+          f"decode attention launched {launches} times in {steps} steps")
+    check(out.tokens.shape == (B, N) and out.step_logits.shape
+          == (B, steps, cfg.vocab)
+          and bool(torch.isfinite(out.step_logits).all()),
+          "decode logits not finite or of the wrong shape")
+    pre_logits, _ = ker.prefill(params, {"tokens": prompts})
+    rel_prefill = rel_l2(out.prompt_logits, pre_logits[:, -1])
+    check(rel_prefill <= 0.1, f"stepped vs prefill logits at t = P - 1: "
+          f"relative L2 {rel_prefill}")
+    agree = float((out.prompt_logits.argmax(-1)
+                   == pre_logits[:, -1].argmax(-1)).float().mean())
+    del pre_logits
+    forced = generate(ref, params, prompts, N, forced=out.tokens,
+                      keep_logits=True)
+    diff = (out.step_logits - forced.step_logits).norm(dim=(0, 2))
+    rel_ref = float((diff / forced.step_logits.norm(dim=(0, 2))).max())
+    check(rel_ref <= 0.1, f"kernel vs ref route, teacher-forced: worst "
+          f"step's relative L2 {rel_ref}")
+    del forced
+    toks = out.tokens[:, -1:]
+
+    def step():
+        return ker.decode_step(params, out.cache, toks, P + N - 1)
+
+    reps = 5
+    _, wall_ms, split = profiled(step, reps)
+    busy = sum(ms for ms, _ in split.values())
+    attn = sum(ms for name, (ms, _) in split.items()
+               if "decode_kernel" in name)
+    gemm = sum(ms for name, (ms, _) in split.items()
+               if any(w in name for w in ("nvjet", "gemm", "cutlass")))
+    log(f"phase 10: {reps} decode steps' top kernels by device time:")
+    log_top(split, 8)
+    share = (f"kernel 7 {attn / reps:.3f} ms of {busy / reps:.3f} ms device "
+             f"time a step ({100 * attn / busy:.1f}%), matrix products "
+             f"{gemm / reps:.3f} ms, the rest "
+             f"{(busy - attn - gemm) / reps:.3f} ms; traced wall "
+             f"{wall_ms / reps:.2f} ms a step (device busy "
+             f"{100 * busy / wall_ms:.1f}%)" if busy > 0
+             else "not measured (no device trace)")
+    step_ms = 1e3 * out.decode_s / (N - 1)
+    log(f"phase 10: Qwen3-8B at full width and depth ({cfg.n_layers} "
+        f"layers, bfloat16) through serve.generate: B = {B} prompts of "
+        f"P = {P} tokens stepped in {1e3 * out.prefill_s / P:.2f} ms a "
+        f"step, then N = {N} new tokens: {step_ms:.2f} ms per decode step, "
+        f"{B * (N - 1) / out.decode_s:.1f} generated tokens/s; decode "
+        f"attention launches {launches} ({launches // steps} per step over "
+        f"{steps} steps); peak memory {peak:.2f} GB ({kept_gb:.2f} GB of it "
+        f"the kept float32 logits of every step); {share}; stepped vs "
+        f"prefill logits at t = P - 1 relative L2 {rel_prefill:.4g} (bound "
+        f"0.1, argmax agreement {agree:.3f}); ref route teacher-forced on "
+        f"the generated tokens, worst step's relative L2 {rel_ref:.4g} "
+        f"(bound 0.1) ({card}) [{time.perf_counter() - t_phase:.1f} s]")
+    del params, out
+    torch.cuda.empty_cache()
+
+    # -- 10d. kernel 7's times at decode_32k's per-layer shape -------------
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def shape_times(B, S, reps):
+        q = torch.randn((B, 1, H, D), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev)
+                .bfloat16() for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        calls = {
+            "kernel": (lambda: kda.decode_attention(q, k, v, S), reps),
+            "plain": (lambda: kda.decode_attention_plain(q, k, v, S), 3),
+            "library": (lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True), reps)}
+        _, _, lib_split = profiled(calls["library"][0], 10)
+        log(f"phase 10: the library call's kernels at B = {B}, S = {S} (10 "
+            f"calls traced):")
+        log_top(lib_split, 3)
+        lib = calls["library"][0]().transpose(1, 2).float()
+        e = (lib - calls["kernel"][0]().float()).abs()
+        check(bool((e <= 2e-2 + 2e-2 * lib.abs()).all()),
+              f"the library call disagrees with the kernel: {float(e.max())}")
+        times = {name: (device_ms(fn, r), time_ms(fn, r))
+                 for name, (fn, r) in calls.items()}
+        nbytes = 2 * (2 * B * S * KV * D + 2 * B * H * D)
+        ops = 4 * B * H * S * D
+        bounds = (1e3 * nbytes / PEAK_BYTES, 1e3 * ops / PEAK_BF16_FLOPS)
+        log(f"phase 10: decode attention q [{B}x1x{H}x{D}], caches "
+            f"[{B}x{S}x{KV}x{D}] bfloat16, length {S}: "
+            + "; ".join(f"{name} device {d:.4f} ms / between events "
+                        f"{w:.4f} ms" for name, (d, w) in times.items())
+            + f"; bound {max(bounds):.6f} ms ({nbytes / 1e9:.4f} GB at 3.35 "
+            f"TB/s {bounds[0]:.6f} ms, {ops / 1e9:.3f} GFLOP at 989 TFLOP/s "
+            f"{bounds[1]:.6f} ms); library vs kernel max abs err "
+            f"{float(e.max()):.3g} ({card})")
+        return times, bounds
+
+    shape_times(16, 320, 50)  # the serve shape, logged beside
+    times, bounds = shape_times(128, 8192, 20)
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:55",
+            "launches": launches, "max_abs_err": max(err.values()),
+            # between-event times, as phase 9's record (traces late in this
+            # long process can lose device records)
+            "ms": times["kernel"][1], "plain_ms": times["plain"][1],
+            "bound_ms": max(bounds),
+            "bound_by": "bytes" if bounds[0] >= bounds[1] else "operations",
+            "library_ms": times["library"][1]}
+
+
 def main() -> int:
     import argparse
 
@@ -873,7 +1135,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of phase 9's prompts and weights")
+                        help="seed of phases 9 and 10's prompts and "
+                        "weights")
     seed = parser.parse_args().seed
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1405,11 +1668,15 @@ def main() -> int:
 
     # -- 9. the dense LM's prefill: Qwen3-8B, kernel 6 ---------------------
     flash_rec = lm_phase(dev, card, seed)
-    log(f"chip_smoke: phases 1-9 passed in {time.perf_counter() - t_start:.1f}"
-        f" s")
+
+    # -- 10. the dense LM's decode and the serve loop, kernel 7 -----------
+    decode_rec = decode_phase(dev, card, seed)
+    log(f"chip_smoke: phases 1-10 passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [buzen_rec, event_rec, mega_rec,
-                                  fused_rec, class_rec, flash_rec]}),
+                                  fused_rec, class_rec, flash_rec,
+                                  decode_rec]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

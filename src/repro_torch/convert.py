@@ -4,9 +4,10 @@ Each function takes a mapping of field name to numpy array (what
 ``{k: np.asarray(v) for k, v in obj._asdict().items()}`` gives on the JAX
 side; ``None`` for an absent optional field) and returns the port's
 ``NamedTuple`` on ``device``, floats as ``dtype``; :func:`model_params`
-carries a model's weights across.  The PRNG ``key`` of an event state,
-which the port does not carry, is ignored.  Nothing here imports ``jax``
-or ``repro``.
+carries a model's weights across, :func:`lm_params_from_jax` and
+:func:`lm_cache_from_jax` an LM's weights and decode cache.  The PRNG
+``key`` of an event state, which the port does not carry, is ignored.
+Nothing here imports ``jax`` or ``repro``.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from .core.complexity import LearningConstants
 from .core.energy import PowerProfile
 from .core.events import ClassEventState, EventBlocks, EventState
 from .core.numerics import DTYPE
+from .models.layers import AttnCache
 
 
 def _tensor(x, device, dtype):
@@ -164,17 +166,43 @@ def lm_params_from_jax(cfg, params, *, device="cuda") -> dict:
     transpose."""
     dtype = getattr(torch, cfg.param_dtype)
 
-    def leaf(x):
-        arr = np.asarray(x)
-        if arr.dtype != np.float32:  # bfloat16 leaves come as ml_dtypes
-            arr = arr.astype(np.float32)
-        return torch.as_tensor(np.array(arr), device=device).to(dtype)
-
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v) for v in node]
-        return leaf(node)
+        return _lm_leaf(node, device, dtype)
 
     return walk(params)
+
+
+def _lm_leaf(x, device, dtype) -> torch.Tensor:
+    """A float leaf of the JAX package's LM trees as a tensor (a copy)."""
+    arr = np.asarray(x)
+    if arr.dtype != np.float32:  # bfloat16 leaves come as ml_dtypes
+        arr = arr.astype(np.float32)
+    return torch.as_tensor(np.array(arr), device=device).to(dtype)
+
+
+def lm_cache_from_jax(cfg, cache, *, device="cuda") -> dict:
+    """The JAX package's LM decode cache (``init_cache``'s or
+    ``decode_step``'s tree: ``{"prelude": [...], "groups": {"slot<i>":
+    AttnCache(k, v)}}`` with numpy or JAX leaves) as the port's: the same
+    tree with the port's ``AttnCache`` of tensors in ``cfg.dtype`` on
+    ``device``, which the port's ``decode_step`` takes and updates in
+    place."""
+    dtype = getattr(torch, cfg.dtype)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            if tuple(node._fields) != AttnCache._fields:
+                raise ValueError(f"only attention caches are ported, got "
+                                 f"{type(node).__name__}{node._fields}")
+            return AttnCache(*(_lm_leaf(x, device, dtype) for x in node))
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        raise ValueError(f"unexpected cache leaf {type(node).__name__}")
+
+    return walk(cache)

@@ -3,6 +3,7 @@ with a plain PyTorch version beside it and a launch counter on its
 wrapper: :mod:`.buzen` (the batched Buzen DP), :mod:`.events` (the event
 engine's table transition, one event or a megastep per launch) and
 :mod:`.fused_update` (the trainer's server-side update fused with the
-gradient norm) and :mod:`.flash_attention` (the LM's full-sequence GQA
-attention).  Nothing is built at import: :mod:`.build` compiles a
+gradient norm), :mod:`.flash_attention` (the LM's full-sequence GQA
+attention) and :mod:`.decode_attention` (the LM's one-token attention
+against its KV cache).  Nothing is built at import: :mod:`.build` compiles a
 kernel's library at its first launch."""

@@ -25,10 +25,11 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # per-source extra flags; the event step and the fused update must not
 # contract mul-adds, so their arithmetic is bitwise their plain PyTorch
-# versions; flash attention keeps nvcc's precise expf and division (no
-# --use_fast_math)
+# versions; flash and decode attention keep nvcc's precise expf and
+# division (no --use_fast_math)
 FLAGS = {"buzen": [], "events": ["-fmad=false"],
-         "fused_update": ["-fmad=false"], "flash_attention": []}
+         "fused_update": ["-fmad=false"], "flash_attention": [],
+         "decode_attention": []}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -9,7 +9,9 @@ single-token cache attention.
 All take q ``[B, Sq, H, D]`` and k, v ``[B, Sk, KV, D]``, with GQA (query
 head ``h = kv * G + g`` reads KV head ``kv``), causal masks and sliding
 windows, and return q's type.  :func:`attention` dispatches between them
-and the hand-written kernel (``impl="kernel"``).
+and the hand-written flash-attention kernel (``impl="kernel"``), and
+:func:`decode_attention` between ``decode_attention_ref`` and the
+hand-written decode-attention kernel.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from ..kernels import decode_attention as kda
 from ..kernels.flash_attention import flash_attention
 
 NEG = -1e30
@@ -126,4 +129,16 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     if impl == "ref":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, block_k=block_k)
+    raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
+
+
+def decode_attention(q, k_cache, v_cache, length, *, impl: str = "ref"):
+    """Dispatch one-token cache attention: ``"kernel"`` to the
+    decode-attention kernel (CUDA on the card, its plain version on the
+    CPU), ``"ref"`` and ``"plain"`` to :func:`decode_attention_ref`, which
+    the reference's decode always calls."""
+    if impl == "kernel":
+        return kda.decode_attention(q, k_cache, v_cache, length)
+    if impl in ("ref", "plain"):
+        return decode_attention_ref(q, k_cache, v_cache, length)
     raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")

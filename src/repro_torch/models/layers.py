@@ -1,6 +1,7 @@
 """Shared transformer layers (port of ``repro.models.layers``): RMSNorm,
-standard rotary embeddings, the SwiGLU FFN and the GQA attention block of
-the full-sequence forward (train / prefill).
+standard rotary embeddings, the SwiGLU FFN, the GQA attention block of the
+full-sequence forward (train / prefill) and its one-token decode against a
+KV cache.
 
 Parameters are dicts of tensors in the reference's layout: a dense weight
 is ``[in, out]`` and applied as ``x @ w``, so the JAX package's weights
@@ -8,8 +9,7 @@ carry over as a copy.  Initialisers draw from an explicit
 ``torch.Generator`` the reference's shapes, scales and types (a float32
 normal, scaled, cast to ``param_dtype``); ``lead`` stacks them along leading
 axes (the LM's groups), one slice at a time.  M-RoPE waits for the vlm
-slice and one-token decode for the decode slice (ROADMAP Queue 1 items 10
-and 2).
+slice (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .attention import attention
+from .attention import attention, decode_attention
 from .config import ArchConfig
 
 
@@ -177,3 +177,30 @@ def attention_block(params, cfg: ArchConfig, x, positions, *, causal=True,
     B, S = x.shape[:2]
     y = out.reshape(B, S, -1) @ params["wo"]
     return y, (AttnCache(k=k, v=v) if return_cache else None)
+
+
+def attention_decode(params, cfg: ArchConfig, x, pos: int, cache: AttnCache,
+                     *, window=None, impl="ref"):
+    """One-token decode against a KV cache: ``(y [B, 1, d], cache)``.
+
+    x is ``[B, 1, d]`` at position ``pos`` (a Python int).  With a sliding
+    window the cache is a ring buffer: the write slot is ``pos % S_cache``
+    and every entry is valid once ``pos >= S_cache``.  Without one the
+    slot is ``pos`` (clamped to the last entry, as the reference's
+    ``dynamic_update_slice`` clamps) and the entries up to it are valid.
+    The new K/V row is written into the caller's cache in place (the
+    reference returns a new cache; a functional copy of every layer's cache
+    would cost more than the step), and that cache is returned.
+    """
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.hd
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _project_qkv(params, cfg, x, positions)
+    S_cache = cache.k.shape[1]
+    slot = pos % S_cache if window is not None else min(pos, S_cache - 1)
+    cache.k[:, slot] = k_new[:, 0]
+    cache.v[:, slot] = v_new[:, 0]
+    out = decode_attention(q, cache.k, cache.v, min(pos + 1, S_cache),
+                           impl=impl)
+    y = out.reshape(B, 1, H * hd) @ params["wo"]
+    return y, cache

@@ -1,5 +1,6 @@
-"""Decoder-only language model, full-sequence forward (port of
-``repro.models.lm``, train / prefill).
+"""Decoder-only language model (port of ``repro.models.lm``): the
+full-sequence forward (train / prefill) and the one-token decode step
+against a KV cache.
 
 A model is ``embed -> [prelude groups] -> loop over stacked groups -> norm
 -> head``, where one *group* is ``cfg.block_pattern`` and the groups'
@@ -7,19 +8,22 @@ parameters are stacked along a leading axis, as in the reference; the
 reference's ``scan`` over that axis is a Python loop here.  Each pattern
 slot is the ``attn`` mixer with a dense FFN (or none), pre-RMSNorm
 residuals.  The ``mamba``, ``mlstm`` and ``slstm`` mixers and the MoE FFN
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 10), and so does
-decode (item 2).
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 10).  The decode cache
+mirrors the parameters: ``{"prelude": [...], "groups": {"slot<i>":
+AttnCache([n_groups, B, L, KV, D] each)}}``, and a decode step writes into
+it in place.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from .config import ArchConfig
-from .layers import (attention_block, dense_ffn, dtype_of, init_attention,
-                     init_dense_ffn, init_rmsnorm, normal, pdtype_of,
-                     positions_for, rmsnorm)
+from .layers import (AttnCache, attention_block, attention_decode,
+                     dense_ffn, dtype_of, init_attention, init_dense_ffn,
+                     init_rmsnorm, normal, pdtype_of, positions_for,
+                     rmsnorm)
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -192,3 +196,79 @@ def lm_forward(params, cfg: ArchConfig, tokens, image_embeds=None, *,
         cache = {"prelude": pre_caches,
                  "groups": _stack(caches) if caches else None}
     return ForwardOut(logits=logits, aux_loss=aux_total, cache=cache)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def init_block_cache(cfg: ArchConfig, slot: int, batch: int, cache_len: int,
+                     window: Optional[int], dtype, lead: tuple = (),
+                     device="cuda") -> AttnCache:
+    """The zero cache of one ``attn`` slot, ``lead + [batch, L, KV, D]``:
+    ``L = min(window, cache_len)`` (a ring) with a window, else
+    ``cache_len``."""
+    L = min(window, cache_len) if window else cache_len
+    shape = tuple(lead) + (batch, L, cfg.n_kv_heads, cfg.hd)
+    return AttnCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                     v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
+               window: Optional[int] = None, dtype=None, device="cuda"):
+    """The zero decode cache, in ``cfg.dtype`` unless ``dtype`` is given;
+    the groups' entries stacked along a leading axis, as the reference's
+    (which stacks one group when there are none or one to scan)."""
+    check_supported(cfg)
+    dtype = dtype or dtype_of(cfg)
+
+    def one_group(lead=()):
+        return {f"slot{i}": init_block_cache(cfg, i, batch, cache_len, window,
+                                             dtype, lead, device)
+                for i in range(cfg.group_size)}
+
+    n_pre = cfg.first_k_dense
+    n_scan = cfg.n_groups - n_pre
+    return {"prelude": [one_group() for _ in range(n_pre)],
+            "groups": one_group((max(n_scan, 1),))}
+
+
+def decode_block(bparams, cfg: ArchConfig, x, pos: int, cache_entry, *,
+                 window=None, impl="ref"):
+    """One block's decode step: returns x; ``cache_entry`` is updated in
+    place."""
+    h = rmsnorm(bparams["ln1"], x)
+    y, _ = attention_decode(bparams["mixer_attn"], cfg, h, pos, cache_entry,
+                            window=window, impl=impl)
+    x = x + y
+    if "ffn_dense" in bparams:
+        x = x + dense_ffn(bparams["ffn_dense"], rmsnorm(bparams["ln2"], x))
+    return x
+
+
+def decode_group(gparams, cfg: ArchConfig, x, pos: int, gcache, *,
+                 window=None, impl="ref"):
+    for i in range(cfg.group_size):
+        x = decode_block(gparams[f"slot{i}"], cfg, x, pos,
+                         gcache[f"slot{i}"], window=window, impl=impl)
+    return x
+
+
+def lm_decode_step(params, cfg: ArchConfig, cache, tokens, pos, *,
+                   window=None, impl="ref"):
+    """One decode step.  tokens: ``[B, 1]``; pos: the position (a Python
+    int, or a 0-d tensor read once on the host).  Returns ``(logits [B, 1,
+    V] in float32, cache)``: the caller's cache, updated in place."""
+    check_supported(cfg)
+    pos = int(pos)
+    x = params["embed"][tokens].to(dtype_of(cfg))
+    kw = dict(window=window, impl=impl)
+    for g, c in zip(params.get("prelude", []), cache["prelude"]):
+        x = decode_group(g, cfg, x, pos, c, **kw)
+    groups, gcache = params["groups"], cache["groups"]
+    for gi in range(groups["slot0"]["ln1"]["scale"].shape[0]):
+        x = decode_group(tree_map(lambda a: a[gi], groups), cfg, x, pos,
+                         tree_map(lambda a: a[gi], gcache), **kw)
+    x = rmsnorm(params["final_norm"], x)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ head).to(torch.float32), cache

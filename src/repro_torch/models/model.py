@@ -6,12 +6,15 @@ over the LM architectures this slice runs (the dense decoder-only ones).
   * ``init(generator) -> params``   (drawn on the bundle's device)
   * ``loss_fn(params, batch) -> (loss, metrics)``
   * ``prefill(params, batch) -> (logits [B, 1, V], cache)``
+  * ``decode_step(params, cache, tokens [B, 1], pos) -> (logits [B, 1, V],
+    cache)``  (the cache updated in place)
+  * ``init_cache(batch_size, cache_len, use_window=None) -> cache``
 
-and ``train_step``, ``decode_step``, ``init_cache`` and ``input_specs``,
-which raise ``NotImplementedError`` until their slices (ROADMAP Queue 1
-items 2 and 10).  The batch is ``{"tokens": [B, S], "targets": [B, S]}``
-of integer tensors on the bundle's device.  The reference's
-``ParallelContext`` is not ported: these functions run on one device.
+and ``train_step`` and ``input_specs``, which raise
+``NotImplementedError`` until their slice (ROADMAP Queue 1 item 10).  The
+batch is ``{"tokens": [B, S], "targets": [B, S]}`` of integer tensors on
+the bundle's device.  The reference's ``ParallelContext`` is not ported:
+these functions run on one device.
 """
 from __future__ import annotations
 
@@ -55,9 +58,11 @@ def build_model(cfg: ArchConfig, *, attention_impl: str = "ref",
                 window_override: Optional[int] = None,
                 device="cuda") -> ModelBundle:
     """The bundle of ``cfg`` on ``device``.  ``attention_impl`` is
-    ``"ref"`` (chunked PyTorch), ``"plain"`` or ``"kernel"`` (the
-    flash-attention kernel: CUDA on the card, its plain version on the
-    CPU); ``window_override`` replaces ``cfg.sliding_window`` in prefill."""
+    ``"ref"`` (chunked PyTorch; ``decode_attention_ref`` in decode),
+    ``"plain"`` or ``"kernel"`` (the flash-attention kernel in prefill and
+    the decode-attention kernel in decode: CUDA on the card, their plain
+    versions on the CPU); ``window_override`` replaces
+    ``cfg.sliding_window`` in prefill, decode and the cache."""
     lm.check_supported(cfg)
     if attention_impl not in IMPLS:
         raise ValueError(f"unknown attention_impl {attention_impl!r}; one of "
@@ -79,10 +84,19 @@ def build_model(cfg: ArchConfig, *, attention_impl: str = "ref",
                             window=window, collect_cache=True)
         return out.logits[:, -1:], out.cache
 
+    def decode_step(params, cache, tokens, pos):
+        return lm.lm_decode_step(params, cfg, cache, tokens, pos,
+                                 window=window, impl=attention_impl)
+
+    def init_cache(batch_size: int, cache_len: int,
+                   use_window: Optional[int] = None):
+        w = use_window if use_window is not None else window
+        return lm.init_cache(cfg, batch_size, cache_len, window=w,
+                             device=device)
+
     return ModelBundle(
         cfg=cfg, init=init, loss_fn=loss_fn,
         train_step=_later("train_step (optim/)", "item 10"),
         prefill=prefill,
-        decode_step=_later("decode_step", "item 2"),
-        init_cache=_later("init_cache", "item 2"),
+        decode_step=decode_step, init_cache=init_cache,
         input_specs=_later("input_specs (the dry-run)", "item 10"))

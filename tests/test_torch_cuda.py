@@ -17,7 +17,10 @@ the trainer without it; flash attention within ``2e-5`` of its plain
 version in float32 and ``2e-2`` in bfloat16 (``tests/test_kernels.py``'s
 bounds: float32 FFMA in another summation order; the output rounded to
 bfloat16), and the reduced qwen3 LM on the ``kernel`` route within ``1e-4``
-of the ``ref`` route in float32.
+of the ``ref`` route in float32; decode attention likewise within ``2e-5``
+and ``2e-2`` of its plain version, and the reduced LM's decode (``kernel``
+route, the ring buffer, the serve loop) within ``1e-4`` of the ``ref``
+route and of the full-sequence forward in float32.
 """
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ import torch
 from repro_torch.core import events as E
 from repro_torch.core.buzen import NetworkParams
 from repro_torch.kernels import buzen as kb
+from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import events as ke
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import fused_update as kf
@@ -383,3 +387,173 @@ def test_reduced_lm_kernel_route_matches_ref_on_the_card(cuda):
                                    getattr(want_cache["groups"]["slot0"],
                                            name), rtol=1e-4, atol=1e-4)
     assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
+
+
+def _lengths(form, B, S, gen, dev):
+    """The decode lengths of one test form: a Python int or an int32
+    tensor [B] on the card."""
+    if form == "full":
+        return S
+    if form == "one":
+        return 1
+    if form == "zero":
+        return 0
+    if form == "past":
+        return S + 7  # counts as S
+    if form == "mid":
+        return max(1, (2 * S) // 3 + 1)
+    return torch.randint(0, S + 1, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)  # "per-batch"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["full", "one", "zero", "past", "mid",
+                                  "per-batch"])
+@pytest.mark.parametrize("B,S,H,KV,D", [
+    (2, 256, 8, 2, 64),      # tests/test_kernels.py's shapes
+    (1, 100, 4, 4, 128),
+    (3, 513, 4, 1, 64),      # S not a multiple of the tile
+    (16, 320, 32, 8, 128),   # Qwen3-8B at the serve shape
+    (2, 300, 48, 1, 128),    # granite-34b's MQA: G = 48
+    (2, 130, 96, 1, 64),     # G * D at the kernel's limit
+])
+def test_decode_attention_kernel_matches_plain(cuda, B, S, H, KV, D, form,
+                                               dtype):
+    gen = torch.Generator(device=cuda).manual_seed(S + H + D)
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, S, KV, D), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, S, KV, D), generator=gen, device=cuda).to(dtype)
+    length = _lengths(form, B, S, gen, cuda)
+    want = kda.decode_attention_plain(q, k, v, length)
+    before = kda.decode_attention.launches
+    got = kda.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    assert kda.decode_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if form == "zero":
+        assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_reads_strided_caches(cuda, dtype):
+    """A layer's slice of a stacked cache, cut along S: the kernel reads it
+    in place through its batch and row strides."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((3, 1, 16, 128), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((4, 3, 200, 4, 128), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((4, 3, 200, 4, 128), generator=gen, device=cuda).to(dtype)
+    kc, vc = k[2, :, :150], v[1, :, 10:160]
+    assert not kc.is_contiguous() and not vc.is_contiguous()
+    length = torch.tensor([150, 64, 1], dtype=torch.int32, device=cuda)
+    got = kda.decode_attention(q, kc, vc, length)
+    want = kda.decode_attention_plain(q, kc.contiguous(), vc.contiguous(),
+                                      length)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((2, 1, 4, 32), device=cuda)
+    k = torch.zeros((2, 8, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        kda.decode_attention(q, k, k, 4)
+    q = torch.zeros((2, 1, 64, 128), device=cuda)
+    k = torch.zeros((2, 8, 1, 128), device=cuda)
+    with pytest.raises(ValueError, match="6144"):
+        kda.decode_attention(q, k, k, 4)
+    q = torch.zeros((2, 1, 4, 64), device=cuda)
+    k = torch.zeros((2, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kda.decode_attention(q.half(), k.half(), k.half(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        kda.decode_attention(torch.zeros((2, 1, 4, 128), device=cuda)
+                             [..., :64], k, k, 4)
+    with pytest.raises(ValueError, match="dense"):
+        kda.decode_attention(q, k.transpose(1, 2).contiguous()
+                             .transpose(1, 2), k, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        kda.decode_attention(q, torch.zeros(2 * 8 * 2 * 64 + 1, device=cuda)
+                             [1:].view(2, 8, 2, 64), k, 4)
+    with pytest.raises(ValueError, match="length"):
+        kda.decode_attention(q, k, k, torch.tensor([4, 4], dtype=torch.int32))
+
+
+def _reduced_decode(cuda, impl, cfg, tokens, **kw):
+    from repro_torch.models import build_model
+
+    bundle = build_model(cfg, attention_impl=impl, device=cuda, **kw)
+    params = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+    B, T = tokens.shape
+    cache = bundle.init_cache(B, T + 2)
+    logits = []
+    for t in range(T):
+        lg, cache = bundle.decode_step(params, cache, tokens[:, t:t + 1], t)
+        logits.append(lg[:, 0])
+    torch.cuda.synchronize()
+    return params, torch.stack(logits, dim=1), cache
+
+
+def test_reduced_lm_decode_kernel_route_matches_ref_on_the_card(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config("qwen3-8b").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 70), generator=gen, device=cuda)
+    before = kda.decode_attention.launches
+    params, got, cache = _reduced_decode(cuda, "kernel", cfg, tokens)
+    assert kda.decode_attention.launches == before + 70 * cfg.n_layers
+    _, want, want_cache = _reduced_decode(cuda, "ref", cfg, tokens)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for name in ("k", "v"):
+        torch.testing.assert_close(getattr(cache["groups"]["slot0"], name),
+                                   getattr(want_cache["groups"]["slot0"],
+                                           name), rtol=1e-4, atol=1e-4)
+    full = lm.lm_forward(params, cfg, tokens).logits
+    torch.testing.assert_close(got, full, rtol=1e-4, atol=1e-4)
+
+
+def test_ring_buffer_decode_on_the_card(cuda):
+    """``window_override=16`` over 70 steps: the ring of 16 entries wraps
+    four times; decode on the kernel route equals the forward restricted
+    to the window."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config("internlm2-1.8b").reduced(sliding_window=None)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (2, 70), generator=gen, device=cuda)
+    params, got, cache = _reduced_decode(cuda, "kernel", cfg, tokens,
+                                         window_override=16)
+    assert cache["groups"]["slot0"].k.shape[2] == 16
+    full = lm.lm_forward(params, cfg, tokens, window=16).logits
+    torch.testing.assert_close(got, full, rtol=1e-4, atol=1e-4)
+
+
+def test_serve_tiny_preset_on_the_card(cuda, capsys):
+    """``python -m repro_torch.launch.serve`` (tiny preset) on the card:
+    kernel 7 on every step and layer; the greedy tokens teacher-forced
+    through the ``ref`` route give the same logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    before = kda.decode_attention.launches
+    gen = serve.main(["--arch", "qwen3-8b", "--batch", "3", "--prompt-len",
+                      "12", "--new-tokens", "6"])
+    assert capsys.readouterr().out.startswith("[serve] qwen3-8b: batch=3")
+    cfg = get_config("qwen3-8b").reduced(vocab=512, n_layers=2)
+    assert kda.decode_attention.launches == before + (12 + 6 - 1) * 2
+    assert gen.tokens.shape == (3, 6) and gen.tokens.is_cuda
+    assert bool(torch.isfinite(gen.prompt_logits).all())
+    bundle = build_model(cfg, device=cuda)
+    params = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 12)), device=cuda)
+    ref = serve.generate(bundle, params, prompts, 6, forced=gen.tokens,
+                         keep_logits=True)
+    torch.testing.assert_close(ref.prompt_logits, gen.prompt_logits,
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(ref.step_logits[:, 11:].argmax(-1), gen.tokens)

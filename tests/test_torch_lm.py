@@ -158,8 +158,6 @@ def test_bfloat16_forward_tracks_jax():
 def test_unported_entry_points_raise():
     bundle = build_model(get_config("qwen3-8b").reduced(), device="cpu")
     for fn, item in ((bundle.train_step, "item 10"),
-                     (bundle.decode_step, "item 2"),
-                     (bundle.init_cache, "item 2"),
                      (bundle.input_specs, "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             fn()
