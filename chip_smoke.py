@@ -84,11 +84,14 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      optimum (300 updates) for the wall ms per lock-step event beside
      n = 1e6;
   9. the dense LM's prefill (Qwen3-8B, ``configs/qwen3_8b.py``): (a) the
-     flash-attention kernel against its plain version, float32 within
-     2e-5 and bfloat16 within 2e-2, causal, causal with a 512-token window
-     and non-causal, at ``tests/test_kernels.py``'s shapes, Qwen3-8B's
-     (B = 2, S = 2048, H = 32, KV = 8, D = 128), granite-34b's MQA (H = 48,
-     KV = 1, S = 1024), ragged S = 2047 and Sq != Sk; (b) Qwen3-8B at full
+     flash-attention kernel (bfloat16 on ``wgmma`` with TMA-fed tiles,
+     float32 on the FFMA units) against its plain version, float32 within
+     2e-5 and bfloat16 within 2e-2 (with q and k at unit scale and at 4x,
+     for peaked softmaxes), causal, causal with a 512-token window and
+     non-causal, at ``tests/test_kernels.py``'s shapes, Qwen3-8B's (B = 2,
+     S = 2048, H = 32, KV = 8, D = 128), granite-34b's MQA (H = 48, KV = 1,
+     S = 1024), ragged S = 2047, Sq = 129 against Sk = 191 (ragged against
+     the 128-row tiles) and Sq != Sk; (b) Qwen3-8B at full
      width cut to 2 layers in float32: ``prefill`` on the ``kernel`` route
      against the ``ref`` route on the same ``init`` weights (last-token
      logits and the KV cache within atol 1e-4 + rtol 1e-4); (c) Qwen3-8B at
@@ -103,7 +106,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      kernel's time at the main path's shape (B = 2, S = 2048, bfloat16,
      causal), its plain version's and the library call's
      (``scaled_dot_product_attention``, timed here only, never used by the
-     port) beside the bound;
+     port) beside the bound, each with its TFLOP/s and the bound's share of
+     its time;
  10. the dense LM's decode and the serve loop (Qwen3-8B): (a) the
      decode-attention kernel against its plain version, float32 within
      2e-5 and bfloat16 within 2e-2, at ``tests/test_kernels.py``'s shapes,
@@ -710,13 +714,18 @@ def lm_phase(dev, card: str, seed: int) -> dict:
               (2, 2048, 2048, 32, 8, 128),  # Qwen3-8B
               (2, 1024, 1024, 48, 1, 128),  # granite-34b, MQA
               (1, 2047, 2047, 32, 8, 128),  # ragged
+              (1, 129, 191, 4, 1, 128),     # ragged against 128-row tiles
               (1, 300, 700, 8, 2, 128)]     # Sq != Sk
+    # bfloat16 also with q and k at 4x unit scale: peaked softmaxes
+    kinds = ((torch.float32, 1.0, 2e-5), (torch.bfloat16, 1.0, 2e-2),
+             (torch.bfloat16, 4.0, 2e-2))
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for B, Sq, Sk, H, KV, D in shapes:
-        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for dtype, scale, tol in kinds:
             q, k, v = (torch.randn(shape, generator=gen, device=dev)
-                       .to(dtype) for shape in ((B, Sq, H, D), (B, Sk, KV, D),
-                                                (B, Sk, KV, D)))
+                       for shape in ((B, Sq, H, D), (B, Sk, KV, D),
+                                     (B, Sk, KV, D)))
+            q, k, v = (q * scale).to(dtype), (k * scale).to(dtype), v.to(dtype)
             for causal, window in ((True, None), (True, 512), (False, None)):
                 got = kfa.flash_attention(q, k, v, causal=causal,
                                           window=window).float()
@@ -725,13 +734,15 @@ def lm_phase(dev, card: str, seed: int) -> dict:
                 torch.cuda.synchronize()
                 e = (got - want).abs()
                 check(bool((e <= tol + tol * want.abs()).all()),
-                      f"flash attention kernel vs plain ({dtype}, "
+                      f"flash attention kernel vs plain ({dtype}, x{scale}, "
                       f"{(B, Sq, Sk, H, KV, D)}, causal={causal}, "
                       f"window={window}): max err {float(e.max())}")
                 err[dtype] = max(err[dtype], float(e.max()))
     log(f"phase 9: flash attention kernel == plain ({len(shapes)} shapes x "
-        f"3 masks; max abs err float32 {err[torch.float32]:.3g} (bound "
-        f"2e-5), bfloat16 {err[torch.bfloat16]:.3g} (bound 2e-2))")
+        f"3 masks, float32 and bfloat16 at 1x and 4x input scale; max abs "
+        f"err float32 {err[torch.float32]:.3g} (bound 2e-5), bfloat16 "
+        f"{err[torch.bfloat16]:.3g} (bound 2e-2)) "
+        f"[{time.perf_counter() - t_phase:.1f} s]")
 
     rng = np.random.default_rng(seed)
     B, S = 2, 2048
@@ -819,7 +830,7 @@ def lm_phase(dev, card: str, seed: int) -> dict:
     _, wall_ms, split = profiled(lambda: ker.prefill(params, batch))
     busy = sum(ms for ms, _ in split.values())
     attn = sum(ms for name, (ms, _) in split.items()
-               if "flash_kernel" in name)
+               if "flash_wgmma_kernel" in name or "flash_kernel" in name)
     gemm = sum(ms for name, (ms, _) in split.items()
                if any(w in name for w in ("nvjet", "gemm", "cutlass")))
     log("phase 9: one prefill's top kernels by device time:")
@@ -874,6 +885,12 @@ def lm_phase(dev, card: str, seed: int) -> dict:
         f"3.35 TB/s {bound_bytes:.6f} ms); library vs kernel max abs err "
         f"{float(e.max()):.3g} ({card}); the record's ms are between-event "
         f"times")
+    bound = max(bound_ops, bound_bytes)
+    for name, (d, w) in times.items():
+        on_device = (f" ({ops / d / 1e9:.1f} TFLOP/s and {100 * bound / d:.1f}"
+                     f"% on device time)" if d > 0 else "")
+        log(f"phase 9: {name}: {ops / w / 1e9:.1f} TFLOP/s between events, "
+            f"the bound {100 * bound / w:.1f}% of its time{on_device}")
     log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -4,17 +4,31 @@ an online softmax in float32.
 
 Replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention_pallas`` (body
-``_flash_kernel``) with the hand-written CUDA kernel
-``csrc/flash_attention.cu``: one CTA per (batch x head, 64-query tile), a
-loop inside it over 64-key tiles (the TPU kernel's sequential grid axis),
-q and the K/V tiles staged in shared memory as float32, a 4 x 4 register
-tile of scores and a 4 x D/16 tile of the accumulator per thread, float32
-FFMA and the precise ``expf`` throughout.  Head ``h`` reads KV head
-``h // G`` in place (no repeated K/V).  It is bound by operations (a causal
-call at B = 2, S = 2048, H = 32, D = 128 does 68.7 GFLOP: 0.0695 ms at the
-card's bf16 tensor-core peak, against 0.025 ms for its bytes); running on
-the FFMA units, it is a right, simple first kernel, and ``wgmma`` with TMA
-for bf16 is the later redesign.
+``_flash_kernel``) with the hand-written CUDA source
+``csrc/flash_attention.cu``, which has one kernel per type:
+
+  * bfloat16 (``flash_wgmma_kernel``): a persistent CTA of three
+    warpgroups per SM walks the (batch x head, 128-query tile) items,
+    heaviest first.  A producer thread copies an item's q and each
+    128-key K/V tile by TMA into a ring of 3 shared-memory stages
+    fenced by ``mbarrier`` barriers; two consumer warpgroups of 64 query
+    rows compute ``q k^T`` with ``wgmma`` from shared memory, the online
+    softmax in float32 on the accumulator fragment (the scale on the
+    float32 scores, ``exp2`` with ``log2 e`` folded in), and ``p v`` with
+    ``wgmma`` taking p rounded to bfloat16 from registers (``l`` sums the
+    float32 p).  A tile's scores are issued with the previous tile's
+    ``p v``, and the two warpgroups take turns on the tensor cores.  TMA
+    needs q, k, v and the output 16-byte aligned.
+  * float32 (``flash_kernel``): one CTA per (batch x head, 64-query tile),
+    a loop over 64-key tiles, q and the K/V tiles staged in shared memory,
+    a 4 x 4 register tile of scores and a 4 x D/16 tile of the accumulator
+    per thread, float32 FFMA and the precise ``expf`` throughout (the
+    ``2e-5`` bound rules out TF32 and bf16 tensor cores).
+
+Head ``h`` reads KV head ``h // G`` in place (no repeated K/V).  The
+function is bound by operations (a causal call at B = 2, S = 2048, H = 32,
+D = 128 does 68.7 GFLOP: 0.0695 ms at the card's bf16 tensor-core peak,
+against 0.025 ms for its bytes).
 
 The masking constant is the TPU kernel's ``-1e30``, not ``-inf``: a row
 that meets a fully masked tile before its first valid key gathers finite
@@ -27,13 +41,16 @@ Entry points:
 
   * :func:`flash_attention` — q ``[B, Sq, H, D]``, k and v ``[B, Sk, KV,
     D]`` (float32 or bfloat16), ``causal``, ``window`` (``None`` or >= 1);
-    returns ``[B, Sq, H, D]`` in q's type.  Launches the CUDA kernel for
-    CUDA tensors (D = 64 or 128, contiguous; anything else raises) and runs
-    :func:`flash_attention_plain` for CPU tensors only.
+    returns ``[B, Sq, H, D]`` in q's type.  Launches the CUDA kernel of
+    q's type for CUDA tensors (D = 64 or 128, contiguous, bfloat16 16-byte
+    aligned; anything else raises) and runs :func:`flash_attention_plain`
+    for CPU tensors only.
     ``flash_attention.launches`` counts kernel launches.
-  * :func:`flash_attention_plain` — the same blocked online softmax in
-    PyTorch: q upcast and then scaled (the TPU kernel's order), 64-key
-    tiles, ``-1e30`` masking, ``acc / max(l, 1e-30)``.
+  * :func:`flash_attention_plain` — the float32 kernel's blocked online
+    softmax in PyTorch: q upcast and then scaled (the TPU kernel's order),
+    64-key tiles, ``-1e30`` masking, ``acc / max(l, 1e-30)``; the bfloat16
+    kernel differs from it only by rounding (p in bf16 for ``p v``, the
+    scale on the scores), inside the ``2e-2`` bound.
 """
 from __future__ import annotations
 
@@ -45,7 +62,7 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-BLOCK_K = 64  # keys per tile, as the CUDA kernel's BK
+BLOCK_K = 64  # keys per tile, as the float32 CUDA kernel's BK
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
@@ -118,6 +135,10 @@ def _launch(q, k, v, causal, window):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash attention kernel: q, k, v must be contiguous")
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16 and any(
+            x.data_ptr() % 16 for x in (q, k, v, out)):
+        raise ValueError("flash attention kernel: bfloat16 q, k, v must be "
+                         "16-byte aligned (TMA)")
     fn = build.load("flash_attention").flash_attention
     if not fn.argtypes:  # the library caches its function objects
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8

@@ -15,8 +15,9 @@ multiply, then a rounded subtract) and within ``rtol 1e-5`` on the squared
 gradient norm (another summation order), and the trainer with it bitwise
 the trainer without it; flash attention within ``2e-5`` of its plain
 version in float32 and ``2e-2`` in bfloat16 (``tests/test_kernels.py``'s
-bounds: float32 FFMA in another summation order; the output rounded to
-bfloat16), and the reduced qwen3 LM on the ``kernel`` route within ``1e-4``
+bounds: float32 FFMA in another summation order; in bfloat16 the tensor
+cores take p rounded to bfloat16 and the output is rounded to bfloat16),
+and the reduced qwen3 LM on the ``kernel`` route within ``1e-4``
 of the ``ref`` route in float32; decode attention likewise within ``2e-5``
 and ``2e-2`` of its plain version, and the reduced LM's decode (``kernel``
 route, the ring buffer, the serve loop) within ``1e-4`` of the ``ref``
@@ -333,13 +334,38 @@ def test_trainer_fused_update_bitwise_on_the_card(cuda, monkeypatch):
     (2, 300, 300, 16, 2, 128),   # GQA 8:1, several query tiles
     (1, 2047, 2047, 8, 1, 128),  # MQA, ragged at the main path's length
     (1, 200, 70, 2, 1, 64),      # Sq > Sk: rows with no valid key
+    (1, 129, 191, 4, 1, 128),    # ragged against 128-row tiles, TMA's fill
+    (2, 255, 255, 8, 2, 64),     # ragged, D = 64
+    (1, 64, 2048, 8, 8, 128),    # Sq < Sk
+    (1, 512, 512, 48, 1, 128),   # granite-34b's G = 48
+    (1, 600, 70, 2, 1, 64),      # windowed query tiles with no key tile
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, D,
                                               causal, window, dtype):
+    _flash_kernel_vs_plain(cuda, (B, Sq, Sk, H, KV, D), causal, window,
+                           dtype, 1.0)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None)])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D", [
+    (2, 300, 300, 16, 2, 128), (2, 255, 255, 8, 2, 64),
+    (1, 2047, 2047, 8, 1, 128)])
+def test_flash_attention_kernel_peaked_softmax(cuda, B, Sq, Sk, H, KV, D,
+                                               causal, window):
+    """bfloat16 with q and k at 4x unit scale: peaked softmaxes, where p
+    rounded to bfloat16 for ``p v`` matters most."""
+    _flash_kernel_vs_plain(cuda, (B, Sq, Sk, H, KV, D), causal, window,
+                           torch.bfloat16, 4.0)
+
+
+def _flash_kernel_vs_plain(cuda, shape, causal, window, dtype, scale):
+    B, Sq, Sk, H, KV, D = shape
     gen = torch.Generator(device=cuda).manual_seed(Sq + Sk + H)
-    q = torch.randn((B, Sq, H, D), generator=gen, device=cuda).to(dtype)
-    k = torch.randn((B, Sk, KV, D), generator=gen, device=cuda).to(dtype)
-    v = torch.randn((B, Sk, KV, D), generator=gen, device=cuda).to(dtype)
+    q = torch.randn((B, Sq, H, D), generator=gen, device=cuda)
+    k = torch.randn((B, Sk, KV, D), generator=gen, device=cuda)
+    v = torch.randn((B, Sk, KV, D), generator=gen, device=cuda)
+    q, k, v = (q * scale).to(dtype), (k * scale).to(dtype), v.to(dtype)
     want = kfa.flash_attention_plain(q, k, v, causal=causal, window=window)
     before = kfa.flash_attention.launches
     got = kfa.flash_attention(q, k, v, causal=causal, window=window)
@@ -360,6 +386,13 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
     q = q.contiguous()
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kfa.flash_attention(q.half(), q.half(), q.half())
+    # contiguous, but 2 bytes past a 16-byte boundary: TMA cannot read it
+    n = 1 * 8 * 2 * 64
+    q = torch.empty(n + 1, dtype=torch.bfloat16, device=cuda)[1:].view(
+        1, 8, 2, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kfa.flash_attention(q, q, q)
 
 
 def test_reduced_lm_kernel_route_matches_ref_on_the_card(cuda):

@@ -6,7 +6,14 @@ Tolerances are ``tests/test_kernels.py``'s: float32 within ``2e-5`` (the
 same online softmax in float32, other summation orders and tile sizes),
 bfloat16 within ``2e-2`` (the output rounded to bfloat16, 8 bits of
 mantissa: one rounding step is up to 2^-8 relative).
+
+The bfloat16 CUDA kernel rounds at other points than the plain version
+(p to bfloat16 for ``p v``, the scale on the float32 scores, ``exp2``):
+its arithmetic, written out here in PyTorch, is held against the Pallas
+kernel too, as the CPU-side evidence for its ``2e-2`` bound.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,12 +34,14 @@ SHAPES = [
 MODES = [(True, None), (True, 64), (False, None)]
 
 
-def _inputs(seed, B, Sq, Sk, H, KV, D, dtype):
-    """The same values for both packages: float32 normals, rounded once to
-    ``dtype`` on each side (both round to nearest even)."""
+def _inputs(seed, B, Sq, Sk, H, KV, D, dtype, scale=1.0):
+    """The same values for both packages: float32 normals (q and k times
+    ``scale``), rounded once to ``dtype`` on each side (both round to
+    nearest even)."""
     rng = np.random.default_rng(seed)
     xs = [rng.normal(size=s).astype(np.float32)
           for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D))]
+    xs = [xs[0] * np.float32(scale), xs[1] * np.float32(scale), xs[2]]
     return ([jnp.asarray(x, dtype) for x in xs],
             [torch.as_tensor(x).to(getattr(torch, dtype)) for x in xs])
 
@@ -42,18 +51,83 @@ def _f32(x):
             else x.to(torch.float32).numpy())
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas(dtype, shape, causal, window, scale=1.0):
+    """JAX's Pallas kernel in interpret mode on :func:`_inputs`, as float32
+    numpy; cached, so the tests here share one interpret-mode run per
+    case (the driver runs a file on one worker)."""
+    (jq, jk, jv), _ = _inputs(sum(shape), *shape, dtype, scale)
+    return _f32(ops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                    interpret=True))
+
+
 @pytest.mark.parametrize("causal,window", MODES)
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_pallas_interpret(dtype, shape, causal, window):
-    (jq, jk, jv), (tq, tk, tv) = _inputs(sum(shape), *shape, dtype)
-    want = ops.flash_attention(jq, jk, jv, causal=causal, window=window,
-                               interpret=True)
+    _, (tq, tk, tv) = _inputs(sum(shape), *shape, dtype)
+    want = _pallas(dtype, shape, causal, window)
     before = kfa.flash_attention.launches
     got = kfa.flash_attention(tq, tk, tv, causal=causal, window=window)
     assert kfa.flash_attention.launches == before  # CPU: the plain version
     assert got.dtype == tq.dtype and got.shape == tq.shape
     np.testing.assert_allclose(_f32(got), _f32(want), **TOL[dtype])
+
+
+def _bf16_kernel_arithmetic(q, k, v, *, causal, window):
+    """The bfloat16 CUDA kernel's arithmetic in PyTorch: float32 scores,
+    ``-1e30`` masking, 128-key tiles, the row max m of the raw scores,
+    ``p = exp2(s c - m c)`` in float32 with ``c = D^-1/2 log2 e`` (the
+    scale on the scores, not on q; a row that has met only masked keys
+    shifts by 0), ``l`` summing that float32 p, ``p v`` taking p rounded to
+    bfloat16 (float32 accumulation), ``acc * (1 / max(l, 1e-30))`` rounded
+    to bfloat16."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    c = torch.tensor(D ** -0.5, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    qf = q.float().reshape(B, Sq, KV, H // KV, D)
+    kf, vf = k.float(), v.float()
+    m = torch.full((B, Sq, KV, H // KV), kfa.NEG_INF)
+    l = torch.zeros((B, Sq, KV, H // KV))
+    acc = torch.zeros((B, Sq, KV, H // KV, D))
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, 128):
+        kb, vb = kf[:, k0:k0 + 128], vf[:, k0:k0 + 128]
+        cols = torch.arange(k0, k0 + kb.shape[1])[None, :]
+        ok = torch.ones((Sq, kb.shape[1]), dtype=torch.bool)
+        if causal:
+            ok = ok & (cols <= rows)
+        if window is not None:
+            ok = ok & (cols > rows - window)
+        s = torch.einsum("bqngd,bknd->bqngk", qf, kb)
+        s = torch.where(ok[None, :, None, None, :], s, kfa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2((m - m_new) * c)
+        shift = torch.where(m_new == kfa.NEG_INF, 0.0, m_new * c)
+        p = torch.exp2(s * c - shift[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqngk,bknd->bqngd", p.bfloat16().float(), vb)
+        m = m_new
+    out = acc * (1.0 / torch.clamp_min(l, 1e-30))[..., None]
+    out = torch.where((m == kfa.NEG_INF)[..., None], 0.0, out)
+    return out.reshape(B, Sq, H, D).bfloat16()
+
+
+@pytest.mark.parametrize(
+    "shape,causal,window,scale",
+    [(shape, causal, window, 1.0) for shape in SHAPES
+     for causal, window in MODES] + [(SHAPES[-1], True, None, 4.0)],
+    ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) else str(x))
+def test_bf16_kernel_arithmetic_matches_pallas_interpret(shape, causal,
+                                                         window, scale):
+    """The bfloat16 kernel's rounding points stay inside ``2e-2`` of the
+    Pallas kernel, also with q and k at 4x unit scale (peaked softmaxes)."""
+    _, (tq, tk, tv) = _inputs(sum(shape), *shape, "bfloat16", scale)
+    want = _pallas("bfloat16", shape, causal, window, scale)
+    got = _bf16_kernel_arithmetic(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(_f32(got), want, **TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("causal,window", MODES)
