@@ -109,21 +109,26 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      port) beside the bound, each with its TFLOP/s and the bound's share of
      its time;
  10. the dense LM's decode and the serve loop (Qwen3-8B): (a) the
-     decode-attention kernel against its plain version, float32 within
+     decode-attention kernel (bfloat16 on ``mma.sync`` from a TMA-fed ring,
+     the cache split into parts where B * KV leaves half the SMs idle;
+     float32 on the FFMA units) against its plain version, float32 within
      2e-5 and bfloat16 within 2e-2, at ``tests/test_kernels.py``'s shapes,
      the serve shape (B = 16, S = 320, H = 32, KV = 8, D = 128),
      granite-34b's MQA (H = 48, KV = 1), ragged S = 1000 and a full
      8,192-entry ring, each with a scalar, the full and per-batch lengths;
-     (b) Qwen3-8B at full width cut to 2 layers in float32, B = 2: 16
-     decode steps on the ``kernel`` route against ``lm_forward``'s logits
-     and against the ``ref`` route (logits and cache), and
+     and at the serve shape a bfloat16 cache holding NaN at and past
+     per-batch lengths, in one part and split, bitwise the clean cache's
+     output; (b) Qwen3-8B at full width cut to 2 layers in float32, B = 2:
+     16 decode steps on the ``kernel`` route against ``lm_forward``'s
+     logits and against the ``ref`` route (logits and cache), and
      ``window_override=64`` over 100 steps (a ring of 64) against
      ``lm_forward(window=64)``, all within atol 1e-4 + rtol 1e-4; (c)
-     Qwen3-8B at full width and depth in bfloat16 through the serve
-     loop (``launch.serve.generate``): B = 16 prompts of 256 tokens from
+     Qwen3-8B at full width and depth in bfloat16 through the serve loop
+     (``launch.serve.generate``): B = 16 prompts of 256 tokens from
      ``--seed`` stepped one token at a time, then 64 tokens generated
-     greedily, with the kernel's count zeroed just before and read just
-     after (36 launches a step), finite logits, the logits after the
+     greedily, with the kernel's counts zeroed just before and read just
+     after (36 launches a step; the combine as often as the split plan cuts
+     the cache, never at B * KV = 128), finite logits, the logits after the
      prompt within a relative L2 distance of 0.1 of ``prefill``'s (kernel
      6), the ``ref`` route teacher-forced on the generated tokens within
      0.1 at every step, ms per step, generated tokens/s, kernel 7's share
@@ -131,7 +136,10 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      the kernel's, its plain version's and the library call's times
      (``scaled_dot_product_attention`` with ``enable_gqa``, timed here
      only) at decode_32k's per-layer shape (B = 128, a full 8,192-entry
-     ring, bfloat16) beside its bytes bound, and at the serve shape.
+     ring, bfloat16: one part) beside its bytes bound, at the serve shape
+     (one part; also timed in 2) and at B = 2 with a full 8,192-entry
+     ring (the cache split in 8 parts; also timed in one), with the split
+     plan of each.
 
 Phase 3 also holds the fused-update kernel against its plain version
 (bitwise on the new parameters, ``rtol 1e-5`` on the squared norm) at
@@ -144,6 +152,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -958,10 +967,44 @@ def decode_phase(dev, card: str, seed: int) -> dict:
                       f"{float(e.max())}")
                 err[dtype] = max(err[dtype], float(e.max()))
                 cases += 1
+    # a tail poisoned with NaN at and past each length (TMA loads the last
+    # tile's rows past it): the same output, bitwise, as the clean cache,
+    # in one part and with the cache split in three
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B, S, H, KV, D = 16, 320, 32, 8, 128
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    per_batch = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                              dtype=torch.int32)
+    past = (torch.arange(S, device=dev)[None, :]
+            >= per_batch[:, None])[:, :, None, None]
+    k_bad, v_bad = (torch.where(past, float("nan"), x) for x in (k, v))
+    plans = [(1, 5), (3, 2)]
+    combines = kda.decode_attention.combine_launches
+    for plan in plans:
+        got = kda._launch(q, k_bad, v_bad, per_batch, plan=plan)
+        clean = kda._launch(q, k, v, per_batch, plan=plan)
+        want = kda.decode_attention_plain(q, k, v, per_batch).float()
+        torch.cuda.synchronize()
+        e = (got.float() - want).abs()
+        check(bool(torch.isfinite(got).all()) and torch.equal(got, clean),
+              f"decode attention kernel, NaN past the lengths, plan {plan}: "
+              f"not the clean cache's output")
+        check(bool((e <= 2e-2 + 2e-2 * want.abs()).all()),
+              f"decode attention kernel, NaN past the lengths, plan {plan}: "
+              f"max err {float(e.max())}")
+        err[torch.bfloat16] = max(err[torch.bfloat16], float(e.max()))
+        cases += 1
+    check(kda.decode_attention.combine_launches == combines + 2,
+          "the split plan's two calls did not launch the combine twice")
     log(f"phase 10: decode attention kernel == plain ({cases} cases: "
         f"{len(shapes)} shapes x 2 types x scalar, full and per-batch "
-        f"lengths; max abs err float32 {err[torch.float32]:.3g} (bound "
-        f"2e-5), bfloat16 {err[torch.bfloat16]:.3g} (bound 2e-2)) "
+        f"lengths, and a bfloat16 cache with NaN at and past per-batch "
+        f"lengths under plans (parts, tiles a part) {plans}: bitwise the "
+        f"clean cache's output; max abs err float32 "
+        f"{err[torch.float32]:.3g} (bound 2e-5), bfloat16 "
+        f"{err[torch.bfloat16]:.3g} (bound 2e-2)) "
         f"[{time.perf_counter() - t_phase:.1f} s]")
     rng = np.random.default_rng(seed)
 
@@ -1032,13 +1075,21 @@ def decode_phase(dev, card: str, seed: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kda.decode_attention.launches = 0
+    kda.decode_attention.combine_launches = 0
     out = generate(ker, params, prompts, N, keep_logits=True)
     launches = kda.decode_attention.launches
+    combines = kda.decode_attention.combine_launches
     peak = torch.cuda.max_memory_allocated() / 1e9
     kept_gb = out.step_logits.numel() * 4 / 1e9
     steps = P + N - 1
     check(launches == cfg.n_layers * steps,
           f"decode attention launched {launches} times in {steps} steps")
+    # step t attends to t + 1 entries: split wherever the plan says so
+    want_combines = cfg.n_layers * sum(
+        kda.split_plan(B, cfg.n_kv_heads, P + N, t + 1, sms)[0] > 1
+        for t in range(steps))
+    check(combines == want_combines,
+          f"the combine launched {combines} times, not {want_combines}")
     check(out.tokens.shape == (B, N) and out.step_logits.shape
           == (B, steps, cfg.vocab)
           and bool(torch.isfinite(out.step_logits).all()),
@@ -1066,7 +1117,7 @@ def decode_phase(dev, card: str, seed: int) -> dict:
     _, wall_ms, split = profiled(step, reps)
     busy = sum(ms for ms, _ in split.values())
     attn = sum(ms for name, (ms, _) in split.items()
-               if "decode_kernel" in name)
+               if re.match(r"(void )?(mma::)?decode_", name))
     gemm = sum(ms for name, (ms, _) in split.items()
                if any(w in name for w in ("nvjet", "gemm", "cutlass")))
     log(f"phase 10: {reps} decode steps' top kernels by device time:")
@@ -1085,7 +1136,8 @@ def decode_phase(dev, card: str, seed: int) -> dict:
         f"step, then N = {N} new tokens: {step_ms:.2f} ms per decode step, "
         f"{B * (N - 1) / out.decode_s:.1f} generated tokens/s; decode "
         f"attention launches {launches} ({launches // steps} per step over "
-        f"{steps} steps); peak memory {peak:.2f} GB ({kept_gb:.2f} GB of it "
+        f"{steps} steps), its combine {combines}; peak memory "
+        f"{peak:.2f} GB ({kept_gb:.2f} GB of it "
         f"the kept float32 logits of every step); {share}; stepped vs "
         f"prefill logits at t = P - 1 relative L2 {rel_prefill:.4g} (bound "
         f"0.1, argmax agreement {agree:.3f}); ref route teacher-forced on "
@@ -1097,7 +1149,7 @@ def decode_phase(dev, card: str, seed: int) -> dict:
     # -- 10d. kernel 7's times at decode_32k's per-layer shape -------------
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
-    def shape_times(B, S, reps):
+    def shape_times(B, S, reps, other_plan=None):
         q = torch.randn((B, 1, H, D), generator=gen, device=dev).bfloat16()
         k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev)
                 .bfloat16() for _ in range(2))
@@ -1107,6 +1159,9 @@ def decode_phase(dev, card: str, seed: int) -> dict:
             "plain": (lambda: kda.decode_attention_plain(q, k, v, S), 3),
             "library": (lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, enable_gqa=True), reps)}
+        if other_plan:  # the same kernel with the cache cut otherwise
+            calls[f"kernel with plan {other_plan}"] = (lambda: kda._launch(
+                q, k, v, S, plan=other_plan), reps)
         _, _, lib_split = profiled(calls["library"][0], 10)
         log(f"phase 10: the library call's kernels at B = {B}, S = {S} (10 "
             f"calls traced):")
@@ -1121,7 +1176,8 @@ def decode_phase(dev, card: str, seed: int) -> dict:
         ops = 4 * B * H * S * D
         bounds = (1e3 * nbytes / PEAK_BYTES, 1e3 * ops / PEAK_BF16_FLOPS)
         log(f"phase 10: decode attention q [{B}x1x{H}x{D}], caches "
-            f"[{B}x{S}x{KV}x{D}] bfloat16, length {S}: "
+            f"[{B}x{S}x{KV}x{D}] bfloat16, length {S}, split plan (parts, "
+            f"tiles a part) {kda.split_plan(B, KV, S, S, sms)}: "
             + "; ".join(f"{name} device {d:.4f} ms / between events "
                         f"{w:.4f} ms" for name, (d, w) in times.items())
             + f"; bound {max(bounds):.6f} ms ({nbytes / 1e9:.4f} GB at 3.35 "
@@ -1130,7 +1186,10 @@ def decode_phase(dev, card: str, seed: int) -> dict:
             f"{float(e.max()):.3g} ({card})")
         return times, bounds
 
-    shape_times(16, 320, 50)  # the serve shape, logged beside
+    # the serve shape (one part), and a long context at a small batch (8
+    # parts), each beside the other choice, logged beside the record
+    shape_times(16, 320, 50, other_plan=(2, 3))
+    shape_times(2, 8192, 20, other_plan=(1, 128))
     times, bounds = shape_times(128, 8192, 20)
     log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
     return {"name": "decode_attention", "route": "cuda",

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with :mod:`ctypes` (no PyTorch
 headers, so a build takes seconds).  Libraries go to ``build/`` at the repo
-root, keyed by a hash of the source and the flags, and are built at first
-use — never at import.  :func:`build_all` starts one ``nvcc`` per source at
-once and waits for all of them.
+root, keyed by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, and are built at first use — never at import.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for all
+of them.
 """
 from __future__ import annotations
 
@@ -52,7 +53,12 @@ def _command(name: str, out: Path) -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where ``csrc/<name>.cu``'s library goes: the name carries a hash of
+    the source, of every header of ``csrc`` (a source may include any of
+    them, so a changed header never loads a stale library) and of the
+    flags."""
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(
         src + " ".join(_ARCH + _COMMON + FLAGS[name]).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"

@@ -19,9 +19,12 @@ bounds: float32 FFMA in another summation order; in bfloat16 the tensor
 cores take p rounded to bfloat16 and the output is rounded to bfloat16),
 and the reduced qwen3 LM on the ``kernel`` route within ``1e-4``
 of the ``ref`` route in float32; decode attention likewise within ``2e-5``
-and ``2e-2`` of its plain version, and the reduced LM's decode (``kernel``
-route, the ring buffer, the serve loop) within ``1e-4`` of the ``ref``
-route and of the full-sequence forward in float32.
+and ``2e-2`` of its plain version (in bfloat16 the tensor cores take p
+rounded to bfloat16, in one part or with the cache split into several; a
+cache holding NaN past the lengths gives bitwise the clean cache's
+output), and the reduced LM's decode (``kernel`` route, the ring buffer,
+the serve loop) within ``1e-4`` of the ``ref`` route and of the
+full-sequence forward in float32.
 """
 import numpy as np
 import pytest
@@ -485,6 +488,92 @@ def test_decode_attention_kernel_reads_strided_caches(cuda, dtype):
                                       length)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _bf16_decode_inputs(cuda, B, S, H, KV, D, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).bfloat16()
+               for shape in ((B, 1, H, D), (B, S, KV, D), (B, S, KV, D)))
+    return gen, q, k, v
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 4])
+@pytest.mark.parametrize("form", ["full", "mid", "per-batch"])
+@pytest.mark.parametrize("B,S,H,KV,D", [
+    (3, 1000, 4, 4, 128),    # G = 1, ragged S
+    (2, 777, 32, 8, 128),    # Qwen3-8B's G = 4
+    (2, 500, 48, 1, 128),    # granite-34b's MQA: three m-tiles
+    (3, 450, 8, 2, 64),      # D = 64
+    (2, 260, 96, 1, 64),     # G = 96 at D = 64: six m-tiles
+])
+def test_decode_attention_bf16_split_matches_plain(cuda, B, S, H, KV, D,
+                                                   form, parts):
+    """The bf16 kernel with its cache cut into 1 to 4 parts (the plan
+    forced) against the plain version; with a scalar length below S the
+    last parts lie wholly past it; the combine runs once per split call."""
+    gen, q, k, v = _bf16_decode_inputs(cuda, B, S, H, KV, D, S + H + parts)
+    length = _lengths(form, B, S, gen, cuda)
+    tiles = -(-S // kda.BLOCK_S)
+    per = -(-tiles // parts)
+    n = -(-tiles // per)
+    launches = kda.decode_attention.launches
+    combines = kda.decode_attention.combine_launches
+    got = kda._launch(q, k, v, length, plan=(n, per))
+    torch.cuda.synchronize()
+    assert kda.decode_attention.launches == launches + 1
+    assert kda.decode_attention.combine_launches == combines + (n > 1)
+    want = kda.decode_attention_plain(q, k, v, length)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("parts", [1, 3])
+@pytest.mark.parametrize("B,S,H,KV,D", [
+    (3, 300, 32, 8, 128),
+    (2, 200, 48, 1, 128),
+    (3, 130, 8, 2, 64),
+])
+def test_decode_attention_bf16_ignores_a_poisoned_tail(cuda, B, S, H, KV, D,
+                                                       parts):
+    """Cache rows at and past each length hold NaN (as a buffer never
+    written may): the output equals, bitwise, the one from the clean cache
+    (TMA loads the last tile's rows past the length; they are masked by a
+    select and their values zeroed), and it is finite; in one part and in
+    three (the last of which may lie wholly past S)."""
+    gen, q, k, v = _bf16_decode_inputs(cuda, B, S, H, KV, D, 11 * S + H)
+    lengths = torch.tensor([S // 2 + 3, 1, S - 5][:B], dtype=torch.int32,
+                           device=cuda)
+    past = (torch.arange(S, device=cuda)[None, :]
+            >= lengths[:, None])[:, :, None, None]
+    k_bad = torch.where(past, float("nan"), k)
+    v_bad = torch.where(past, float("nan"), v)
+    force = (parts, -(-S // (parts * kda.BLOCK_S)))
+    got = kda._launch(q, k_bad, v_bad, lengths, plan=force)
+    clean = kda._launch(q, k, v, lengths, plan=force)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, clean)
+    torch.testing.assert_close(
+        got.float(), kda.decode_attention_plain(q, k, v, lengths).float(),
+        rtol=2e-2, atol=2e-2)
+
+
+def test_decode_attention_bf16_splits_only_when_sms_are_idle(cuda):
+    """The plan on the card: B = 2 x 8 KV heads over 2,048 entries (16
+    CTAs) splits and launches the combine once; the serve shape (B = 16,
+    128 CTAs, about one an SM) runs in one part."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B, S, splits in ((2, 2048, True), (16, 320, False)):
+        gen, q, k, v = _bf16_decode_inputs(cuda, B, S, 32, 8, 128, B)
+        combines = kda.decode_attention.combine_launches
+        got = kda.decode_attention(q, k, v, S)
+        torch.cuda.synchronize()
+        assert kda.decode_attention.combine_launches == combines + splits
+        assert (kda.split_plan(B, 8, S, S, sms)[0] > 1) == splits
+        torch.testing.assert_close(
+            got.float(), kda.decode_attention_plain(q, k, v, S).float(),
+            rtol=2e-2, atol=2e-2)
 
 
 def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda):

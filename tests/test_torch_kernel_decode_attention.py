@@ -1,7 +1,9 @@
 """Kernel 7's plain PyTorch version (what CPU tensors run, and what the CUDA
 kernel is held against on the card) against the JAX package's decode
 attention: its Pallas kernel in interpret mode and ``decode_attention_ref``
-(JAX's and the port's).
+(JAX's and the port's); and the split bf16 kernel's plan and two passes
+(per-part partials in the kernel's workspace layout, then the combine)
+written out in PyTorch, against the same Pallas kernel.
 
 Tolerances are ``tests/test_kernels.py``'s: float32 within ``2e-5`` (the
 same online softmax in float32, other summation orders and tile sizes),
@@ -156,3 +158,98 @@ def test_wrapper_rejects_bad_inputs(bad):
         q = torch.zeros(2, 6, 64)
     with pytest.raises(ValueError):
         kda.decode_attention(q, k, k, length)
+
+
+@pytest.mark.parametrize("B,KV,S,length,want", [
+    (128, 8, 8192, 8192, (1, 128)),  # decode_32k: 1,024 CTAs, one part
+    (16, 8, 320, 320, (1, 5)),       # the serve shape: a CTA an SM
+    (8, 8, 4096, 4096, (2, 32)),     # 64 CTAs: two parts fill the SMs
+    (4, 8, 1024, 1024, (4, 4)),      # 32 CTAs: four parts of 4 tiles
+    (2, 8, 8192, 8192, (8, 16)),
+    (2, 1, 8192, 8192, (32, 4)),     # 2 CTAs: parts of MIN_PART_TILES
+    (2, 1, 8192, 700, (2, 6)),       # the scalar length's 11 tiles
+    (4, 8, 1024, 0, (1, 1)),
+    (4, 8, 200, 200, (1, 4)),        # too few tiles to split
+])
+def test_split_plan_cases(B, KV, S, length, want):
+    assert kda.split_plan(B, KV, S, length, 132) == want
+
+
+def test_split_plan_covers_every_tile_once():
+    """Over a grid of shapes: at most one part per tile, and at least
+    ``MIN_PART_TILES`` in each part of a split; the parts cover the tiles
+    of the length and none lies wholly past it; no split when B * KV CTAs
+    occupy half the SMs or more."""
+    for B in (1, 3, 16, 40):
+        for KV in (1, 8):
+            for S in (1, 64, 65, 320, 1000, 8192):
+                for length in {0, 1, S // 2, S, S + 9}:
+                    parts, per = kda.split_plan(B, KV, S, length, 132)
+                    tiles = -(-min(length, S) // kda.BLOCK_S)
+                    assert 1 <= parts <= max(tiles, 1) and per >= 1
+                    assert parts * per >= tiles
+                    assert (parts - 1) * per < max(tiles, 1)
+                    if parts > 1:
+                        assert per >= kda.MIN_PART_TILES
+                    if B * KV > 132 // 2:
+                        assert parts == 1
+
+
+def _two_passes(tq, tk, tv, length, parts):
+    S = tk.shape[1]
+    tiles = -(-S // kda.BLOCK_S)
+    per = -(-tiles // parts)
+    acc, m, l = kda.decode_attention_partials_plain(
+        tq, tk, tv, length, -(-tiles // per), per)
+    assert acc.shape == (-(-tiles // per),) + tq.shape[:1] + tq.shape[2:]
+    assert m.shape == l.shape == acc.shape[:3]
+    return kda.decode_attention_combine_plain(acc, m, l, tq.dtype)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_passes_match_pallas_interpret(dtype, parts):
+    """The split kernel's two passes written out in PyTorch (per-part
+    partials in the workspace layout, then the combine) against the TPU
+    kernel in interpret mode: 8 tiles in 1 to 4 parts, per-batch lengths
+    0, S, 70 and 200 (whole parts past the length) and a scalar 100."""
+    B, S, H, KV, D = 4, 512, 8, 2, 128
+    (jq, jk, jv), (tq, tk, tv) = _inputs(parts + 17, B, S, H, KV, D, dtype)
+    lengths = np.array([0, S, 70, 200], np.int32)
+    got = _two_passes(tq, tk, tv, torch.as_tensor(lengths), parts)
+    want = _pallas(64)(jq, jk, jv, jnp.asarray(lengths))
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert bool((got[0] == 0).all())  # length 0 gives 0
+    np.testing.assert_allclose(_f32(got[1:]), _f32(want)[1:], **TOL[dtype])
+    got = _two_passes(tq, tk, tv, 100, parts)
+    np.testing.assert_allclose(
+        _f32(got), _f32(_pallas(64)(jq, jk, jv, jnp.int32(100))),
+        **TOL[dtype])
+
+
+@pytest.mark.parametrize("parts", [2, 3, 5])
+def test_two_passes_match_one_pass(parts):
+    """Splitting changes only the summation order: the two passes equal
+    the one-pass plain version within float32 rounding, at Qwen3's G = 4
+    and granite's G = 48, ragged S, per-batch lengths with 0 and S."""
+    for H, KV in ((32, 8), (48, 1)):
+        (_, _, _), (tq, tk, tv) = _inputs(parts + H, 3, 333, H, KV, 64,
+                                          "float32")
+        lengths = torch.tensor([333, 0, 150])
+        np.testing.assert_allclose(
+            _f32(_two_passes(tq, tk, tv, lengths, parts)),
+            _f32(kda.decode_attention_plain(tq, tk, tv, lengths)),
+            rtol=1e-5, atol=1e-6)
+
+
+def test_plain_ignores_what_lies_past_the_length():
+    """NaN in every cache row at or past each length (a buffer never
+    written) changes nothing: those scores are masked by a select and those
+    values zeroed, in every part."""
+    (_, _, _), (tq, tk, tv) = _inputs(4, 3, 200, 8, 2, 64, "float32")
+    lengths = torch.tensor([1, 130, 200])
+    past = (torch.arange(200)[None, :] >= lengths[:, None])[:, :, None, None]
+    bk, bv = (torch.where(past, float("nan"), x) for x in (tk, tv))
+    for parts in (1, 2, 4):
+        assert torch.equal(_two_passes(tq, bk, bv, lengths, parts),
+                           _two_passes(tq, tk, tv, lengths, parts))
