@@ -12,7 +12,10 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
   2. the Buzen kernel against its plain PyTorch version (B = 131 rows,
      S = 100 and 101 stations with padded ``-inf`` columns, m_max = 132,
      rtol/atol 2e-5) and against the float64 DP on Table 1 (rtol 3e-5,
-     atol 3e-4);
+     atol 3e-4); the float64 backward kernel against its plain adjoint on
+     the same rows (rtol 1e-9 plus an atol of 1e-12 times the largest
+     partial), its padded partials exactly 0; the padded rows without
+     their padded columns bitwise the same, forward and real partials;
   3. the event kernel against its plain version: 6 lanes, n = 100,
      m_max = 132, 2,000 events from the same pre-drawn blocks, exponential
      and deterministic laws, with and without a CS station — bitwise; then
@@ -32,15 +35,20 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      E = 1 and 32 (bitwise), and ``next_update`` on 6 lanes for 200 updates at
      chunk 1 and 8 (the updates and final states bitwise).  The kernels'
      launch counters are zeroed just before this phase and read just after
-     it: each kernel must have launched;
+     it: each kernel must have launched, the Buzen forward 201 times and
+     its backward 200 (the sweep's Adam steps);
   5. each kernel's time and its plain version's time at the main path's
      shapes, beside the least time the card could take: the device time per
      call from a ``torch.profiler`` trace (the sum of the CUDA kernels'
      device time), and the time per call between CUDA events, which also
-     counts the host's launch overhead; the class Buzen kernel at the class
-     sweep's shape (131 rows x 5 classes of Table 1 at n = 1e6, m_max =
-     132), kernel and plain version on the same built series, with the
-     wrapper's float64 series build and its whole call timed beside them;
+     counts the host's launch overhead; the Buzen forward's MUFU floor
+     beside its bound; the backward kernel, its plain adjoint and the
+     autograd recompute of the float64 DP that it replaces, at the sweep's
+     shape (131 rows x 100 stations, m_max = 132); the class Buzen kernel
+     at the class sweep's shape (131 rows x 5 classes of Table 1 at n =
+     1e6, m_max = 132), kernel and plain version on the same built series,
+     with the wrapper's float64 series build and its whole call timed
+     beside them;
   6. the device-busy share of short windows of the sweep (per client and,
      at n = 1e6, per class) and the lane
      simulation on each backend and at E = 1, 8 and 32 (profiler device
@@ -168,6 +176,15 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # per DP term, two passes: mul-add and max, then mul-add, subtract, exp, add
 BUZEN_OPS_PER_TERM = 8
+# the MUFU unit's exp2 results per clock on one SM (Hopper)
+MUFU_PER_CLOCK = 16
+# published H100 SXM float64 peak outside the tensor cores at 700 W (NVIDIA
+# data sheet), and the backward's float64 operations per term (an exp
+# counted as one): phase A as the forward's term; phase B a mul-add and a
+# subtract for the exponent, the exp, the product with g, its add and the
+# mul-add of the log_rho partial
+PEAK_F64_FLOPS = 34e12
+BUZEN_BWD_OPS_PER_TERM = 8
 # per class DP term, what the function needs: the add of series[k] and
 # U[m - k], the max, the subtract, the exp and the sum (the kernel's second
 # pass recomputes the add; the bound leaves that out)
@@ -1220,6 +1237,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core.batched import batch_log_normalizing_constants
+    from repro_torch.core.buzen import aggregate_log_Z
     from repro_torch.core.complexity import wallclock_time
     from repro_torch.core.energy import PowerProfile
     from repro_torch.core.events import (EventState, EventStream,
@@ -1247,6 +1265,11 @@ def main() -> int:
         timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    sm_clock_mhz = float(clk.stdout.strip().splitlines()[0])
     t0 = time.perf_counter()
     build.build_all()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s "
@@ -1259,9 +1282,9 @@ def main() -> int:
     consts = LearningSpec().consts
     rng = np.random.default_rng(0)
 
-    # -- 2. the Buzen kernel against its plain version --------------------
+    # -- 2. the Buzen kernels against their plain versions ----------------
     M = 132
-    buzen_err = 0.0
+    buzen_err = bwd_err = 0.0
     for S in (100, 101):
         lr = np.log(rng.dirichlet(np.ones(S), size=131)) - np.log(
             rng.uniform(0.1, 12.0, (131, S)))
@@ -1269,13 +1292,35 @@ def main() -> int:
         lg = np.log(rng.uniform(0.05, 5.0, 131))
         a = torch.as_tensor(lr, device=dev)
         b = torch.as_tensor(lg, device=dev)
+        # a generator of its own, so the shared one's draws stay as they were
+        g = torch.as_tensor(np.random.default_rng(S).normal(
+            size=(131, M + 1)), device=dev)
         got = kb.buzen_batched(a, b, M)
         want = kb.buzen_batched_plain(a, b, M)
+        got_lr, got_lg = kb.buzen_log_Z_backward(a, b, g, M)
+        want_lr, want_lg = kb.buzen_log_Z_backward_plain(a, b, g, M)
         torch.cuda.synchronize()
         err = (got - want).abs()
         check(bool((err <= 2e-5 + 2e-5 * want.abs()).all()),
               f"buzen kernel vs plain (S={S}): max err {float(err.max())}")
         buzen_err = max(buzen_err, float(err.max()))
+        for x, y in ((got_lr, want_lr), (got_lg, want_lg)):
+            err = (x - y).abs()
+            tol = 1e-9 * y.abs() + 1e-12 * float(y.abs().max())
+            check(bool((err <= tol).all()), f"buzen backward vs plain "
+                  f"(S={S}): max err {float(err.max())}")
+            bwd_err = max(bwd_err, float(err.max()))
+        check(bool((got_lr[~torch.isfinite(a)] == 0.0).all()),
+              f"buzen backward (S={S}): a padded station's partial is not 0")
+        # the padded rows without their padded columns: bitwise the same
+        pr = slice(0, None, 7)
+        a_u, b_u, g_u = a[pr, :-3].contiguous(), b[pr].contiguous(), g[pr]
+        u_lr, u_lg = kb.buzen_log_Z_backward(a_u, b_u, g_u.contiguous(), M)
+        check(torch.equal(kb.buzen_batched(a_u, b_u, M), got[pr]),
+              f"buzen kernel (S={S}): padded != unpadded")
+        check(torch.equal(u_lr, got_lr[pr, :-3])
+              and torch.equal(u_lg, got_lg[pr]),
+              f"buzen backward (S={S}): padded != unpadded on real partials")
     p_rows = torch.as_tensor(np.vstack([np.full(n, 1.0 / n),
                                         rng.dirichlet(np.full(n, 5.0), 7)]),
                              device=dev)
@@ -1285,7 +1330,10 @@ def main() -> int:
     check(bool((err <= 3e-4 + 3e-5 * f64.abs()).all()),
           f"buzen kernel vs float64 DP: max err {float(err.max())}")
     log(f"phase 2: buzen kernel == plain within 2e-5 (max abs err "
-        f"{buzen_err:.3g}); vs float64 DP max abs err {float(err.max()):.3g}")
+        f"{buzen_err:.3g}); vs float64 DP max abs err {float(err.max()):.3g}; "
+        f"buzen backward == plain adjoint within rtol 1e-9 (max abs err "
+        f"{bwd_err:.3g}); padded stations: partials 0, both kernels "
+        f"bitwise the unpadded rows")
 
     # -- 3. the event kernel against its plain version ---------------------
     K, EV = 6, 2000
@@ -1390,6 +1438,7 @@ def main() -> int:
 
     # -- 4. the main path at the paper's size ------------------------------
     kb.buzen_batched.launches = 0
+    kb.buzen_log_Z_backward.launches = 0
     ke.event_step_tables.launches = 0
     ke.megastep_tables.launches = 0
     t_main = time.perf_counter()
@@ -1501,10 +1550,14 @@ def main() -> int:
         f"lanes, {int(upd1[4].sum())} events)")
     main_s = time.perf_counter() - t_main
     launches = {"buzen": kb.buzen_batched.launches,
+                "buzen_backward": kb.buzen_log_Z_backward.launches,
                 "event_step": ke.event_step_tables.launches,
                 "megastep": ke.megastep_tables.launches}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    # the sweep: 200 Adam steps and the final evaluation
+    check(launches["buzen"] == 201 and launches["buzen_backward"] == 200,
+          f"the sweep's Buzen launches: {launches}")
     log(f"phase 4: throughput at (p*, m*={m_star}): Prop. 4 "
         f"{lam_star:.6g}; main path {main_s:.1f} s; launches {launches}")
 
@@ -1528,15 +1581,30 @@ def main() -> int:
     tbl = tbl + (torch.rand(6, 4, dtype=torch.float64, device=dev),
                  torch.stack([torch.zeros(6, dtype=torch.int32, device=dev),
                               st.seq_ctr, st.round], dim=-1))
+    g5 = torch.as_tensor(np.random.default_rng(5).normal(size=(B, M + 1)),
+                         device=dev)
+
+    def autograd_recompute():
+        """What the backward kernel replaces: PyTorch autograd through the
+        float64 DP recomputed at the primal point."""
+        with torch.enable_grad():
+            x = lr.detach().requires_grad_(True)
+            y = lg.detach().requires_grad_(True)
+            return torch.autograd.grad(aggregate_log_Z(x, y, M), (x, y), g5)
+
     calls = {
         "buzen": (lambda: kb.buzen_batched(lr, lg, M),
                   lambda: kb.buzen_batched_plain(lr, lg, M), 20, 3),
+        "buzen_backward": (
+            lambda: kb.buzen_log_Z_backward(lr, lg, g5, M),
+            lambda: kb.buzen_log_Z_backward_plain(lr, lg, g5, M), 20, 3),
         "event_step": (lambda: ke.event_step_tables(*tbl, has_cs=False),
                        lambda: ke.event_step_tables_plain(*tbl, has_cs=False),
                        200, 50)}
     # the megastep kernel as the simulation calls it: 6 lanes of m* and
     # of 132 slots, E = 8 and 32 events per launch, every event kept
     labels = {"buzen": f"[{B}x{n}], m_max={M}",
+              "buzen_backward": f"[{B}x{n}], m_max={M}, float64",
               "event_step": f"[6x{m_star}], n={n}"}
     mega_shapes = {}
     for m, chunk in [(m, c) for m in (m_star, M) for c in (8, 32)]:
@@ -1594,6 +1662,8 @@ def main() -> int:
                        "plain": (device_ms(plain, rp), time_ms(plain, rp))}
     c_parts = {name: (device_ms(fn, 50), time_ms(fn, 50))
                for name, fn in c_parts.items()}
+    recompute = (device_ms(autograd_recompute, 3),
+                 time_ms(autograd_recompute, 3))
     profiled = all(t["kernel"][0] > 0 and t["plain"][0] > 0
                    for t in times.values())
     pick = 0 if profiled else 1  # device time when the profiler saw the card
@@ -1601,6 +1671,13 @@ def main() -> int:
     terms = B * n * (M + 1) * (M + 2) / 2
     bound_ops = BUZEN_OPS_PER_TERM * terms / PEAK_F32_FLOPS
     bound_bytes = 4 * (B * n + 2 * B * (M + 1)) / PEAK_BYTES
+    # every exp of the forward goes to the MUFU unit: 16 a clock on each SM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mufu_ms = 1e3 * terms / (MUFU_PER_CLOCK * sms * 1e6 * sm_clock_mhz)
+    # the backward: both phases' terms; log_rho, g and log_gamma_total in,
+    # their partials out, float64
+    bwd_ops = BUZEN_BWD_OPS_PER_TERM * 2 * terms / PEAK_F64_FLOPS
+    bwd_bytes = 8 * (2 * B * n + B * (M + 1) + 2 * B) / PEAK_BYTES
     K6 = 6
 
     def transition_bytes(m, chunk, n_desc):
@@ -1621,6 +1698,16 @@ def main() -> int:
         "plain_ms": times["buzen"]["plain"][pick],
         "bound_ms": 1e3 * max(bound_ops, bound_bytes),
         "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "library_ms": None}
+    bwd_rec = {
+        "name": "buzen_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/buzen.cu",
+        "replaces": "src/repro/kernels/buzen.py:163",
+        "launches": launches["buzen_backward"], "max_abs_err": bwd_err,
+        "ms": times["buzen_backward"]["kernel"][pick],
+        "plain_ms": times["buzen_backward"]["plain"][pick],
+        "bound_ms": 1e3 * max(bwd_ops, bwd_bytes),
+        "bound_by": "operations" if bwd_ops >= bwd_bytes else "bytes",
         "library_ms": None}
     event_rec = {
         "name": "event_step", "route": "cuda",
@@ -1660,6 +1747,20 @@ def main() -> int:
         "library_ms": None}
     for name, t in times.items():
         extra = ""
+        if name == "buzen":
+            extra = (f"; bound {buzen_rec['bound_ms']:.6f} ms "
+                     f"({BUZEN_OPS_PER_TERM} float32 operations a term, an "
+                     f"exp counted as one, at 67 TFLOP/s); MUFU floor "
+                     f"{mufu_ms:.6f} ms ({terms / 1e6:.1f} M exp2 at "
+                     f"{MUFU_PER_CLOCK} a clock on {sms} SMs at "
+                     f"{sm_clock_mhz:.0f} MHz)")
+        if name == "buzen_backward":
+            extra = (f"; bound {bwd_rec['bound_ms']:.6f} ms "
+                     f"({2 * terms / 1e6:.1f} M float64 terms, "
+                     f"{BUZEN_BWD_OPS_PER_TERM} operations each, an exp "
+                     f"counted as one, at 34 TFLOP/s); the autograd "
+                     f"recompute it replaces device {recompute[0]:.4f} ms / "
+                     f"between events {recompute[1]:.4f} ms")
         if name in mega_shapes:
             bound = transition_bytes(*mega_shapes[name], 10) / PEAK_BYTES
             extra = f"; bound {1e3 * bound:.6f} ms (bytes)"
@@ -1750,7 +1851,7 @@ def main() -> int:
     log(f"chip_smoke: phases 1-10 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [buzen_rec, event_rec, mega_rec,
+    print(json.dumps({"kernels": [buzen_rec, bwd_rec, event_rec, mega_rec,
                                   fused_rec, class_rec, flash_rec,
                                   decode_rec]}),
           flush=True)

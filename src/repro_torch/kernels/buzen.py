@@ -1,16 +1,20 @@
 """Batched Buzen DP kernels: the routing optimizer's inner loop (port of
 ``repro.kernels.buzen``).
 
-Replaces two Pallas TPU kernels with hand-written CUDA kernels in
-``csrc/buzen.cu`` that share one per-``m`` logsumexp body: one CTA per
-batch row, the station (or class) loop inside the block, the running row
-double-buffered in shared memory.  Both are bound by operations (about
-``B * S * (m+1)(m+2)/2`` float32 exp terms per call), not by the bytes
-they move.
+Hand-written CUDA kernels in ``csrc/buzen.cu``, one CTA per batch row, the
+station (or class) loop inside the block, the running row double-buffered
+in shared memory.  All are bound by operations (about ``B * S *
+(m+1)(m+2)/2`` exp terms per call), not by the bytes they move.
 
   * ``repro/kernels/buzen.py::buzen_pallas_batched`` (``_buzen_kernel``)
     -> ``buzen_kernel``: per-client stations, the geometric series
-    ``k log_rho`` formed in the kernel;
+    ``k log_rho`` formed in the kernel; each column's terms spread over the
+    whole CTA (a group of lanes per pair of rows), the row carried in
+    float64 in log2 units, every exp a float32 ``ex2.approx``;
+  * the float64 VJP of ``buzen_log_Z_batched`` (``_buzen_log_Z_bwd``, a
+    ``jnp`` VJP, no Pallas kernel) -> ``buzen_backward_kernel``: the
+    adjoint of the float64 DP, the rows recomputed in float64 and walked
+    back in the same CTA;
   * ``repro/kernels/buzen.py::buzen_classes_pallas_batched``
     (``_buzen_classes_kernel``) -> ``buzen_classes_kernel``: one fold per
     client class through a negative-binomial series built here in float64
@@ -21,13 +25,18 @@ Entry points:
   * :func:`buzen_batched` / :func:`buzen_classes_batched` — the raw
     float32 forwards ``[B, S] -> [B, m+1]``: they launch the CUDA kernel
     for CUDA tensors (or raise), and run :func:`buzen_batched_plain` /
-    :func:`buzen_classes_batched_plain` — the same arithmetic in PyTorch —
-    for CPU tensors only.  Each wrapper's ``launches`` counts its kernel's
-    launches.
+    :func:`buzen_classes_batched_plain` — the TPU kernels' arithmetic in
+    PyTorch — for CPU tensors only.  Each wrapper's ``launches`` counts its
+    kernel's launches.
+  * :func:`buzen_log_Z_backward` — the float64 adjoint of the per-client
+    DP: the backward kernel for CUDA tensors (or raise),
+    :func:`buzen_log_Z_backward_plain` for CPU tensors only; its
+    ``launches`` counts the kernel's launches.
   * :func:`buzen_log_Z_batched` / :func:`buzen_classes_log_Z_batched` —
     differentiable wrappers (``torch.autograd.Function``): the forward is
-    the kernel, the backward differentiates the float64 PyTorch DP at the
-    same primal point.
+    the kernel; the backward is :func:`buzen_log_Z_backward` per client,
+    and differentiates the float64 PyTorch class DP at the same primal
+    point per class.
   * :func:`buzen_single` — the single-row per-client form (``B = 1``).
 """
 from __future__ import annotations
@@ -39,22 +48,24 @@ import torch
 from ..core.numerics import NEG_INF
 from . import build
 
-_MAX_M_PAD = 6144  # two f32 rows in 48 KB of shared memory
+# the forward's two float64 rows (96 KB) and the backward's four (192 KB)
+# in dynamic shared memory
+_MAX_M_PAD = 6144
 
 
-def _init_rows(log_gamma_total: torch.Tensor, m_pad: int) -> torch.Tensor:
-    """The aggregated IS Poisson row ``k log gamma - lgamma(k+1)`` in f32."""
-    k = torch.arange(m_pad, dtype=torch.float32,
-                     device=log_gamma_total.device)
-    return (k[None, :] * log_gamma_total[:, None].to(torch.float32)
+def _init_rows(log_gamma_total: torch.Tensor, m_pad: int,
+               dtype=torch.float32) -> torch.Tensor:
+    """The aggregated IS Poisson row ``k log gamma - lgamma(k+1)``."""
+    k = torch.arange(m_pad, dtype=dtype, device=log_gamma_total.device)
+    return (k[None, :] * log_gamma_total[:, None].to(dtype)
             - torch.lgamma(k + 1.0)[None, :])
 
 
-def _clamp_rho(log_rho: torch.Tensor) -> torch.Tensor:
+def _clamp_rho(log_rho: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     # a load-0 station (padded client) arrives as log_rho = -inf: clamp it
     # to the finite mask value so k * log_rho stays NaN-free; its k >= 1
     # terms then underflow to 0 and the station is the identity
-    return torch.clamp_min(log_rho.to(torch.float32), NEG_INF)
+    return torch.clamp_min(log_rho.to(dtype), NEG_INF)
 
 
 def _fold_plain(u: torch.Tensor, series: torch.Tensor) -> torch.Tensor:
@@ -130,9 +141,12 @@ def buzen_batched(log_rho: torch.Tensor, log_gamma_total: torch.Tensor,
     if log_rho.dim() != 2:
         raise ValueError(f"log_rho must be [B, S], got {tuple(log_rho.shape)}")
     if log_rho.is_cuda:
+        # the kernel carries the row in float64: its inputs are float64
         m_pad = _check_rows(log_rho, log_gamma_total, m_max, _MAX_M_PAD)
-        return _launch("buzen_forward", buzen_batched, _clamp_rho(log_rho),
-                       _init_rows(log_gamma_total, m_pad), log_rho.shape[1])
+        return _launch("buzen_forward", buzen_batched,
+                       _clamp_rho(log_rho, torch.float64),
+                       _init_rows(log_gamma_total, m_pad, torch.float64),
+                       log_rho.shape[1])
     if log_rho.device.type == "cpu":
         return buzen_batched_plain(log_rho, log_gamma_total, m_max)
     raise ValueError(f"no Buzen kernel for device {log_rho.device}")
@@ -141,17 +155,101 @@ def buzen_batched(log_rho: torch.Tensor, log_gamma_total: torch.Tensor,
 buzen_batched.launches = 0
 
 
-def reference_log_Z(log_rho: torch.Tensor, log_gamma_total: torch.Tensor,
-                    m_max: int) -> torch.Tensor:
-    """Float64 PyTorch DP on the same ``[B, S]``/``[B]`` layout — the
-    gradient donor of :func:`buzen_log_Z_batched`."""
-    from ..core.buzen import aggregate_log_Z
+def buzen_log_Z_backward_plain(log_rho: torch.Tensor,
+                               log_gamma_total: torch.Tensor, g: torch.Tensor,
+                               m_max: int):
+    """The adjoint of the float64 DP in PyTorch — what CPU tensors run:
+    ``(d/d log_rho, d/d log_gamma_total)`` of ``sum(g * log Z)`` at the
+    primal point, float64.  With ``U_0`` the Poisson row and ``U_s[m] =
+    logsumexp_{k <= m} (U_{s-1}[k] + (m - k) lr_s)``, walking back from
+    ``g_S = g``::
 
-    return aggregate_log_Z(log_rho, log_gamma_total, m_max)
+        P_s[m, k]  = exp(U_{s-1}[k] + (m - k) lr_s - U_s[m])    (k <= m)
+        g_{s-1}[k] = sum_{m >= k} g_s[m] P_s[m, k]
+        d/d lr_s   = sum_{m, k} g_s[m] (m - k) P_s[m, k]
+        d/d lg     = sum_k k g_0[k]       (k = 0 is pinned in the row)
+
+    A non-finite ``log_rho`` column (a padded station) is an explicit
+    identity: the rows and ``g`` pass through and its partial is exactly 0,
+    so the real columns' partials are bitwise the unpadded run's."""
+    from ..core.buzen import _poisson_series
+
+    lr = log_rho.to(torch.float64)
+    g = g.to(torch.float64)
+    live = torch.isfinite(lr)
+    lr = torch.where(live, lr, 0.0)
+    ar = torch.arange(m_max + 1, device=lr.device)
+    q = ar[:, None] - ar[None, :]                      # [m, k]: m - k
+    valid = q >= 0
+    qd = q.clamp_min(0).to(torch.float64)
+    rows = [_poisson_series(log_gamma_total.to(torch.float64), m_max)]
+    for s in range(lr.shape[1]):
+        u = rows[-1]
+        terms = torch.where(valid, u[:, None, :] + qd * lr[:, s, None, None],
+                            NEG_INF)
+        rows.append(torch.where(live[:, s, None],
+                                torch.logsumexp(terms, dim=-1), u))
+    g_lr = torch.zeros_like(lr)
+    for s in reversed(range(lr.shape[1])):
+        e = (rows[s][:, None, :] + qd * lr[:, s, None, None]
+             - rows[s + 1][:, :, None])
+        gp = g[:, :, None] * torch.exp(torch.where(valid, e, -torch.inf))
+        g_lr[:, s] = torch.where(live[:, s], (gp * qd).sum(dim=(1, 2)), 0.0)
+        g = torch.where(live[:, s, None], gp.sum(dim=1), g)
+    return g_lr, (g * ar.to(torch.float64)).sum(dim=-1)
+
+
+def buzen_log_Z_backward(log_rho: torch.Tensor, log_gamma_total: torch.Tensor,
+                         g: torch.Tensor, m_max: int):
+    """``(d/d log_rho [B, S], d/d log_gamma_total [B])`` of ``sum(g * log
+    Z)`` for the float64 DP at the primal point (``g [B, m_max+1]``),
+    float64: the backward kernel for CUDA tensors (or raise),
+    :func:`buzen_log_Z_backward_plain` for CPU tensors only.
+    ``buzen_log_Z_backward.launches`` counts the kernel's launches."""
+    if log_rho.dim() != 2:
+        raise ValueError(f"log_rho must be [B, S], got {tuple(log_rho.shape)}")
+    if g.shape != (log_rho.shape[0], m_max + 1):
+        raise ValueError(f"g has shape {tuple(g.shape)}, expected "
+                         f"{(log_rho.shape[0], m_max + 1)}")
+    if g.device != log_rho.device:
+        raise ValueError("log_rho and g on different devices")
+    if log_rho.is_cuda:
+        from ..core.buzen import _poisson_series
+
+        m_pad = _check_rows(log_rho, log_gamma_total, m_max, _MAX_M_PAD)
+        B, S = log_rho.shape
+        f64 = dict(dtype=torch.float64, device=log_rho.device)
+        lr = log_rho.to(torch.float64).contiguous()
+        init = _poisson_series(log_gamma_total.to(torch.float64),
+                               m_max).contiguous()
+        g = g.to(torch.float64).contiguous()
+        rows = torch.empty((B, S + 1, m_pad), **f64)  # U_0..U_S, in L2
+        g_lr = torch.empty((B, S), **f64)
+        g_lg = torch.empty((B,), **f64)
+        fn = build.load("buzen").buzen_backward
+        if not fn.argtypes:
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        with torch.cuda.device(log_rho.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(lr.data_ptr(), init.data_ptr(), g.data_ptr(),
+                     rows.data_ptr(), g_lr.data_ptr(), g_lg.data_ptr(), B,
+                     S, m_pad, stream)
+        build.check(err, "buzen_backward launch")
+        buzen_log_Z_backward.launches += 1
+        return g_lr, g_lg
+    if log_rho.device.type == "cpu":
+        return buzen_log_Z_backward_plain(log_rho, log_gamma_total, g, m_max)
+    raise ValueError(f"no Buzen backward kernel for device {log_rho.device}")
+
+
+buzen_log_Z_backward.launches = 0
 
 
 class BuzenLogZ(torch.autograd.Function):
-    """Kernel forward, float64 reference backward."""
+    """Kernel forward, float64 adjoint backward (:func:`buzen_log_Z_backward`:
+    the backward kernel on CUDA tensors, its plain version on CPU ones)."""
 
     @staticmethod
     def forward(ctx, log_rho, log_gamma_total, m_max):
@@ -163,22 +261,17 @@ class BuzenLogZ(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         log_rho, log_gamma_total = ctx.saved_tensors
-        with torch.enable_grad():
-            lr = log_rho.detach().requires_grad_(True)
-            lg = log_gamma_total.detach().requires_grad_(True)
-            out = reference_log_Z(lr, lg, ctx.m_max)
-            g_lr, g_lg = torch.autograd.grad(out, (lr, lg),
-                                             g.to(log_rho.dtype))
-        # padded (load-0) stations enter as log_rho = -inf: the value does
-        # not depend on them, so pin their partials to exactly 0
-        g_lr = torch.where(torch.isfinite(log_rho), g_lr, 0.0)
-        return g_lr, g_lg, None
+        g_lr, g_lg = buzen_log_Z_backward(log_rho.detach(),
+                                          log_gamma_total.detach(), g,
+                                          ctx.m_max)
+        return (g_lr.to(log_rho.dtype), g_lg.to(log_gamma_total.dtype),
+                None)
 
 
 def buzen_log_Z_batched(log_rho: torch.Tensor, log_gamma_total: torch.Tensor,
                         m_max: int) -> torch.Tensor:
     """Differentiable batched Buzen DP: kernel forward cast to the input
-    dtype, float64 reference backward (so the optimizer can run on it)."""
+    dtype, float64 adjoint backward (so the optimizer can run on it)."""
     return BuzenLogZ.apply(log_rho, log_gamma_total, m_max)
 
 

@@ -6,12 +6,17 @@ imports no JAX, so it also runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: the Buzen kernels (per client and per class) within ``rtol/atol
-2e-5`` of their plain float32 versions (same arithmetic, other rounding:
-fused multiply-adds and another reduction order), the class kernel's sweep
-within ``rtol 1e-4`` of the float64 one (as the per-client sweep on the
-card); the event and megastep kernels bitwise (IEEE division, no
-contraction); the fused update bitwise on the new parameters (a rounded
-multiply, then a rounded subtract) and within ``rtol 1e-5`` on the squared
+2e-5`` of their plain float32 versions (the class kernel: same arithmetic,
+other rounding; the per-client kernel carries its row in float64 and is
+closer to the float64 DP than the plain version is), padded (load-0)
+stations bitwise identities, the per-client float64 backward within ``rtol
+1e-9`` (plus an ``atol`` of 1e-12 times the largest partial) of its plain
+adjoint, with its padded partials exactly 0 and its real ones bitwise the
+unpadded run's, and every row's results independent of the batch around
+it; both sweeps within ``rtol 1e-4`` of the float64 ones; the event and
+megastep kernels bitwise (IEEE division, no contraction); the fused update
+bitwise on the new parameters (a rounded multiply, then a rounded
+subtract) and within ``rtol 1e-5`` on the squared
 gradient norm (another summation order), and the trainer with it bitwise
 the trainer without it; flash attention within ``2e-5`` of its plain
 version in float32 and ``2e-2`` in bfloat16 (``tests/test_kernels.py``'s
@@ -38,9 +43,9 @@ from repro_torch.kernels import events as ke
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import fused_update as kf
 from repro_torch.core.buzen import pad_classes
-from repro_torch.core.optimize import time_optimal_classes
+from repro_torch.core.optimize import time_optimal, time_optimal_classes
 from repro_torch.scenario.spec import (PAPER_CLUSTERS_TABLE1, ClassSpec,
-                                       LearningSpec)
+                                       LearningSpec, NetworkSpec)
 from repro_torch.sim import simulate_stats_classes_lanes, simulate_stats_lanes
 
 pytestmark = pytest.mark.cuda
@@ -90,6 +95,98 @@ def test_buzen_kernel_matches_plain(cuda, S, m_max):
     torch.cuda.synchronize()
     assert kb.buzen_batched.launches == before + 1
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("m_max", [0, 1, 31, 32, 33, 132, 1000])
+@pytest.mark.parametrize("S", [7, 100, 101])
+def test_buzen_kernel_matches_plain_at_every_width(cuda, S, m_max):
+    """Row pairs that meet in the middle (odd and even m_pad), one group or
+    several rounds of them; against the float32 plain version."""
+    lr, lg = _rows(1000 + S, 131 if m_max < 1000 else 9, S)
+    a = torch.as_tensor(lr, device=cuda)
+    b = torch.as_tensor(lg, device=cuda)
+    want = kb.buzen_batched_plain(a, b, m_max)
+    got = kb.buzen_batched(a, b, m_max)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _with_pad_columns(lr):
+    """``lr`` with -inf (load-0) columns at the front, in the middle and at
+    the end; returns the padded array and the real columns' indices."""
+    B, S = lr.shape
+    pad = np.full((B, 1), -np.inf)
+    mid = S // 2
+    out = np.concatenate([pad, lr[:, :mid], pad, pad, lr[:, mid:], pad], 1)
+    real = [1 + i for i in range(mid)] + [3 + i for i in range(mid, S)]
+    return out, real
+
+
+def _close_partials(got, want):
+    """rtol 1e-9 plus an atol of 1e-12 times the largest partial."""
+    torch.testing.assert_close(got, want, rtol=1e-9,
+                               atol=1e-12 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("S,m_max", [(100, 132), (7, 40), (12, 1000)])
+def test_buzen_padded_stations_bitwise(cuda, S, m_max):
+    rng = np.random.default_rng(S)
+    lr = np.log(rng.dirichlet(np.ones(S), size=6)) - np.log(
+        rng.uniform(0.2, 8.0, (6, S)))
+    lg = np.log(rng.uniform(0.1, 3.0, 6))
+    padded, real = _with_pad_columns(lr)
+    t = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+    assert torch.equal(kb.buzen_batched(t(padded), t(lg), m_max),
+                       kb.buzen_batched(t(lr), t(lg), m_max))
+    g = t(rng.normal(size=(6, m_max + 1)))
+    base_lr, base_lg = kb.buzen_log_Z_backward(t(lr), t(lg), g, m_max)
+    pad_lr, pad_lg = kb.buzen_log_Z_backward(t(padded), t(lg), g, m_max)
+    torch.cuda.synchronize()
+    assert torch.equal(pad_lr[:, real], base_lr)
+    assert torch.equal(pad_lg, base_lg)
+    dead = [i for i in range(padded.shape[1]) if i not in real]
+    assert bool((pad_lr[:, dead] == 0.0).all())
+    # a row's results do not depend on the batch around it
+    sub = slice(1, None, 2)
+    assert torch.equal(kb.buzen_batched(t(lr[sub]), t(lg[sub]), m_max),
+                       kb.buzen_batched(t(padded), t(lg), m_max)[sub])
+    sub_lr, sub_lg = kb.buzen_log_Z_backward(t(lr[sub]), t(lg[sub]),
+                                             g[sub].contiguous(), m_max)
+    assert torch.equal(sub_lr, base_lr[sub])
+    assert torch.equal(sub_lg, base_lg[sub])
+
+
+@pytest.mark.parametrize("B,S,m_max", [(131, 100, 132), (131, 101, 132),
+                                       (5, 7, 40), (3, 12, 0), (4, 3, 1),
+                                       (2, 5, 1000)])
+def test_buzen_backward_kernel_matches_plain(cuda, B, S, m_max):
+    lr, lg = _rows(7 * S + m_max, B, S)
+    a = torch.as_tensor(lr, device=cuda)
+    b = torch.as_tensor(lg, device=cuda)
+    g = torch.as_tensor(np.random.default_rng(S).normal(size=(B, m_max + 1)),
+                        device=cuda)
+    want_lr, want_lg = kb.buzen_log_Z_backward_plain(a, b, g, m_max)
+    before = kb.buzen_log_Z_backward.launches
+    got_lr, got_lg = kb.buzen_log_Z_backward(a, b, g, m_max)
+    torch.cuda.synchronize()
+    assert kb.buzen_log_Z_backward.launches == before + 1
+    _close_partials(got_lr, want_lr)
+    _close_partials(got_lg, want_lg)
+    assert bool((got_lr[~torch.isfinite(a)] == 0.0).all())
+
+
+def test_time_optimal_kernel_matches_torch(cuda):
+    net = NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1).params(device=cuda)
+    consts = LearningSpec().consts
+    kb.buzen_batched.launches = 0
+    kb.buzen_log_Z_backward.launches = 0
+    got = time_optimal(net, consts, 40, steps=30, backend="kernel")
+    assert kb.buzen_batched.launches == 31
+    assert kb.buzen_log_Z_backward.launches == 30
+    want = time_optimal(net, consts, 40, steps=30, backend="torch")
+    np.testing.assert_allclose([v for _, v in got.history],
+                               [v for _, v in want.history], rtol=1e-4)
+    assert got.m == want.m
 
 
 def _class_rows(seed, B, S, scale, with_cs):
