@@ -16,14 +16,29 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      the same rows (rtol 1e-9 plus an atol of 1e-12 times the largest
      partial), its padded partials exactly 0; the padded rows without
      their padded columns bitwise the same, forward and real partials;
-  3. the event kernel against its plain version: 6 lanes, n = 100,
-     m_max = 132, 2,000 events from the same pre-drawn blocks, exponential
-     and deterministic laws, with and without a CS station — bitwise; then
-     the megastep kernel against its plain version on random tables with
+  3. the ``kernel`` route (the event lane kernel) against ``batched``: 6
+     lanes, n = 100, m_max = 132, 2,000 events from the same pre-drawn
+     blocks, exponential and deterministic laws, with and without a CS
+     station — bitwise; the same events through the transition-only
+     event kernel and its plain version, each carrying its own tables
+     (every event's tables, time and descriptors bitwise); then the
+     transition-only megastep kernel against its plain version on random
+     tables with
      tied clocks and sequence numbers (m_max up to 1000, both laws, with
      and without CS, chunk 1, 7 and 32, ``stop_on_update`` on and off,
      ``rem < chunk``) — bitwise — and one megastep launch against ``chunk``
-     event-kernel launches;
+     event-kernel launches; then the lane kernels (each event's transition
+     with its statistics) against their plain versions (the plain
+     transition, then ``replay_event`` per kept event) on every
+     ``EventState`` leaf, the event times and the descriptors, bitwise: 6
+     lanes at n = 100, m_max = 132, both laws, CS on and off, power none,
+     without and with ``P_cs`` (the energy integral on the card's DFMA
+     against the plain version's emulated fused multiply-adds), ``keep``
+     masks, chunk 1, 7 and 32 with per-lane ``rem < chunk`` and
+     ``stop_on_update`` on and off, the lane staged in shared memory; the
+     same at n = 3,000 on 3 lanes (rows past the 227 KB a block may stage,
+     so in global memory); a sub-batch of lanes bitwise the full batch's
+     rows;
   4. the main path at the paper's size (Table 1, n = 100): the closed forms
      in float64, ``time_optimal(m_max=132, steps=200)`` on the ``kernel``
      and ``torch`` Buzen backends (the sweep values within rtol 1e-4);
@@ -31,12 +46,15 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      after 400 of warm-up) on the ``batched`` backend and on the ``kernel``
      backend at chunk E = 1, 8 and 32, at m* and at m = 132 (every
      statistic bitwise equal across backends and E; lane-mean throughput
-     within 10% of Prop. 4), a run of 300 updates with a power profile at
-     E = 1 and 32 (bitwise), and ``next_update`` on 6 lanes for 200 updates at
-     chunk 1 and 8 (the updates and final states bitwise).  The kernels'
-     launch counters are zeroed just before this phase and read just after
-     it: each kernel must have launched, the Buzen forward 201 times and
-     its backward 200 (the sweep's Adam steps);
+     within 10% of Prop. 4), runs of 300 updates with a power profile at
+     E = 1, 8 and 32 and on ``batched`` (bitwise) and without it at E = 1,
+     8 and 32 (the same trajectory), and ``next_update`` on 6 lanes for 200
+     updates at chunk 1 and 8 (the updates and final states bitwise).  Each
+     ``kernel`` run must launch its lane kernel exactly ceil(events / E)
+     times and no transition-only kernel.  The kernels' launch counters are
+     zeroed just before this phase and read just after it: each kernel
+     must have launched, the Buzen forward 201 times and its backward 200
+     (the sweep's Adam steps);
   5. each kernel's time and its plain version's time at the main path's
      shapes, beside the least time the card could take: the device time per
      call from a ``torch.profiler`` trace (the sum of the CUDA kernels'
@@ -48,14 +66,18 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      at the class sweep's shape (131 rows x 5 classes of Table 1 at n =
      1e6, m_max = 132), kernel and plain version on the same built series,
      with the wrapper's float64 series build and its whole call timed
-     beside them;
+     beside them; the lane kernels at the simulation's shapes (6 lanes of
+     m* and of 132 slots, n = 100: one event, and E = 8 and 32, with and
+     without the power profile, in place as ``run_events`` runs them),
+     beside their plain versions and the transition-only kernels;
   6. the device-busy share of short windows of the sweep (per client and,
      at n = 1e6, per class) and the lane
      simulation on each backend and at E = 1, 8 and 32 (profiler device
      time over the wall time of the same traced call), with the wall time
      per lock-step event of an untraced call, and of
-     the ``kernel`` lane simulation with a power profile (the energy
-     integral on; its trajectory must equal the run without power);
+     the ``kernel`` lane simulation with a power profile at E = 1 and 8
+     (the energy integral on; its trajectory must equal the run without
+     power);
   7. training: the paper's EMNIST CNN at full width (408,767 parameters)
      on the synthetic EMNIST fallback (47 classes x 200 samples, a 0.2
      test split, a Dirichlet(0.2) partition over Table 1's n = 100
@@ -64,8 +86,9 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      ``(p*, m*)``) x 2 seeds = 4 lanes, ``sim_backend="kernel"``,
      ``sim_chunk=8``, horizon 400 / lambda(p*, m*).  The counts are zeroed
      just before this run and read just after it: the fused update launches
-     once per update round and the megastep kernel on every
-     ``next_update``.  The same grid with the apply done in plain PyTorch
+     once per update round and the megastep lane kernel on every
+     ``next_update`` (the event lane kernel and the transition-only kernels
+     never).  The same grid with the apply done in plain PyTorch
      (``w - s * g`` in place of the kernel's wrapper) gives bitwise the
      same final parameters and logs, and at
      ``sim_chunk=1`` (the event kernel) bitwise the same; every loss is
@@ -251,6 +274,140 @@ def mega_tables(rng, K, m_max, n, has_cs, chunk, law):
     return finish, phase, client, seq, disp, mu_c, mu_u, fscal, iscal
 
 
+def lane_inputs(dev, net, n, rng, K, m_max, law, with_cs, power):
+    """``K`` lanes at ``net``'s rates with Dirichlet routing, their power
+    profile (``power`` None, ``"no_pcs"`` or ``"pcs"``), states of
+    ``m_max / K`` to ``m_max`` tasks (a window of updates 4 to 24) and a
+    function of ``count`` giving ``fs [K, count, 4]`` and ``c_new [K,
+    count]`` drawn from ``rng``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.energy import PowerProfile
+    from repro_torch.core.events import init_state, stack_lanes
+
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    prms, pws, states = [], [], []
+    for k in range(K):
+        prm = net._replace(p=t(rng.dirichlet(np.full(n, 5.0))))
+        prms.append(prm.with_cs(5.0) if with_cs else prm)
+        pws.append(PowerProfile(*[t(rng.uniform(1.0, 3.0, n))
+                                  for _ in range(3)],
+                                P_cs=t(np.float64(2.5)) if power == "pcs"
+                                else None))
+        gen = torch.Generator(device=dev).manual_seed(500 + k)
+        states.append(init_state(prms[-1], max(1, m_max * (k + 1) // K),
+                                 gen, m_max=m_max, distribution=law,
+                                 warmup=4, cap=24))
+
+    def events(count):
+        unit = ((lambda: np.ones((K, count))) if law == "deterministic"
+                else (lambda: rng.exponential(size=(K, count))))
+        fs = np.stack([unit(), unit(), unit() / 2.0,
+                       unit() / 5.0 if with_cs else np.zeros((K, count))],
+                      -1)
+        return t(fs), t(rng.integers(0, n, (K, count))).to(torch.int32)
+
+    return (stack_lanes(prms), None if power is None else stack_lanes(pws),
+            stack_lanes(states), events)
+
+
+def lane_phase3(dev, net, n, rng) -> float:
+    """Phase 3's lane-kernel checks (see the module docstring); returns
+    the largest absolute difference over the float leaves (0.0: bitwise)."""
+    import torch
+
+    from repro_torch.core import events as E
+    from repro_torch.kernels import events as ke
+
+    err = 0.0
+
+    def same(got, want, what):
+        nonlocal err
+        for name, g, w in zip(E.EventState._fields + ("t", "desc"),
+                              (*got[0], got[1], got[2]),
+                              (*want[0], want[1], want[2])):
+            if g.is_floating_point():
+                err = max(err, float((g - w).nan_to_num().abs().max()))
+            check(torch.equal(g, w), f"lane kernel vs plain ({what}): {name}")
+
+    def run(net, n, K, m_max, law, with_cs, power, events, chunks):
+        """``events`` single steps with keep masks, then megasteps of each
+        chunk with per-lane rem, kernel and plain side by side from the
+        same state; the kernel works in its own (donated) buffers."""
+        params, pw, st, draw = lane_inputs(dev, net, n, rng, K, m_max, law,
+                                           with_cs, power)
+        what = f"{law}, cs={with_cs}, power={power}, n={n}, K={K}"
+        want_st, mine = st, False
+        fs, cn = draw(events)
+        for i in range(events):
+            keep = (None if i % 4 == 0 else
+                    torch.as_tensor(rng.random(K) < 0.8, device=dev))
+            got = ke.event_step_lanes(params, st, fs[:, i], cn[:, i],
+                                      power=pw, keep=keep, donate=mine)
+            want = E.event_step_lanes_plain(params, want_st, fs[:, i],
+                                            cn[:, i], power=pw, keep=keep)
+            torch.cuda.synchronize()
+            same(got, want, f"event {i}, {what}")
+            st, want_st, mine = got[0], want[0], True
+        for chunk, stop, reps in chunks:
+            for _ in range(reps):
+                fs, cn = draw(chunk)
+                rem = rng.integers(0, chunk + 1, K)
+                rem[0] = chunk
+                got = ke.megastep_lanes(params, st, fs, cn, rem.tolist(),
+                                        power=pw, stop_on_update=stop,
+                                        donate=True)
+                want = E.megastep_lanes_plain(params, want_st, fs, cn,
+                                              rem.tolist(), power=pw,
+                                              stop_on_update=stop)
+                torch.cuda.synchronize()
+                same(got, want, f"chunk {chunk}, stop {stop}, {what}")
+                st, want_st = got[0], want[0]
+        return int(st.round.max())
+
+    cases = [("exponential", False, None), ("exponential", True, "pcs"),
+             ("deterministic", True, "no_pcs"),
+             ("deterministic", False, "pcs")]
+    chunks = [(1, False, 4), (7, False, 6), (7, True, 6), (32, False, 2),
+              (32, True, 2)]
+    rounds = [run(net, n, 6, 132, *case, 60, chunks) for case in cases]
+    # n = 3,000: a lane's rows (250 KB, 320 KB with power) pass the 227 KB
+    # a block may stage, so the kernel works on them in global memory
+    big = net._replace(**{k: getattr(net, k).repeat(30)
+                          for k in ("p", "mu_c", "mu_d", "mu_u")})
+    big_chunks = [(1, False, 2), (7, False, 2), (7, True, 2), (32, False, 1),
+                  (32, True, 1)]
+    rounds += [run(big, 3000, 3, 40, *case, 20, big_chunks)
+               for case in cases[:3]]
+    # a sub-batch of lanes keeps its rows' bits
+    params, pw, st, draw = lane_inputs(dev, net, n, rng, 6, 132,
+                                       "exponential", False, "no_pcs")
+    fs, cn = draw(8)
+    full = ke.megastep_lanes(params, st, fs, cn, 8, power=pw)
+    rows = slice(2, 5)
+
+    def cut(tree):
+        return type(tree)(*[None if x is None else x[rows].contiguous()
+                            for x in tree])
+
+    part = ke.megastep_lanes(cut(params), cut(st), fs[rows], cn[rows], 8,
+                             power=cut(pw))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a[rows], b) for a, b in zip(full[0], part[0]))
+          and torch.equal(full[1][rows], part[1])
+          and torch.equal(full[2][rows], part[2]),
+          "lane kernel: a sub-batch's rows differ from the full batch's")
+    log(f"phase 3: lane kernels == plain lane steps bitwise on every "
+        f"EventState leaf, time and descriptor (n = {n}, m_max = 132, 6 "
+        f"lanes, staged in shared memory: both laws, CS on/off, power none "
+        f"/ without / with P_cs on DFMA, keep masks, chunk 1/7/32, rem < "
+        f"chunk, stop_on_update on/off; n = 3000, m_max = 40, 3 lanes, in "
+        f"global memory: the same but for the deterministic law without "
+        f"CS; a sub-batch bitwise; rounds reached {rounds})")
+    return err
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean time per call of ``fn()`` between CUDA events over ``reps``
     calls (includes any time the device waits for the host's launches)."""
@@ -396,13 +553,16 @@ def train_phase(dev, net, n, p_star, m_star, lam_star) -> dict:
     tr = trainer(8)
     check(sum(p.numel() for p in tr.model.parameters()) == 408767,
           "the CNN is not at full width")
-    for counted in (kb.buzen_batched, ke.event_step_tables,
-                    ke.megastep_tables, kf.fused_async_update_flat):
+    for counted in (kb.buzen_batched, ke.event_step_lanes, ke.megastep_lanes,
+                    ke.event_step_tables, ke.megastep_tables,
+                    kf.fused_async_update_flat):
         counted.launches = 0
     main = grid(tr)
     launches = {"fused_update": kf.fused_async_update_flat.launches,
-                "megastep": ke.megastep_tables.launches,
-                "event_step": ke.event_step_tables.launches,
+                "megastep": ke.megastep_lanes.launches,
+                "event_step": ke.event_step_lanes.launches,
+                "transition_only": ke.event_step_tables.launches
+                + ke.megastep_tables.launches,
                 "buzen": kb.buzen_batched.launches}
     res, logs, rounds, wall = main
     log(f"phase 7: run_strategy_grid 4 lanes (fused update, chunk 8): "
@@ -421,8 +581,9 @@ def train_phase(dev, net, n, p_star, m_star, lam_star) -> dict:
     check(launches["fused_update"] == rounds,
           f"fused update launched {launches['fused_update']} times for "
           f"{rounds} update rounds")
-    check(launches["megastep"] >= rounds and launches["event_step"] == 0,
-          f"megastep kernel not on every next_update: {launches}")
+    check(launches["megastep"] >= rounds and launches["event_step"] == 0
+          and launches["transition_only"] == 0,
+          f"megastep lane kernel not on every next_update: {launches}")
     check(all(np.isfinite(lg.losses).all() for lg in logs),
           "a training loss is not finite")
     check(all(lg.losses[-1] < lg.losses[0] for lg in res.logs["time_opt"]),
@@ -432,14 +593,14 @@ def train_phase(dev, net, n, p_star, m_star, lam_star) -> dict:
                            lambda w, g, s: (w - s[:, None] * g, None)):
         plain = grid(trainer(8))
     check(same(main, plain), "training with the plain update != fused")
-    ke.event_step_tables.launches = 0
+    ke.event_step_lanes.launches = 0
     single = grid(trainer(1))
     check(same(main, single), "training at sim_chunk 1 != sim_chunk 8")
-    check(ke.event_step_tables.launches > 0,
-          "the event kernel did not launch at sim_chunk 1")
+    check(ke.event_step_lanes.launches > 0,
+          "the event lane kernel did not launch at sim_chunk 1")
     log(f"phase 7: plain update ({plain[3]:.2f} s) and sim_chunk 1 "
-        f"({single[3]:.2f} s, {ke.event_step_tables.launches} event kernel "
-        f"launches): final parameters and logs bitwise the main run's")
+        f"({single[3]:.2f} s, {ke.event_step_lanes.launches} event lane "
+        f"kernel launches): final parameters and logs bitwise the main run's")
 
     # where an update round's wall time goes: each part synchronised
     tr = trainer(8)
@@ -1241,9 +1402,11 @@ def main() -> int:
     from repro_torch.core.complexity import wallclock_time
     from repro_torch.core.energy import PowerProfile
     from repro_torch.core.events import (EventState, EventStream,
-                                         draw_event_blocks, init_state,
-                                         next_update, run_event_blocks,
-                                         stack_blocks, stack_lanes)
+                                         draw_event_blocks,
+                                         event_step_lanes_plain, init_state,
+                                         megastep_lanes_plain, next_update,
+                                         run_event_blocks, stack_blocks,
+                                         stack_lanes)
     from repro_torch.core.jackson import expected_relative_delay, throughput
     from repro_torch.core.optimize import time_optimal, time_optimal_classes
     from repro_torch.kernels import build
@@ -1335,9 +1498,11 @@ def main() -> int:
         f"{bwd_err:.3g}); padded stations: partials 0, both kernels "
         f"bitwise the unpadded rows")
 
-    # -- 3. the event kernel against its plain version ---------------------
+    # -- 3. the event kernels against their plain versions -----------------
+    # run_event_blocks on the kernel route: the event lane kernel, 2,000
+    # times from the same blocks as the batched route; then the same events
+    # through the transition-only event kernel and its plain version
     K, EV = 6, 2000
-    event_err = 0.0
     for law in ("exponential", "deterministic"):
         for mu_cs in (None, 5.0):
             lanes = []
@@ -1361,14 +1526,40 @@ def main() -> int:
             for name in EventState._fields:
                 x, y = getattr(outs[0], name), getattr(outs[1], name)
                 check(torch.equal(x, y),
-                      f"event kernel vs plain ({law}, cs={mu_cs}): {name}")
-            event_err = max(event_err, float(
-                (outs[0].finish - outs[1].finish).nan_to_num().abs().max()))
-            log(f"phase 3: event kernel == plain bitwise ({law}, "
+                      f"event lane kernel vs batched ({law}, cs={mu_cs}): "
+                      f"{name}")
+            log(f"phase 3: event lane kernel == batched bitwise ({law}, "
                 f"mu_cs={mu_cs}, {EV} events x {K} lanes, round "
                 f"{outs[0].round.tolist()})")
+            # the transition alone on the same events: the event kernel
+            # and its plain version, each carrying its own tables and
+            # counters from st0
+            fs, cn, _ = EventStream.from_blocks(
+                blocks, distribution=law).window(EV)
+            rates = (lane_params.mu_c, lane_params.mu_u)
+            runs = []
+            for step in (ke.event_step_tables, ke.event_step_tables_plain):
+                rows = (st0.finish, st0.phase, st0.client, st0.seq,
+                        st0.disp_round)
+                seq_ctr, rnd = st0.seq_ctr, st0.round
+                ts, ds = [], []
+                for i in range(EV):
+                    *rows, t_col, d = step(
+                        *rows, *rates, fs[:, i],
+                        torch.stack([cn[:, i], seq_ctr, rnd], dim=-1),
+                        has_cs=mu_cs is not None)
+                    seq_ctr, rnd = d[:, 4], d[:, 5]
+                    ts.append(t_col)
+                    ds.append(d)
+                runs.append((*rows, torch.cat(ts, 1), torch.cat(ds, 1)))
+            torch.cuda.synchronize()
+            for name, x, y in zip(TABLE_OUT, *runs):
+                check(torch.equal(x, y), f"event kernel vs plain ({law}, "
+                      f"cs={mu_cs}): {name}")
+            log(f"phase 3: event kernel (transition only) == plain bitwise "
+                f"({law}, mu_cs={mu_cs}, {EV} events x {K} lanes: tables, "
+                f"times and descriptors of every event)")
 
-    mega_err = 0.0
     cases = 0
     for law in ("exponential", "deterministic"):
         for has_cs in (False, True):
@@ -1387,8 +1578,6 @@ def main() -> int:
                               f"megastep kernel vs plain ({law}, cs="
                               f"{has_cs}, chunk={chunk}, m_max={m_max}, "
                               f"stop={stop}): {name}")
-                    mega_err = max(mega_err, float(
-                        (got[5] - want[5]).nan_to_num().abs().max()))
                     cases += 1
     log(f"phase 3: megastep kernel == plain bitwise ({cases} cases: both "
         f"laws, CS on/off, chunk 1/7/32, m_max up to 1000, stop_on_update "
@@ -1413,6 +1602,7 @@ def main() -> int:
           "megastep tables != event kernel tables")
     log(f"phase 3: one megastep launch (chunk {chunk}) == {chunk} event "
         f"kernel launches, bitwise")
+    lane_err = lane_phase3(dev, net, n, rng)
     fused_err = fused_rel = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for N in (408767, 1, 4097, 1001):
@@ -1437,10 +1627,11 @@ def main() -> int:
         f"rel err {fused_rel:.3g}")
 
     # -- 4. the main path at the paper's size ------------------------------
-    kb.buzen_batched.launches = 0
-    kb.buzen_log_Z_backward.launches = 0
-    ke.event_step_tables.launches = 0
-    ke.megastep_tables.launches = 0
+    counted = (kb.buzen_batched, kb.buzen_log_Z_backward,
+               ke.event_step_lanes, ke.megastep_lanes, ke.event_step_tables,
+               ke.megastep_tables)
+    for c in counted:
+        c.launches = 0
     t_main = time.perf_counter()
     m0 = n
     delays = expected_relative_delay(net, m0)
@@ -1481,6 +1672,7 @@ def main() -> int:
     sim_ms = {}  # wall ms per lock-step event
 
     def simulate(m, be, chunk, updates=PHASE4_UPDATES, **kw):
+        before = [c.launches for c in counted]
         t0 = time.perf_counter()
         out = simulate_stats_lanes([p_star] * 6, [m] * 6, updates,
                                    backend=be, chunk=chunk, **sim_kw, **kw)
@@ -1488,9 +1680,19 @@ def main() -> int:
         wall = time.perf_counter() - t0
         events = 3 * (updates + 400) + 3 * m + 8
         sim_ms[(m, be, chunk, "power" in kw)] = 1e3 * wall / events
+        # the kernel route: one lane-kernel launch per chunk of events, no
+        # transition-only launch; the plain route launches nothing
+        got = [c.launches - b for c, b in zip(counted, before)][2:]
+        lane = -(-events // chunk)
+        want = ([0] * 4 if be != "kernel" else
+                [lane, 0, 0, 0] if chunk == 1 else [0, lane, 0, 0])
+        check(got == want, f"simulate[{be}, m={m}, E={chunk}]: launches "
+              f"(event lanes, megastep lanes, event, megastep) {got}, "
+              f"expected {want} for {events} events")
         log(f"phase 4: simulate_stats_lanes[{be}, m={m}, E={chunk}"
             f"{', power' if kw else ''}] {wall:.2f} s, "
-            f"{1e3 * wall / events:.4f} ms per lock-step event")
+            f"{1e3 * wall / events:.4f} ms per lock-step event, "
+            f"{sum(got)} lane-kernel launches")
         return out
 
     lam_star = float(throughput(p_star, m_star))
@@ -1514,9 +1716,21 @@ def main() -> int:
     ones = torch.ones(n, dtype=torch.float64, device=dev)
     power = PowerProfile(P_c=2.0 * ones, P_u=ones, P_d=0.5 * ones)
     pw1 = simulate(m_star, "kernel", 1, updates=POWER_UPDATES, power=power)
-    pw32 = simulate(m_star, "kernel", 32, updates=POWER_UPDATES, power=power)
-    check(all(torch.equal(a, b) for a, b in zip(pw1, pw32)),
-          "simulate with power: E=32 != E=1")
+    for chunk in (8, 32):
+        got = simulate(m_star, "kernel", chunk, updates=POWER_UPDATES,
+                       power=power)
+        check(all(torch.equal(a, b) for a, b in zip(pw1, got)),
+              f"simulate with power: E={chunk} != E=1")
+    # the energy integral on the card's DFMA against the plain route's
+    # emulated fused multiply-adds
+    got = simulate(m_star, "batched", 1, updates=POWER_UPDATES, power=power)
+    check(all(torch.equal(a, b) for a, b in zip(pw1, got)),
+          "simulate with power: kernel != batched")
+    for chunk in (1, 8, 32):  # the same depth without power, for the ratio
+        got = simulate(m_star, "kernel", chunk, updates=POWER_UPDATES)
+        check(torch.equal(got.throughput, pw1.throughput)
+              and torch.equal(got.mean_queue_counts, pw1.mean_queue_counts),
+              f"power changed the simulated trajectory (E={chunk})")
     check(bool(torch.isfinite(pw1.energy).all() and (pw1.energy > 0).all()),
           f"simulated energy {pw1.energy.tolist()}")
 
@@ -1551,15 +1765,20 @@ def main() -> int:
     main_s = time.perf_counter() - t_main
     launches = {"buzen": kb.buzen_batched.launches,
                 "buzen_backward": kb.buzen_log_Z_backward.launches,
-                "event_step": ke.event_step_tables.launches,
-                "megastep": ke.megastep_tables.launches}
+                "event_step": ke.event_step_lanes.launches,
+                "megastep": ke.megastep_lanes.launches}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    check(ke.event_step_tables.launches == 0
+          and ke.megastep_tables.launches == 0,
+          "a transition-only kernel ran on the main path")
     # the sweep: 200 Adam steps and the final evaluation
     check(launches["buzen"] == 201 and launches["buzen_backward"] == 200,
           f"the sweep's Buzen launches: {launches}")
     log(f"phase 4: throughput at (p*, m*={m_star}): Prop. 4 "
         f"{lam_star:.6g}; main path {main_s:.1f} s; launches {launches}")
+    log("phase 4: ms per lock-step event (6 lanes; m, backend, E, power): "
+        + ", ".join(f"{k}: {v:.4f}" for k, v in sim_ms.items()))
 
     # -- 5. kernel times at the main path's shapes -------------------------
     # the Buzen kernel as the sweep calls it: rows m = 2..132 at (p*)
@@ -1598,32 +1817,65 @@ def main() -> int:
         "buzen_backward": (
             lambda: kb.buzen_log_Z_backward(lr, lg, g5, M),
             lambda: kb.buzen_log_Z_backward_plain(lr, lg, g5, M), 20, 3),
-        "event_step": (lambda: ke.event_step_tables(*tbl, has_cs=False),
-                       lambda: ke.event_step_tables_plain(*tbl, has_cs=False),
-                       200, 50)}
-    # the megastep kernel as the simulation calls it: 6 lanes of m* and
-    # of 132 slots, E = 8 and 32 events per launch, every event kept
+        "event transition": (
+            lambda: ke.event_step_tables(*tbl, has_cs=False),
+            lambda: ke.event_step_tables_plain(*tbl, has_cs=False), 200, 50)}
     labels = {"buzen": f"[{B}x{n}], m_max={M}",
               "buzen_backward": f"[{B}x{n}], m_max={M}, float64",
-              "event_step": f"[6x{m_star}], n={n}"}
+              "event transition": f"[6x{m_star}], n={n} (transition only, "
+                                  f"off the main path)"}
+    # the lane kernels as the simulation calls them: 6 lanes of m* (and of
+    # 132) slots, n = 100, one event, or E = 8 and 32 every one kept, with
+    # and without the power profile; the kernel works on a copy of the
+    # state in place (donated), as run_events does after its first launch
+    lane_pw = stack_lanes([power] * 6)
+    lane_shapes = {}
+    for m, chunk, pw in [(m_star, 1, None), (m_star, 1, lane_pw),
+                         (m_star, 8, None), (m_star, 8, lane_pw),
+                         (m_star, 32, None), (m_star, 32, lane_pw),
+                         (M, 8, None), (M, 32, None)]:
+        st_m = lane_tables(m, 600)[0]
+        own = EventState(*[x.clone() for x in st_m])
+        fs_m = torch.rand(6, chunk, 4, dtype=torch.float64, device=dev)
+        cn_m = torch.randint(0, n, (6, chunk), dtype=torch.int32, device=dev)
+        name = (f"{'event_step' if chunk == 1 else 'megastep'} m={m} "
+                f"E={chunk}{' power' if pw is not None else ''}")
+        labels[name] = (f"[6x{m}], n={n}, {chunk} event"
+                        f"{'s' if chunk > 1 else ''}"
+                        f"{', power' if pw is not None else ''}")
+        lane_shapes[name] = (m, chunk, pw is not None)
+        if chunk == 1:
+            calls[name] = (
+                lambda s=own, f=fs_m[:, 0], c=cn_m[:, 0], p=pw:
+                ke.event_step_lanes(lane_params, s, f, c, power=p,
+                                    donate=True),
+                lambda s=st_m, f=fs_m[:, 0], c=cn_m[:, 0], p=pw:
+                event_step_lanes_plain(lane_params, s, f, c, power=p),
+                200, 20)
+        else:
+            calls[name] = (
+                lambda s=own, f=fs_m, c=cn_m, p=pw, e=chunk:
+                ke.megastep_lanes(lane_params, s, f, c, e, power=p,
+                                  donate=True),
+                lambda s=st_m, f=fs_m, c=cn_m, p=pw, e=chunk:
+                megastep_lanes_plain(lane_params, s, f, c, e, power=p),
+                200, 3)
+    # the transition-only megastep (off the main path) at (m*, E = 8)
     mega_shapes = {}
-    for m, chunk in [(m, c) for m in (m_star, M) for c in (8, 32)]:
-        st_m, tbl_m = lane_tables(m, 400)
-        iscal = torch.cat([st_m.seq_ctr[:, None], st_m.round[:, None],
-                           torch.full((6, 1), chunk, dtype=torch.int32,
-                                      device=dev),
-                           torch.randint(0, n, (6, chunk), dtype=torch.int32,
-                                         device=dev)], dim=1)
-        args = tbl_m + (torch.rand(6, 4 * chunk, dtype=torch.float64,
-                                   device=dev), iscal)
-        name = f"megastep m={m} E={chunk}"
-        labels[name] = f"[6x{m}], n={n}, {chunk} events"
-        mega_shapes[name] = (m, chunk)
-        calls[name] = (
-            lambda a=args, c=chunk: ke.megastep_tables(*a, has_cs=False,
-                                                       chunk=c),
-            lambda a=args, c=chunk: ke.megastep_tables_plain(
-                *a, has_cs=False, chunk=c), 200, 5)
+    st_m, tbl_m = lane_tables(m_star, 400)
+    iscal = torch.cat([st_m.seq_ctr[:, None], st_m.round[:, None],
+                       torch.full((6, 1), 8, dtype=torch.int32, device=dev),
+                       torch.randint(0, n, (6, 8), dtype=torch.int32,
+                                     device=dev)], dim=1)
+    args = tbl_m + (torch.rand(6, 32, dtype=torch.float64, device=dev), iscal)
+    name = "megastep transition"
+    labels[name] = (f"[6x{m_star}], n={n}, 8 events (transition only, off "
+                    f"the main path)")
+    mega_shapes[name] = (m_star, 8)
+    calls[name] = (
+        lambda: ke.megastep_tables(*args, has_cs=False, chunk=8),
+        lambda: ke.megastep_tables_plain(*args, has_cs=False, chunk=8),
+        200, 5)
     # the class Buzen kernel as the class sweep calls it: rows m = 2..132
     # over Table 1's five classes at n = 1e6 (uniform per-member routing),
     # kernel and plain version both on the same built series, so that each
@@ -1688,7 +1940,19 @@ def main() -> int:
                 + K6 * (3 + (chunk if n_desc == 10 else 0)) * 4
                 + K6 * chunk * (8 + n_desc * 4) + 2 * K6 * chunk * 32)
 
-    ev_bytes = transition_bytes(m_star, 1, 9)
+    def lane_bytes(m, chunk, with_power, n_desc):
+        """What a lane kernel must move: the table rows and the statistics
+        rows (occ and occ_int [3n+1], serving and delay_sum [n] float64,
+        delay_cnt [n] int32) read and written once, the power rows read
+        once, the lane's scalars in and out, the events' scalars in, their
+        times and descriptors out, one 32-byte sector per rate gather."""
+        S = 3 * n + 1
+        rows = 2 * (m * (8 + 4 * 4) + 2 * S * 8 + n * (2 * 8 + 4))
+        scalars = (5 * 8 + 4 * 4 + 1) + (4 * 8 + 2 * 4 + 1)
+        pw_rows = 3 * n * 8 + 8 if with_power else 0
+        events = chunk * (4 * 8 + 4 + 8 + n_desc * 4 + 2 * 32)
+        return K6 * (rows + scalars + pw_rows + events)
+
     buzen_rec = {
         "name": "buzen", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/buzen.cu",
@@ -1713,21 +1977,22 @@ def main() -> int:
         "name": "event_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/events.cu",
         "replaces": "src/repro/kernels/events.py:205",
-        "launches": launches["event_step"], "max_abs_err": event_err,
-        "ms": times["event_step"]["kernel"][pick],
-        "plain_ms": times["event_step"]["plain"][pick],
-        "bound_ms": 1e3 * ev_bytes / PEAK_BYTES, "bound_by": "bytes",
-        "library_ms": None}
-    # the record is the megastep at (m*, E = 8); phase 5 prints all four
+        "launches": launches["event_step"], "max_abs_err": lane_err,
+        "ms": times[f"event_step m={m_star} E=1"]["kernel"][pick],
+        "plain_ms": times[f"event_step m={m_star} E=1"]["plain"][pick],
+        "bound_ms": 1e3 * lane_bytes(m_star, 1, False, 9) / PEAK_BYTES,
+        "bound_by": "bytes", "library_ms": None}
+    # the record is the megastep lane kernel at (m*, E = 8); phase 5
+    # prints every shape
     rec_key = f"megastep m={m_star} E=8"
     mega_rec = {
         "name": "megastep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/events.cu",
         "replaces": "src/repro/kernels/events.py:311",
-        "launches": launches["megastep"], "max_abs_err": mega_err,
+        "launches": launches["megastep"], "max_abs_err": lane_err,
         "ms": times[rec_key]["kernel"][pick],
         "plain_ms": times[rec_key]["plain"][pick],
-        "bound_ms": 1e3 * transition_bytes(m_star, 8, 10) / PEAK_BYTES,
+        "bound_ms": 1e3 * lane_bytes(m_star, 8, False, 10) / PEAK_BYTES,
         "bound_by": "bytes", "library_ms": None}
     # w and g read once, w' written once, the scales in and the squared
     # norms out; four float32 operations per element
@@ -1764,6 +2029,15 @@ def main() -> int:
         if name in mega_shapes:
             bound = transition_bytes(*mega_shapes[name], 10) / PEAK_BYTES
             extra = f"; bound {1e3 * bound:.6f} ms (bytes)"
+        if name == "event transition":
+            bound = transition_bytes(m_star, 1, 9) / PEAK_BYTES
+            extra = f"; bound {1e3 * bound:.6f} ms (bytes)"
+        if name in lane_shapes:
+            m, chunk, with_power = lane_shapes[name]
+            bound = lane_bytes(m, chunk, with_power,
+                               9 if chunk == 1 else 10) / PEAK_BYTES
+            extra = (f"; bound {1e3 * bound:.6f} ms (bytes; a launch is "
+                     f"the real floor)")
         if name == "fused_update":
             extra = f"; bound {fu_bound_ms:.6f} ms (bytes)"
         if name == "buzen_classes":
@@ -1796,7 +2070,7 @@ def main() -> int:
     sim_events = 3 * W + 3 * m_star + 8
     for be, chunk, pw in (("kernel", 1, None), ("kernel", 8, None),
                           ("kernel", 32, None), ("batched", 1, None),
-                          ("kernel", 1, power)):
+                          ("kernel", 1, power), ("kernel", 8, power)):
         windows.append((
             f"simulate[{be}, E={chunk}{', power' if pw else ''}] 6 lanes "
             f"x {W} updates",

@@ -7,13 +7,17 @@ completion clock of each task) plus O(1)-updated occupancy carries and the
 statistics of the update-count window ``[warmup, cap)``.  One event is one
 service completion: the argmin over the clocks, the phase promotion or
 re-dispatch of the completed slot, and the FIFO promotions — the table
-transition of :mod:`repro_torch.kernels.events`, one event per call
-(:func:`step_event_lanes`) or up to ``chunk`` per call, a megastep
-(:func:`megastep_event_lanes`).  Around it, :func:`replay_event` keeps
-the statistics and the occupancy carries in PyTorch from the transition's
-descriptors, event by event, the same float operations whichever
-transition runs: megasteps are bitwise the same trajectory as single
-steps.  :func:`next_update` runs each lane to its next model update.
+transition — followed by the event's statistics and occupancy carries,
+:func:`replay_event`.  The lane steps run both for one event per call or
+up to ``chunk`` per call, a megastep: on the ``"kernel"`` backend the CUDA
+lane kernel of :mod:`repro_torch.kernels.events` retires its events with
+their statistics in one launch; their plain versions here
+(:func:`event_step_lanes_plain`, :func:`megastep_lanes_plain`) run the
+plain transition, then :func:`replay_event` in PyTorch event by event.  Every
+route does the same float operations in the same order: megasteps are
+bitwise the same trajectory as single steps, and the kernel bitwise the
+plain version.  :func:`next_update` runs each lane to its next model
+update.
 
 Randomness is separated from the state: every per-event draw is
 state-independent and is drawn up front, for many events at once, as
@@ -499,7 +503,7 @@ class EventStream:
 
 
 # ---------------------------------------------------------------------------
-# EventState-level steps: statistics in PyTorch around the table transition
+# EventState-level steps: the statistics replay and the lane steps
 # ---------------------------------------------------------------------------
 
 def _lane_stats(st, t_new, c, is_update, delay, pw, n: int):
@@ -548,8 +552,10 @@ def replay_event(state: EventState, t_new, desc, c_new, *, n: int,
     transition reported for the event, ``c_new [K]`` its routed client.
     Updates the clock, counters, statistics window and occupancy carries;
     the table leaves pass through (the transition owns them).  Where
-    ``keep [K]`` is given and false, every leaf stays as it was.  Both the
-    single step and the megastep replay their events through here.
+    ``keep [K]`` is given and false, every leaf stays as it was.  The
+    plain lane steps replay their events through here; the CUDA lane
+    kernels do the same operations in the same order on the card
+    (``replay_one`` in ``kernels/csrc/events.cu``).
     """
     c = desc[:, 1]
     is_update = desc[:, 2] > 0
@@ -598,43 +604,77 @@ def _select(keep, a, b):
     return torch.where(keep.reshape(keep.shape + (1,) * (a.dim() - 1)), a, b)
 
 
-def _transitions(backend: str):
-    """``(single step, megastep)`` table transitions of a lane backend:
-    the CUDA kernels' wrappers for ``"kernel"``, their plain versions
-    otherwise."""
-    from ..kernels import events as ke
+def megastep_lanes_plain(params, state: EventState, fs, c_new, rem, *,
+                         power=None, stop_on_update: bool = False,
+                         donate: bool = False):
+    """Up to ``chunk`` events per lane in PyTorch — the plain version of
+    the CUDA lane steps
+    (:func:`repro_torch.kernels.events.megastep_lanes`): the plain
+    megastep transition, then :func:`replay_event` per kept event, in
+    event order.  ``rem`` is an int, one int per lane or an int32 ``[K]``
+    tensor.  Never reuses a donated buffer."""
+    from ..kernels.events import megastep_tables_plain
 
-    if backend == "kernel":
-        return ke.event_step_tables, ke.megastep_tables
-    return ke.event_step_tables_plain, ke.megastep_tables_plain
-
-
-def step_event_lanes(params, state, fs, c_new, *, table_step, power=None,
-                     keep=None):
-    """One event for every lane: ``state`` leaves carry a leading lane axis
-    ``[K, ...]``, ``params``/``power`` leaves ``[K, n]`` (scalars ``[K]``);
-    ``fs [K, 4]`` and ``c_new [K]`` are the event's scalars and routed
-    clients (:meth:`EventStream.window`).  ``table_step`` is the CUDA
-    kernel's wrapper :func:`repro_torch.kernels.events.event_step_tables`
-    or its plain version.  Lanes where ``keep [K]`` is false stay as they
-    were.  Returns ``(EventState, EventOut)``."""
     n = params.p.shape[-1]
     has_cs = params.mu_cs is not None
-    iscal = torch.stack([c_new, state.seq_ctr, state.round],
-                        dim=-1).to(torch.int32)
-    *tables, t_col, int_col = table_step(
+    K, chunk = c_new.shape
+    dev = state.finish.device
+    rem_t = (rem if isinstance(rem, torch.Tensor) else torch.as_tensor(
+        [rem] * K if isinstance(rem, int) else list(rem), dtype=torch.int32,
+        device=dev))
+    iscal = torch.cat([state.seq_ctr[:, None], state.round[:, None],
+                       rem_t[:, None], c_new], dim=1).to(torch.int32)
+    *tables, t_mat, int_mat = megastep_tables_plain(
         state.finish, state.phase, state.client, state.seq, state.disp_round,
-        params.mu_c, params.mu_u, fs, iscal, has_cs=has_cs)
-    new_state = replay_event(state, t_col[:, 0], int_col, iscal[:, 0], n=n,
-                             has_cs=has_cs, power=power, keep=keep)
-    if keep is not None:
-        tables = [_select(keep, a, getattr(state, k))
-                  for k, a in zip(_TABLES, tables)]
-    new_state = new_state._replace(**dict(zip(_TABLES, tables)))
-    out = EventOut(is_update=int_col[:, 2] > 0, time=t_col[:, 0],
-                   slot=int_col[:, 0], client=int_col[:, 1],
-                   delay=int_col[:, 3])
-    return new_state, out
+        params.mu_c, params.mu_u, fs.reshape(K, 4 * chunk), iscal,
+        has_cs=has_cs, chunk=chunk, stop_on_update=stop_on_update)
+    D = int_mat.view(K, chunk, 10)
+    keep_mat = D[..., 9] > 0
+    if stop_on_update or isinstance(rem, torch.Tensor):
+        taken = keep_mat.sum(dim=1).tolist()  # data-dependent: ask
+    else:
+        taken = [min(max(int(r), 0), chunk)
+                 for r in ([rem] * K if isinstance(rem, int) else rem)]
+    st = state
+    for i in range(max(taken, default=0)):
+        # events past every lane's taken count change nothing
+        keep = None if min(taken) > i else keep_mat[:, i]
+        st = replay_event(st, t_mat[:, i], D[:, i], c_new[:, i], n=n,
+                          has_cs=has_cs, power=power, keep=keep)
+    return st._replace(**dict(zip(_TABLES, tables))), t_mat, int_mat
+
+
+def event_step_lanes_plain(params, state: EventState, fs, c_new, *,
+                           power=None, keep=None, donate: bool = False):
+    """One event per lane in PyTorch — the plain version of
+    :func:`repro_torch.kernels.events.event_step_lanes`: the megastep of
+    one event (:func:`megastep_lanes_plain`), kept where ``keep [K]``.
+    Returns the new state, ``t_new [K, 1]`` and the nine descriptors ``[K,
+    9]``."""
+    rem = 1 if keep is None else keep.to(torch.int32)
+    st, t_mat, int_mat = megastep_lanes_plain(
+        params, state, fs[:, None], c_new[:, None], rem, power=power)
+    return st, t_mat, int_mat[:, :9]
+
+
+def _lane_steps(backend: str):
+    """``(single step, megastep)`` of a lane backend: the CUDA lane
+    steps' wrappers for ``"kernel"`` (transition and statistics in one
+    launch), their plain versions (the plain transition, then
+    :func:`replay_event` per kept event) otherwise."""
+    if backend == "kernel":
+        from ..kernels import events as ke
+
+        return ke.event_step_lanes, ke.megastep_lanes
+    return event_step_lanes_plain, megastep_lanes_plain
+
+
+def _event_out(t_col, int_col) -> EventOut:
+    """:class:`EventOut` from one event's ``t_new [K, 1]`` and
+    descriptors ``[K, >= 9]``."""
+    return EventOut(is_update=int_col[:, 2] > 0, time=t_col[:, 0],
+                    slot=int_col[:, 0], client=int_col[:, 1],
+                    delay=int_col[:, 3])
 
 
 _CLASS_TABLES = ("finish", "phase", "cls", "member", "seq", "disp_round")
@@ -666,67 +706,7 @@ def step_class_event_lanes(classes, state: ClassEventState, fs, c_new,
         tables = [_select(keep, a, getattr(state, k))
                   for k, a in zip(_CLASS_TABLES, tables)]
     new_state = new_state._replace(**dict(zip(_CLASS_TABLES, tables)))
-    out = EventOut(is_update=int_col[:, 2] > 0, time=t_col[:, 0],
-                   slot=int_col[:, 0], client=int_col[:, 1],
-                   delay=int_col[:, 3])
-    return new_state, out
-
-
-class MegastepOut(NamedTuple):
-    """Per-event descriptors of one megastep (leaves ``[K, chunk]``, for
-    masked events too: consumers gate on ``keep``)."""
-
-    time: torch.Tensor
-    slot: torch.Tensor
-    client: torch.Tensor
-    delay: torch.Tensor
-    is_update: torch.Tensor
-    keep: torch.Tensor
-    taken: list            # kept events per lane (host ints)
-
-
-def megastep_event_lanes(params, state, fs, c_new, rem, *, megastep,
-                         power=None, stop_on_update: bool = False):
-    """Up to ``chunk`` events for every lane in one transition call.
-
-    Port of the JAX package's ``megastep_event_pallas``: ``fs [K, chunk,
-    4]`` and ``c_new [K, chunk]`` are the events' scalars and routed
-    clients (:meth:`EventStream.window`), ``rem`` the events each lane
-    may keep (host ints, one per lane) and ``megastep`` the CUDA kernel's
-    wrapper :func:`repro_torch.kernels.events.megastep_tables` or its plain
-    version.  The transitions retire in the kernel; the statistics replay
-    per kept event through :func:`replay_event`, in event order, so the
-    result is bitwise that of ``chunk`` single steps.  With
-    ``stop_on_update`` each lane stops after its first kept update.
-    Returns ``(EventState, MegastepOut)``.
-    """
-    n = params.p.shape[-1]
-    has_cs = params.mu_cs is not None
-    K, chunk = c_new.shape
-    dev = state.finish.device
-    rem_t = torch.as_tensor(list(rem), dtype=torch.int32, device=dev)
-    iscal = torch.cat([state.seq_ctr[:, None], state.round[:, None],
-                       rem_t[:, None], c_new], dim=1).to(torch.int32)
-    *tables, t_mat, int_mat = megastep(
-        state.finish, state.phase, state.client, state.seq, state.disp_round,
-        params.mu_c, params.mu_u, fs.reshape(K, 4 * chunk), iscal,
-        has_cs=has_cs, chunk=chunk, stop_on_update=stop_on_update)
-    D = int_mat.view(K, chunk, 10)
-    keep_mat = D[..., 9] > 0
-    if stop_on_update:  # data-dependent: ask the device
-        taken = keep_mat.sum(dim=1).tolist()
-    else:
-        taken = [min(max(int(r), 0), chunk) for r in rem]
-    st = state
-    for i in range(max(taken, default=0)):
-        # events past every lane's taken count change nothing
-        keep = None if min(taken) > i else keep_mat[:, i]
-        st = replay_event(st, t_mat[:, i], D[:, i], c_new[:, i], n=n,
-                          has_cs=has_cs, power=power, keep=keep)
-    st = st._replace(**dict(zip(_TABLES, tables)))
-    return st, MegastepOut(time=t_mat, slot=D[..., 0], client=D[..., 1],
-                           delay=D[..., 3], is_update=D[..., 2] > 0,
-                           keep=keep_mat, taken=taken)
+    return new_state, _event_out(t_col, int_col)
 
 
 def run_events(params: NetworkParams, state: EventState,
@@ -734,25 +714,27 @@ def run_events(params: NetworkParams, state: EventState,
                power=None, backend: str = "batched") -> EventState:
     """Advance every lane by ``num_events`` events from ``stream``.
 
-    ``chunk = 1`` runs one table transition per event (the event kernel
+    ``chunk = 1`` runs one lane step per event (the event lane kernel
     under ``"kernel"``); ``chunk > 1`` runs ``ceil(num_events / chunk)``
-    megasteps (the megastep kernel under ``"kernel"``), the events past
-    ``num_events`` masked.  Both are bitwise the same trajectory.  With
-    :class:`ClassParams` lanes every event runs the class transition
-    (:func:`step_class_event_lanes`), ``chunk`` events taken from the
-    stream at a time.
+    megasteps (the megastep lane kernel under ``"kernel"``), the events
+    past ``num_events`` masked.  Both are bitwise the same trajectory.
+    Under ``"kernel"`` each launch retires its events with their
+    statistics; the first writes new buffers and the rest reuse them, so
+    ``state`` itself is never written.  With :class:`ClassParams` lanes
+    every event runs the class transition (:func:`step_class_event_lanes`),
+    ``chunk`` events taken from the stream at a time.
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     classes = isinstance(params, ClassParams)
     if not classes:
-        table_step, megastep = _transitions(backend)
+        step, megastep = _lane_steps(backend)
     elif backend == "kernel":
         raise ValueError(
             "the class-aggregated event engine has no kernel; pin "
             "backend='batched' or 'reference' for class lanes")
-    K = state.finish.shape[0]
     done = 0
+    owned = False  # whether state's buffers are this call's own
     while done < num_events:
         rem = min(chunk, num_events - done)
         fs, cn, mb = stream.window(chunk)
@@ -761,11 +743,12 @@ def run_events(params: NetworkParams, state: EventState,
                 state, _ = step_class_event_lanes(
                     params, state, fs[:, i], cn[:, i], mb[:, i], power=power)
         elif chunk == 1:
-            state, _ = step_event_lanes(params, state, fs[:, 0], cn[:, 0],
-                                        table_step=table_step, power=power)
+            state = step(params, state, fs[:, 0], cn[:, 0], power=power,
+                         donate=owned)[0]
         else:
-            state, _ = megastep_event_lanes(params, state, fs, cn, [rem] * K,
-                                            megastep=megastep, power=power)
+            state = megastep(params, state, fs, cn, rem, power=power,
+                             donate=owned)[0]
+        owned = True
         stream.advance(rem)
         done += rem
     return state
@@ -778,13 +761,14 @@ def step_event_block(params: NetworkParams, state: EventState,
     """One event per lane with its randomness pre-resolved in ``blk``
     (one row per lane).
 
-    ``backend="kernel"`` runs the table transition in the CUDA event kernel
-    (its plain version for CPU tensors); ``"batched"``/``"reference"`` run
-    the plain PyTorch transition; both go through :func:`step_event_lanes`.
+    ``backend="kernel"`` runs the event lane kernel (its plain version for
+    CPU tensors); ``"batched"``/``"reference"`` run the plain PyTorch
+    transition and :func:`replay_event`.
     """
     fs, cn, _ = _unit_scalars(blk, distribution)
-    return step_event_lanes(params, state, fs, cn,
-                            table_step=_transitions(backend)[0], power=power)
+    state, t_col, int_col = _lane_steps(backend)[0](params, state, fs, cn,
+                                                    power=power)
+    return state, _event_out(t_col, int_col)
 
 
 def step_class_event_block(classes, state: ClassEventState,
@@ -847,8 +831,10 @@ def next_update(params: NetworkParams, state: EventState,
     defaults to ``3 m_max + 8`` (``4 m_max + 8`` with the CS station), a
     bound a valid state never meets.  A lane that has its update is frozen
     while the others go on.  ``chunk > 1`` retires up to ``chunk`` events
-    per transition call (the megastep kernel with its early stop under
-    ``"kernel"``); the result is bitwise that of ``chunk = 1``.  Returns
+    per lane step (the megastep lane kernel with its early stop under
+    ``"kernel"``); the result is bitwise that of ``chunk = 1``.  Under
+    ``"kernel"`` the first step writes new buffers and the rest reuse
+    them, so ``state`` itself is never written.  Returns
     the state and :class:`UpdateOut` with ``[K]`` leaves: the last retired
     event's time, slot, client and delay, and the events consumed.
     """
@@ -856,7 +842,7 @@ def next_update(params: NetworkParams, state: EventState,
 
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    table_step, megastep = _transitions(resolve_backend(backend))
+    step, megastep = _lane_steps(resolve_backend(backend))
     K, m_max = state.finish.shape
     dev = state.finish.device
     if max_steps is None:
@@ -865,28 +851,33 @@ def next_update(params: NetworkParams, state: EventState,
     out = [torch.zeros(K, dtype=DTYPE, device=dev), zero, zero, zero]
     steps = [0] * K
     active = [max_steps > 0] * K
+    owned = False  # whether state's buffers are this call's own
     while any(active):
-        rem = [max_steps - s if a else 0 for s, a in zip(steps, active)]
         fs, cn, _ = stream.window(chunk)
         if chunk == 1:
             keep = torch.as_tensor(active, device=dev)
-            state, ev = step_event_lanes(params, state, fs[:, 0], cn[:, 0],
-                                         table_step=table_step, power=power,
-                                         keep=keep)
+            state, t_col, int_col = step(params, state, fs[:, 0], cn[:, 0],
+                                         power=power, keep=keep,
+                                         donate=owned)
             taken = [int(a) for a in active]
-            got = (ev.is_update & keep).tolist()
-            new = [ev.time, ev.slot, ev.client, ev.delay]
+            got = ((int_col[:, 2] > 0) & keep).tolist()
+            new = [t_col[:, 0], int_col[:, 0], int_col[:, 1], int_col[:, 3]]
         else:
-            state, aux = megastep_event_lanes(
-                params, state, fs, cn, rem, megastep=megastep, power=power,
-                stop_on_update=True)
-            taken = aux.taken
-            last = torch.clamp_min(
-                torch.as_tensor(taken, device=dev) - 1, 0)[:, None]
-            keep = torch.as_tensor(taken, device=dev) > 0
+            rem = [max_steps - s if a else 0 for s, a in zip(steps, active)]
+            state, t_mat, int_mat = megastep(params, state, fs, cn, rem,
+                                             power=power, stop_on_update=True,
+                                             donate=owned)
+            D = int_mat.view(K, chunk, 10)
+            kept = D[..., 9] > 0
+            n_kept = kept.sum(dim=1)
+            # one read for both: the events each lane took, its update
+            taken, got = torch.stack([n_kept, (kept & (D[..., 2] > 0))
+                                      .any(dim=1).to(n_kept.dtype)]).tolist()
+            last = torch.clamp_min(n_kept - 1, 0)[:, None]
+            keep = n_kept > 0
             new = [x.gather(1, last)[:, 0]
-                   for x in (aux.time, aux.slot, aux.client, aux.delay)]
-            got = ((aux.is_update & aux.keep).any(dim=1)).tolist()
+                   for x in (t_mat, D[..., 0], D[..., 1], D[..., 3])]
+        owned = True
         out = [torch.where(keep, a, b) for a, b in zip(new, out)]
         stream.advance(taken)
         steps = [s + t for s, t in zip(steps, taken)]

@@ -1,35 +1,47 @@
-"""The event engine's table transition (port of ``repro.kernels.events``):
-one event per launch, and the megastep, up to ``chunk`` events per launch.
+"""The event engine on the card (port of ``repro.kernels.events``): one
+hand-written CUDA kernel, ``lanes_kernel`` in ``csrc/events.cu``, that
+retires up to ``chunk`` events per lane in one launch, with or without
+their statistics, through one per-event body.
 
-Replaces two Pallas TPU kernels with hand-written CUDA kernels in
-``csrc/events.cu`` that share one per-event body:
+It replaces two Pallas TPU kernels:
 
   * ``repro/kernels/events.py::event_step_tables`` (body ``_event_kernel``
-    / ``_one_event``) -> ``event_kernel``: one warp per lane, the argmin
-    over the finish clocks and both FIFO picks as warp reductions on
-    ``(value, index)`` pairs with ties to the lowest index;
-  * ``repro/kernels/events.py::megastep_tables`` (``_megastep_kernel``)
-    -> ``megastep_kernel``: the same warp per lane with the lane's five
-    rows held in shared memory for all ``chunk`` events, ``keep``-masked
-    past ``rem`` and, with ``stop_on_update``, after the first kept update.
+    / ``_one_event``): one warp per lane, the argmin over the finish clocks
+    and both FIFO picks as warp reductions on ``(value, index)`` pairs with
+    ties to the lowest index;
+  * ``repro/kernels/events.py::megastep_tables`` (``_megastep_kernel``):
+    the same warp per lane with the lane's rows held in shared memory for
+    all ``chunk`` events, ``keep``-masked past ``rem`` and, with
+    ``stop_on_update``, after the first kept update.
 
-At the main path's sizes both are bound by their launch; their bytes (the
-table rows read and written once, one rate sector per gather, the scalars
-and descriptors) are tens of KB.
+:func:`event_step_tables` / :func:`megastep_tables` keep the TPU kernels'
+contract (tables in, tables and descriptors out): the kernel with its
+statistics compiled out.  The main path runs the lane steps
+:func:`event_step_lanes` (one event, a ``keep`` mask) and
+:func:`megastep_lanes` (up to ``chunk`` events): one CTA per lane carries
+the lane's whole :class:`~repro_torch.core.events.EventState` (staged in
+shared memory, or in place in global memory where its rows pass what a
+block may stage on the device), and after each kept event's transition
+does what :func:`repro_torch.core.events.replay_event` does (the
+statistics window, the energy integral with hardware fused multiply-adds,
+the O(1) occupancy carries), so that no PyTorch operation runs per event.
+In the JAX package those statistics are ``jnp`` around the kernel that XLA
+fuses; an eager port turned each of them into a launch.
 
-  * :func:`event_step_tables` / :func:`megastep_tables` launch the CUDA
-    kernel for CUDA tensors (or raise) and run
-    :func:`event_step_tables_plain` / :func:`megastep_tables_plain` — the
-    same contract in PyTorch — for CPU tensors only.  Each wrapper's
-    ``launches`` counts its kernel's launches.
-
-The ``EventState``-level steps around the transitions (statistics window,
-O(1) occupancy update) are :func:`repro_torch.core.events.step_event_lanes`
-and :func:`repro_torch.core.events.megastep_event_lanes`.
+At the main path's sizes every launch is bound by the launch itself; its
+bytes are tens of KB.  Each wrapper launches the kernel for CUDA tensors
+(or raises) and runs its plain version for CPU tensors only: for the
+tables :func:`event_step_tables_plain` / :func:`megastep_tables_plain`,
+for the lane steps :func:`repro_torch.core.events.event_step_lanes_plain`
+/ :func:`~repro_torch.core.events.megastep_lanes_plain` (the plain
+transition, then ``replay_event`` per kept event).  Each wrapper's
+``launches`` counts its launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
@@ -277,3 +289,233 @@ def megastep_tables(finish, phase, client, seq, disp_round, mu_c, mu_u,
 
 
 megastep_tables.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the lane steps: transitions together with their statistics
+# ---------------------------------------------------------------------------
+
+_CONST = ("warmup", "cap", "t_cap")  # leaves a step never changes
+_MUTABLE = tuple(f for f in E.EventState._fields if f not in _CONST)
+_OTHER = ("mu_c", "mu_u", "P_c", "P_u", "P_d", "P_cs", "fs", "c_new", "rem",
+          "keep", "ev_t", "ev_int")
+_INTS = ("K", "m_max", "n", "has_cs", "chunk", "rem_all", "stop_on_update",
+         "desc_width")
+
+
+class _LaneArgs(ctypes.Structure):
+    """``csrc/events.cu``'s ``LaneArgs``, field for field."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in E.EventState._fields]
+                + [("o_" + f, ctypes.c_void_p) for f in _MUTABLE]
+                + [(f, ctypes.c_void_p) for f in _OTHER]
+                + [(f, ctypes.c_longlong)
+                   for f in ("fs_stride", "cn_stride", "sc_stride")]
+                + [(f, ctypes.c_int) for f in _INTS])
+
+
+@functools.lru_cache(maxsize=64)
+def _lane_specs(K: int, M: int, n: int, chunk: Optional[int], power: bool,
+                pcs: bool, keep: bool) -> tuple:
+    """``(name, dtype, shape)`` of each input of a lane step, in the order
+    of :func:`_lane_tensors` (``chunk`` ``None``: the one event of
+    :func:`event_step_lanes`, ``fs [K, 4]`` and ``c_new [K]``)."""
+    f64, i32 = torch.float64, torch.int32
+    kf, ki, S = (f64, (K,)), (i32, (K,)), 3 * n + 1
+    state = dict(t=kf, round=ki, seq_ctr=ki, client=(i32, (K, M)),
+                 phase=(i32, (K, M)), finish=(f64, (K, M)),
+                 seq=(i32, (K, M)), disp_round=(i32, (K, M)), warmup=ki,
+                 cap=ki, t_cap=kf, t0=kf, t1=kf, delay_sum=(f64, (K, n)),
+                 delay_cnt=(i32, (K, n)), energy=kf,
+                 occ_int=(f64, (K, S)), occ=(f64, (K, S)),
+                 serving=(f64, (K, n)), cs_busy=(torch.bool, (K,)))
+    specs = [(f"state.{k}", *state[k]) for k in E.EventState._fields]
+    specs += [("mu_c", f64, (K, n)), ("mu_u", f64, (K, n)),
+              ("fs", f64, (K, 4) if chunk is None else (K, chunk, 4)),
+              ("c_new", i32, (K,) if chunk is None else (K, chunk))]
+    if power:
+        specs += [(f"power.{k}", f64, (K, n)) for k in ("P_c", "P_u", "P_d")]
+    if pcs:
+        specs.append(("power.P_cs", f64, (K,)))
+    if keep:
+        specs.append(("keep", torch.bool, (K,)))
+    return tuple((name, dtype, torch.Size(shape))
+                 for name, dtype, shape in specs)
+
+
+def _lane_tensors(params, state, power, fs, c_new, keep) -> list:
+    xs = [*state, params.mu_c, params.mu_u, fs, c_new]
+    if power is not None:
+        xs += [power.P_c, power.P_u, power.P_d]
+        if power.P_cs is not None:
+            xs.append(power.P_cs)
+    if keep is not None:
+        xs.append(keep)
+    return xs
+
+
+def _check_lanes(what: str, params, state, power, fs, c_new, keep,
+                 chunk: Optional[int]):
+    """Raise ``ValueError`` unless every input of a lane step has the
+    dtype, shape and device the kernel takes."""
+    K, M = state.finish.shape
+    dev = state.finish.device
+    specs = _lane_specs(K, M, params.mu_c.shape[-1], chunk,
+                        power is not None,
+                        power is not None and power.P_cs is not None,
+                        keep is not None)
+    for (name, dtype, shape), x in zip(specs, _lane_tensors(
+            params, state, power, fs, c_new, keep)):
+        if x.dtype != dtype or x.shape != shape:
+            raise ValueError(f"{what}: {name} is {x.dtype} "
+                             f"{tuple(x.shape)}, expected {dtype} "
+                             f"{tuple(shape)}")
+        if x.device != dev:
+            raise ValueError(f"{what}: {name} on {x.device}, the state on "
+                             f"{dev}")
+    if M < 1:
+        raise ValueError(f"{what}: the task table needs at least one slot")
+
+
+def _check_rem(rem, K: int, dev) -> None:
+    """Raise ``ValueError`` unless ``rem`` is an int, ``K`` ints or an
+    int32 ``[K]`` tensor on ``dev``."""
+    if isinstance(rem, torch.Tensor):
+        if rem.dtype != torch.int32 or tuple(rem.shape) != (K,) \
+                or rem.device != dev:
+            raise ValueError(f"rem must be int32 [{K}] on {dev}, got "
+                             f"{rem.dtype} {tuple(rem.shape)} on "
+                             f"{rem.device}")
+    elif not isinstance(rem, int) and len(rem) != K:
+        raise ValueError(f"got {len(rem)} rem values for {K} lanes")
+
+
+def _rem_arg(rem, K: int, dev):
+    """``(rem tensor or None, rem for every lane)`` for the kernel, from a
+    checked ``rem``: one value for every lane needs no tensor."""
+    if isinstance(rem, torch.Tensor):
+        return rem.contiguous(), 0
+    if isinstance(rem, int):
+        return None, rem
+    rem = [int(r) for r in rem]
+    if len(set(rem)) == 1:
+        return None, rem[0]
+    return torch.as_tensor(rem, dtype=torch.int32, device=dev), 0
+
+
+def _launch_lanes(counter, params, state, power, fs, c_new, *, chunk: int,
+                  rem, keep, stop_on_update: bool, desc_width: int,
+                  donate: bool):
+    """Launch ``csrc/events.cu``'s lane steps on the checked inputs:
+    returns the new state (in the donated buffers of ``state`` when
+    ``donate``, else in new ones; the leaves a step never changes are
+    ``state``'s own), the event times ``[K, chunk]`` and the descriptors
+    ``[K, desc_width * chunk]``; counts the launch on ``counter``."""
+    K, M = state.finish.shape
+    n = params.mu_c.shape[-1]
+    dev = state.finish.device
+    leaves = {f: getattr(state, f).contiguous() for f in E.EventState._fields}
+    out = {f: leaves[f] if donate else torch.empty_like(leaves[f])
+           for f in _MUTABLE}
+    if fs.stride(-1) != 1 or (fs.dim() == 3 and fs.stride(1) != 4):
+        fs = fs.contiguous()
+    if c_new.dim() == 2 and c_new.stride(1) != 1:
+        c_new = c_new.contiguous()
+    rem_t, rem_all = _rem_arg(rem, K, dev)
+    ev_t = torch.empty((K, chunk), dtype=torch.float64, device=dev)
+    ev_int = torch.empty((K, desc_width * chunk), dtype=torch.int32,
+                         device=dev)
+    ptrs = dict(mu_c=params.mu_c, mu_u=params.mu_u, rem=rem_t, keep=keep,
+                ev_t=ev_t, ev_int=ev_int)
+    if power is not None:
+        ptrs.update(P_c=power.P_c, P_u=power.P_u, P_d=power.P_d,
+                    P_cs=power.P_cs)
+    args = _LaneArgs()
+    for f, x in leaves.items():
+        setattr(args, f, x.data_ptr())
+    for f, x in out.items():
+        setattr(args, "o_" + f, x.data_ptr())
+    # a copy made here is freed at return, on this stream: safe
+    ptrs = {f: None if x is None else x.contiguous()
+            for f, x in ptrs.items()}
+    for f, x in list(ptrs.items()) + [("fs", fs), ("c_new", c_new)]:
+        setattr(args, f, None if x is None else x.data_ptr())
+    args.fs_stride, args.cn_stride = fs.stride(0), c_new.stride(0)
+    args.sc_stride = 1
+    for f, v in zip(_INTS, (K, M, n, params.mu_cs is not None, chunk,
+                            rem_all, stop_on_update, desc_width)):
+        setattr(args, f, int(v))
+    fn = build.load("events").lanes
+    if not fn.argtypes:  # the library caches its function objects
+        fn.argtypes = [ctypes.POINTER(_LaneArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "lane step launch")
+    counter.launches += 1
+    return (E.EventState(**{**leaves, **out}), ev_t, ev_int)
+
+
+def event_step_lanes(params, state, fs, c_new, *, power=None, keep=None,
+                     donate: bool = False):
+    """One event per lane on ``K`` lane-stacked states, statistics and all.
+
+    ``params``/``power`` leaves ``[K, n]`` (``P_cs`` ``[K]``), ``state``
+    an :class:`~repro_torch.core.events.EventState` with ``[K, ...]``
+    leaves, ``fs`` float64 ``[K, 4]`` (``[e_up, e_comp, svc_down,
+    svc_cs]``, rows may be strided) and ``c_new`` int32 ``[K]`` the event's
+    scalars and routed clients; lanes where ``keep [K]`` (bool) is false
+    stay as they were.  Returns the new state, ``t_new [K, 1]`` and the
+    nine descriptors ``[K, 9]`` of :func:`event_step_tables`.  With
+    ``donate`` the kernel may write the new state into ``state``'s own
+    buffers (the caller must own them and use only the result).
+    """
+    _check_lanes("event_step_lanes", params, state, power, fs, c_new, keep,
+                 None)
+    if state.finish.is_cuda:
+        return _launch_lanes(event_step_lanes, params, state, power, fs,
+                             c_new, chunk=1, rem=1, keep=keep,
+                             stop_on_update=False, desc_width=9,
+                             donate=donate)
+    if state.finish.device.type == "cpu":
+        return E.event_step_lanes_plain(params, state, fs, c_new,
+                                        power=power, keep=keep)
+    raise ValueError(f"no event lane kernel for device {state.finish.device}")
+
+
+event_step_lanes.launches = 0
+
+
+def megastep_lanes(params, state, fs, c_new, rem, *, power=None,
+                   stop_on_update: bool = False, donate: bool = False):
+    """Up to ``chunk`` events per lane on ``K`` lane-stacked states in one
+    launch, statistics and all.
+
+    As :func:`event_step_lanes`, with ``fs`` float64 ``[K, chunk, 4]`` and
+    ``c_new`` int32 ``[K, chunk]``; event ``i`` of lane ``k`` is kept when
+    ``i < rem[k]`` (``rem`` an int, one int per lane or an int32 ``[K]``
+    tensor) and, with ``stop_on_update``, no earlier kept event of the
+    lane was an update.  Returns the new state, the event times ``[K,
+    chunk]`` and the descriptors ``[K, 10 * chunk]`` of
+    :func:`megastep_tables` (masked events' too).
+    """
+    if c_new.dim() != 2 or c_new.shape[1] < 1:
+        raise ValueError(f"c_new must be [K, chunk >= 1], got "
+                         f"{tuple(c_new.shape)}")
+    chunk = c_new.shape[1]
+    _check_lanes("megastep_lanes", params, state, power, fs, c_new, None,
+                 chunk)
+    _check_rem(rem, c_new.shape[0], state.finish.device)
+    if state.finish.is_cuda:
+        return _launch_lanes(megastep_lanes, params, state, power, fs, c_new,
+                             chunk=chunk, rem=rem, keep=None,
+                             stop_on_update=stop_on_update, desc_width=10,
+                             donate=donate)
+    if state.finish.device.type == "cpu":
+        return E.megastep_lanes_plain(params, state, fs, c_new, rem,
+                                      power=power,
+                                      stop_on_update=stop_on_update)
+    raise ValueError(f"no megastep lane kernel for device "
+                     f"{state.finish.device}")
+
+
+megastep_lanes.launches = 0

@@ -14,7 +14,10 @@ stations bitwise identities, the per-client float64 backward within ``rtol
 adjoint, with its padded partials exactly 0 and its real ones bitwise the
 unpadded run's, and every row's results independent of the batch around
 it; both sweeps within ``rtol 1e-4`` of the float64 ones; the event and
-megastep kernels bitwise (IEEE division, no contraction); the fused update
+megastep kernels bitwise (IEEE division, no contraction), and so their lane
+counterparts on every ``EventState`` leaf, in shared and in global memory,
+with the energy integral's fused multiply-adds on the card's DFMA against
+the plain version's emulation (both round once); the fused update
 bitwise on the new parameters (a rounded multiply, then a rounded
 subtract) and within ``rtol 1e-5`` on the squared
 gradient norm (another summation order), and the trainer with it bitwise
@@ -37,6 +40,7 @@ import torch
 
 from repro_torch.core import events as E
 from repro_torch.core.buzen import NetworkParams
+from repro_torch.core.energy import PowerProfile
 from repro_torch.kernels import buzen as kb
 from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import events as ke
@@ -315,6 +319,28 @@ def test_megastep_kernel_matches_plain_bitwise(cuda, chunk, m_max, has_cs,
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("chunk", [1, 7])
+def test_transition_kernels_in_global_memory(cuda, chunk):
+    # m_max = 10,000: the transition's rows take about 240 KB, past what a
+    # block may stage, so the kernel works on them in place
+    args = [torch.as_tensor(a, device=cuda)
+            for a in _mega_tables(4 + chunk, 4, 10000, 100, True, chunk,
+                                  "exponential")]
+    if chunk == 1:
+        one = torch.stack([args[-1][:, 3], args[-1][:, 0], args[-1][:, 1]],
+                          dim=-1)
+        args = args[:7] + [args[7][:, :4].contiguous(), one]
+        got = ke.event_step_tables(*args, has_cs=True)
+        want = ke.event_step_tables_plain(*args, has_cs=True)
+    else:
+        kw = dict(has_cs=True, chunk=chunk, stop_on_update=True)
+        got = ke.megastep_tables(*args, **kw)
+        want = ke.megastep_tables_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("has_cs", [False, True])
 def test_megastep_launch_equals_event_launches(cuda, has_cs):
     chunk = 8
@@ -359,6 +385,214 @@ def test_lane_backends_bitwise_on_the_card(cuda):
                                     backend="kernel", chunk=chunk, **kw)
         for g, w in zip(mega, want):
             assert torch.equal(g, w)
+
+
+def _lane_inputs(seed, K, n, m_max, with_cs, power, law, device,
+                 warmup=4, cap=30):
+    """``K`` lanes of ``n`` clients on ``device``: lane-stacked network
+    rates, a power profile (``power`` None, ``"no_pcs"`` or ``"pcs"``),
+    initial states of 3 to ``m_max`` tasks and a function of ``(rng,
+    events)`` giving ``fs [K, events, 4]`` and ``c_new [K, events]``
+    (numpy draws; the deterministic law's unit parts are 1)."""
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    prms, pws, states = [], [], []
+    for k in range(K):
+        prm = NetworkParams(p=t(rng.dirichlet(np.ones(n))),
+                            mu_c=t(rng.uniform(0.5, 4.0, n)),
+                            mu_d=t(rng.uniform(0.5, 4.0, n)),
+                            mu_u=t(rng.uniform(0.5, 4.0, n)))
+        prms.append(prm.with_cs(3.0) if with_cs else prm)
+        pws.append(PowerProfile(*[t(rng.uniform(1.0, 3.0, n))
+                                  for _ in range(3)],
+                                P_cs=t(np.float64(2.5)) if power == "pcs"
+                                else None))
+        gen = torch.Generator(device=device).manual_seed(seed + k)
+        states.append(E.init_state(prms[-1], 3 + k % (m_max - 2), gen,
+                                   m_max=m_max, distribution=law,
+                                   warmup=warmup, cap=cap))
+    params = E.stack_lanes(prms)
+
+    def events(rng, N):
+        unit = ((lambda: np.ones((K, N))) if law == "deterministic"
+                else (lambda: rng.exponential(size=(K, N))))
+        fs = np.stack([unit(), unit(), unit() / 2.0,
+                       unit() / 3.0 if with_cs else np.zeros((K, N))], -1)
+        return t(fs), t(rng.integers(0, n, (K, N))).to(torch.int32)
+
+    return (params, None if power is None else E.stack_lanes(pws),
+            E.stack_lanes(states), events)
+
+
+def _same_lanes(got, want, what):
+    for name, g, w in zip(E.EventState._fields, got[0], want[0]):
+        assert torch.equal(g, w), (what, name)
+    assert torch.equal(got[1], want[1]), (what, "t")
+    assert torch.equal(got[2], want[2]), (what, "desc")
+
+
+_LANE_CASES = [("exponential", False, None), ("exponential", True, "pcs"),
+               ("deterministic", True, "no_pcs"),
+               ("deterministic", False, "pcs")]
+
+
+# clients per lane by storage: at n = 3,000 a lane's rows take about 250 KB
+# (320 KB with power), past the 227 KB a block may stage, so the kernel works
+# on them in place in global memory
+_LANE_N = {"shared": 20, "global": 3000}
+
+
+@pytest.mark.parametrize("storage", ["shared", "global"])
+@pytest.mark.parametrize("law,has_cs,power", _LANE_CASES)
+def test_event_lanes_kernel_matches_plain_bitwise(cuda, law, has_cs, power,
+                                                  storage):
+    params, pw, st, events = _lane_inputs(1, 8, _LANE_N[storage], 24,
+                                          has_cs, power, law, cuda, cap=20)
+    rng = np.random.default_rng(2)
+    fs, cn = events(rng, 160)
+    want_st = st
+    before = ke.event_step_lanes.launches
+    for i in range(160):
+        keep = (None if i % 4 == 0 else
+                torch.as_tensor(rng.random(8) < 0.8, device=cuda))
+        got = ke.event_step_lanes(params, st, fs[:, i], cn[:, i], power=pw,
+                                  keep=keep, donate=i > 0)
+        want = E.event_step_lanes_plain(params, want_st, fs[:, i],
+                                        cn[:, i], power=pw, keep=keep)
+        torch.cuda.synchronize()
+        _same_lanes(got, want, f"event {i}")
+        st, want_st = got[0], want[0]
+    assert ke.event_step_lanes.launches == before + 160
+    assert int(st.round.min()) > 20  # the window closed inside the run
+    if power is not None:  # the energy integral on DFMA == the emulation
+        assert bool((st.energy > 0).all())
+
+
+@pytest.mark.parametrize("storage", ["shared", "global"])
+@pytest.mark.parametrize("law,has_cs,power", _LANE_CASES)
+@pytest.mark.parametrize("chunk", [1, 7, 32])
+@pytest.mark.parametrize("stop", [False, True])
+def test_megastep_lanes_kernel_matches_plain_bitwise(cuda, stop, chunk, law,
+                                                     has_cs, power, storage):
+    params, pw, st, events = _lane_inputs(chunk, 8, _LANE_N[storage], 24,
+                                          has_cs, power, law, cuda, cap=12)
+    rng = np.random.default_rng(chunk + 2)
+    want_st = st
+    before = ke.megastep_lanes.launches
+    steps = max(4, 160 // chunk)
+    for s in range(steps):
+        fs, cn = events(rng, chunk)
+        rem = rng.integers(0, chunk + 1, 8)
+        rem[0], rem[1] = chunk, chunk + 5  # full lanes
+        rem_arg = (rem.tolist() if s % 2 else
+                   torch.as_tensor(rem, dtype=torch.int32, device=cuda))
+        got = ke.megastep_lanes(params, st, fs, cn, rem_arg, power=pw,
+                                stop_on_update=stop, donate=s > 0)
+        want = E.megastep_lanes_plain(params, want_st, fs, cn, rem_arg,
+                                      power=pw, stop_on_update=stop)
+        torch.cuda.synchronize()
+        _same_lanes(got, want, f"megastep {s}")
+        st, want_st = got[0], want[0]
+    assert ke.megastep_lanes.launches == before + steps
+    assert int(st.round.max()) > (2 if stop else 12)  # past the window
+
+
+@pytest.mark.parametrize("power", [None, "pcs"])
+def test_lane_kernels_at_large_n_work_in_global_memory(cuda, power):
+    # n = 3,000: a lane's rows take about 250 KB (320 KB with power), past
+    # the 227 KB a block may stage, so the kernel works in place
+    params, pw, st, events = _lane_inputs(5, 3, 3000, 40, True, power,
+                                          "exponential", cuda)
+    rng = np.random.default_rng(6)
+    want_st = st
+    for s in range(3):
+        fs, cn = events(rng, 9)
+        got = ke.megastep_lanes(params, st, fs, cn, [9, 4, 9], power=pw)
+        want = E.megastep_lanes_plain(params, want_st, fs, cn, [9, 4, 9],
+                                      power=pw)
+        torch.cuda.synchronize()
+        _same_lanes(got, want, f"megastep {s}")
+        st, want_st = got[0], want[0]
+        got = ke.event_step_lanes(params, st, fs[:, 0], cn[:, 0], power=pw)
+        want = E.event_step_lanes_plain(params, want_st, fs[:, 0],
+                                        cn[:, 0], power=pw)
+        torch.cuda.synchronize()
+        _same_lanes(got, want, f"event {s}")
+        st, want_st = got[0], want[0]
+
+
+def test_lane_kernels_sub_batch_keeps_its_bits(cuda):
+    params, pw, st, events = _lane_inputs(7, 8, 100, 132, False, "no_pcs",
+                                          "exponential", cuda)
+    fs, cn = events(np.random.default_rng(8), 8)
+    full = ke.megastep_lanes(params, st, fs, cn, 8, power=pw)
+    one = ke.event_step_lanes(params, st, fs[:, 0], cn[:, 0], power=pw)
+    rows = slice(2, 5)
+    sub = lambda tree: type(tree)(  # noqa: E731
+        *[None if x is None else x[rows].contiguous() for x in tree])
+    part = ke.megastep_lanes(sub(params), sub(st), fs[rows], cn[rows], 8,
+                             power=sub(pw))
+    part_one = ke.event_step_lanes(sub(params), sub(st), fs[rows, 0],
+                                   cn[rows, 0], power=sub(pw))
+    torch.cuda.synchronize()
+    for a, b in ((full, part), (one, part_one)):
+        for name, x, y in zip(E.EventState._fields, a[0], b[0]):
+            assert torch.equal(x[rows], y), name
+        assert torch.equal(a[1][rows], b[1]) and torch.equal(a[2][rows], b[2])
+
+
+def test_lane_kernels_donated_buffers_and_untouched_callers(cuda):
+    params, pw, st, events = _lane_inputs(9, 4, 12, 16, True, "pcs",
+                                          "exponential", cuda)
+    fs, cn = events(np.random.default_rng(10), 7)
+    kept = [x.clone() for x in st]
+    fresh = ke.megastep_lanes(params, st, fs, cn, 7, power=pw)
+    for x, y in zip(st, kept):  # without donate the input is only read
+        assert torch.equal(x, y)
+    mine = E.EventState(*[x.clone() for x in st])
+    ptrs = [x.data_ptr() for x in mine]
+    donated = ke.megastep_lanes(params, mine, fs, cn, 7, power=pw,
+                                donate=True)
+    torch.cuda.synchronize()
+    for name, x, y, p in zip(E.EventState._fields, donated[0], fresh[0],
+                             ptrs):
+        assert torch.equal(x, y), name
+        assert x.data_ptr() == p, name  # written into the donated buffer
+    gens = [torch.Generator(device=cuda).manual_seed(s) for s in range(4)]
+    stream = E.EventStream([E.lane(params, i) for i in range(4)], gens)
+    for chunk in (1, 8):
+        out = E.run_events(params, st, stream, 50, chunk=chunk, power=pw,
+                           backend="kernel")
+        out_kept = [x.clone() for x in out]
+        E.next_update(params, out, stream, power=pw, backend="kernel",
+                      chunk=chunk)
+        torch.cuda.synchronize()
+        for x, y in zip(st, kept):
+            assert torch.equal(x, y)
+        for x, y in zip(out, out_kept):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("chunk", [1, 8, 32])
+def test_kernel_route_launches_once_per_chunk(cuda, chunk):
+    prms = [NetworkParams(*[torch.as_tensor(x, device=cuda) for x in (
+        np.full(10, 0.1), np.linspace(1.0, 3.0, 10),
+        np.linspace(2.0, 4.0, 10), np.linspace(1.5, 2.5, 10))])] * 3
+    counters = (ke.event_step_lanes, ke.megastep_lanes, ke.event_step_tables,
+                ke.megastep_tables)
+    before = [c.launches for c in counters]
+    updates, warmup, m = 100, 20, 6
+    got = simulate_stats_lanes(prms, [m] * 3, updates, warmup=warmup,
+                               backend="kernel", chunk=chunk)
+    want = simulate_stats_lanes(prms, [m] * 3, updates, warmup=warmup,
+                                backend="batched", chunk=chunk)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    events = 3 * (updates + warmup) + 3 * m + 8  # run_lanes' event count
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    lane_launches = -(-events // chunk)
+    assert launched == ([lane_launches, 0, 0, 0] if chunk == 1
+                        else [0, lane_launches, 0, 0])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
