@@ -6,14 +6,16 @@ imports no JAX, so it also runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: the Buzen kernels (per client and per class) within ``rtol/atol
-2e-5`` of their plain float32 versions (the class kernel: same arithmetic,
-other rounding; the per-client kernel carries its row in float64 and is
-closer to the float64 DP than the plain version is), padded (load-0)
-stations bitwise identities, the per-client float64 backward within ``rtol
-1e-9`` (plus an ``atol`` of 1e-12 times the largest partial) of its plain
-adjoint, with its padded partials exactly 0 and its real ones bitwise the
-unpadded run's, and every row's results independent of the batch around
-it; both sweeps within ``rtol 1e-4`` of the float64 ones; the event and
+2e-5`` of their plain float32 versions (both kernels carry their row in
+float64 and are closer to the float64 DP than the plain versions are),
+padded (load-0 or count-0) columns bitwise identities, the float64
+backward kernels (per client and per class) within ``rtol 1e-9`` (plus an
+``atol`` of 1e-12 times the largest partial) of their plain adjoints, with
+their padded partials exactly 0 and their real ones bitwise the unpadded
+run's, and every row's results independent of the batch around it; count-1
+class columns are geometric stations (the class kernels against the
+per-client ones, forward within ``2e-5``, backward within ``rtol 1e-9``);
+both sweeps within ``rtol 1e-4`` of the float64 ones; the event and
 megastep kernels bitwise (IEEE division, no contraction), and so their lane
 counterparts on every ``EventState`` leaf, in shared and in global memory,
 with the energy integral's fused multiply-adds on the card's DFMA against
@@ -228,6 +230,135 @@ def test_buzen_classes_kernel_matches_plain(cuda, S, with_cs, scale):
     unpadded = kb.buzen_classes_batched(lr[:, keep].contiguous(),
                                         cnt[:, keep].contiguous(), lg, 132)
     assert torch.equal(unpadded, got)
+
+
+@pytest.mark.parametrize("m_max", [0, 1, 31, 32, 33, 132, 1000, 4095])
+@pytest.mark.parametrize("S,with_cs", [(5, False), (5, True), (6, False)])
+def test_buzen_classes_kernel_matches_plain_at_every_width(cuda, S, with_cs,
+                                                          m_max):
+    """Row pairs that meet in the middle (odd and even m_pad), one group or
+    several rounds of them, up to the range's edge (m_pad = 4096, four
+    float64 rows in 128 KB of shared memory); against the float32 plain
+    version."""
+    lr, cnt, lg = [torch.as_tensor(x, device=cuda) for x in _class_rows(
+        2000 + 7 * S + m_max, 131 if m_max < 1000 else 3, S, 1, with_cs)]
+    want = kb.buzen_classes_batched_plain(lr, cnt, lg, m_max)
+    got = kb.buzen_classes_batched(lr, cnt, lg, m_max)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _with_pad_classes(lr, cnt):
+    """``lr``/``cnt`` with count-0 columns at the front (log_rho finite)
+    and in the middle (-inf); returns them and the real columns' indices
+    (the columns ``_class_rows`` padded are real here: dead ones stay)."""
+    B, S = lr.shape
+    mid = S // 2
+    out_lr = np.concatenate([np.full((B, 1), -1.0), lr[:, :mid],
+                             np.full((B, 1), -np.inf), lr[:, mid:]], 1)
+    out_cnt = np.concatenate([np.zeros((B, 1)), cnt[:, :mid],
+                              np.zeros((B, 1)), cnt[:, mid:]], 1)
+    real = [1 + i for i in range(mid)] + [2 + i for i in range(mid, S)]
+    return out_lr, out_cnt, real
+
+
+@pytest.mark.parametrize("S,scale,m_max", [(5, 10_000, 132), (3, 1, 40),
+                                           (6, 1, 1000)])
+def test_buzen_classes_padded_columns_bitwise(cuda, S, scale, m_max):
+    """Count-0 columns are identities: the forward bitwise the run without
+    them, the backward's real partials and d/d lg bitwise, its padded
+    partials exactly 0; a sub-batch of rows bitwise the full batch's."""
+    lr, cnt, lg = _class_rows(3000 + S, 6, S, scale, with_cs=True)
+    lr_p, cnt_p, real = _with_pad_classes(lr, cnt)
+    t = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+    base = kb.buzen_classes_batched(t(lr), t(cnt), t(lg), m_max)
+    assert torch.equal(kb.buzen_classes_batched(t(lr_p), t(cnt_p), t(lg),
+                                                m_max), base)
+    g = t(np.random.default_rng(S).normal(size=(6, m_max + 1)))
+    base_lr, base_lg = kb.buzen_classes_log_Z_backward(t(lr), t(cnt), t(lg),
+                                                       g, m_max)
+    pad_lr, pad_lg = kb.buzen_classes_log_Z_backward(t(lr_p), t(cnt_p),
+                                                     t(lg), g, m_max)
+    torch.cuda.synchronize()
+    assert torch.equal(pad_lr[:, real], base_lr)
+    assert torch.equal(pad_lg, base_lg)
+    dead = [i for i in range(lr_p.shape[1]) if i not in real]
+    assert bool((pad_lr[:, dead] == 0.0).all())
+    assert bool((base_lr[~(torch.isfinite(t(lr)) & (t(cnt) > 0))]
+                 == 0.0).all())
+    # a row's results do not depend on the batch around it
+    sub = slice(1, None, 2)
+    assert torch.equal(kb.buzen_classes_batched(t(lr[sub]), t(cnt[sub]),
+                                                t(lg[sub]), m_max),
+                       base[sub])
+    sub_lr, sub_lg = kb.buzen_classes_log_Z_backward(
+        t(lr[sub]), t(cnt[sub]), t(lg[sub]), g[sub].contiguous(), m_max)
+    assert torch.equal(sub_lr, base_lr[sub])
+    assert torch.equal(sub_lg, base_lg[sub])
+
+
+@pytest.mark.parametrize("m_max", [1, 40, 132])
+def test_buzen_classes_count_one_columns_are_stations(cuda, m_max):
+    """A class of count 1 is a single-server station (the CS column's
+    case): on per-client rows with every count 1 the class kernels agree
+    with the per-client ones, both carrying float64 rows."""
+    lr, lg = _rows(90 + m_max, 131, 7)
+    a = torch.as_tensor(lr, device=cuda)
+    b = torch.as_tensor(lg, device=cuda)
+    ones = torch.ones_like(a)
+    torch.testing.assert_close(kb.buzen_classes_batched(a, ones, b, m_max),
+                               kb.buzen_batched(a, b, m_max), rtol=2e-5,
+                               atol=2e-5)
+    g = torch.as_tensor(np.random.default_rng(m_max).normal(
+        size=(131, m_max + 1)), device=cuda)
+    got_lr, got_lg = kb.buzen_classes_log_Z_backward(a, ones, b, g, m_max)
+    want_lr, want_lg = kb.buzen_log_Z_backward(a, b, g, m_max)
+    torch.cuda.synchronize()
+    _close_partials(got_lr, want_lr)
+    _close_partials(got_lg, want_lg)
+
+
+@pytest.mark.parametrize("B,S,scale,m_max,with_cs", [
+    (131, 5, 10_000, 132, False), (131, 5, 1, 132, True),
+    (131, 6, 10_000, 132, True), (5, 5, 1, 40, False), (3, 5, 1, 0, True),
+    (4, 5, 1, 1, False), (2, 5, 1, 1000, True), (2, 5, 1, 4095, False)])
+def test_buzen_classes_backward_kernel_matches_plain(cuda, B, S, scale,
+                                                     m_max, with_cs):
+    lr, cnt, lg = [torch.as_tensor(x, device=cuda) for x in _class_rows(
+        4000 + S + m_max, B, S, scale, with_cs)]
+    g = torch.as_tensor(np.random.default_rng(S).normal(size=(B, m_max + 1)),
+                        device=cuda)
+    want_lr, want_lg = kb.buzen_classes_log_Z_backward_plain(lr, cnt, lg, g,
+                                                             m_max)
+    before = kb.buzen_classes_log_Z_backward.launches
+    got_lr, got_lg = kb.buzen_classes_log_Z_backward(lr, cnt, lg, g, m_max)
+    torch.cuda.synchronize()
+    assert kb.buzen_classes_log_Z_backward.launches == before + 1
+    _close_partials(got_lr, want_lr)
+    _close_partials(got_lg, want_lg)
+    assert bool((got_lr[cnt == 0] == 0.0).all())
+
+
+def test_buzen_classes_log_Z_batched_launches_once_each_way(cuda):
+    """Through the autograd function: one forward launch, and one backward
+    launch with no autograd recompute, equal to the backward wrapper's."""
+    lr, cnt, lg = [torch.as_tensor(x, device=cuda)
+                   for x in _class_rows(5000, 131, 5, 10_000, True)]
+    g = torch.as_tensor(np.random.default_rng(5).normal(size=(131, 133)),
+                        device=cuda)
+    a = lr.clone().requires_grad_(True)
+    b = lg.clone().requires_grad_(True)
+    fwd = kb.buzen_classes_batched.launches
+    bwd = kb.buzen_classes_log_Z_backward.launches
+    out = kb.buzen_classes_log_Z_batched(a, cnt, b, 132)
+    assert kb.buzen_classes_batched.launches == fwd + 1
+    assert kb.buzen_classes_log_Z_backward.launches == bwd
+    g_lr, g_lg = torch.autograd.grad(out, (a, b), g)
+    torch.cuda.synchronize()
+    assert kb.buzen_classes_batched.launches == fwd + 1
+    assert kb.buzen_classes_log_Z_backward.launches == bwd + 1
+    want = kb.buzen_classes_log_Z_backward(lr, cnt, lg, g, 132)
+    assert torch.equal(g_lr, want[0]) and torch.equal(g_lg, want[1])
 
 
 def test_time_optimal_classes_kernel_matches_torch(cuda):

@@ -11,6 +11,14 @@ built in float64 and rounded once, the reference's in float32); ``rtol
 so this case pins the float64 build; gradients (float64 on both sides)
 ``rtol 1e-10``.  The CUDA kernel itself is compared with the plain version
 on a card (``tests/test_torch_cuda.py``).
+
+The class backward's plain version (the float64 adjoint that
+``BuzenClassesLogZ.backward`` runs for CPU tensors) is held against
+``jax.grad`` of the JAX package's float64 class DP and of its custom VJP at
+``rtol 1e-9`` (both float64; the adjoint sums in another order), its padded
+partials exactly 0 and its real ones bitwise the unpadded run's; the class
+kernel's arithmetic, written out in torch, within ``2e-5`` of the float64
+class DP.
 """
 import jax
 import jax.numpy as jnp
@@ -20,7 +28,8 @@ import torch
 
 import repro.core.numerics  # noqa: F401  (the JAX package's float64 mode)
 from repro.kernels import buzen as jk
-from repro_torch.core.buzen import class_log_normalizing_constants
+from repro_torch.core.buzen import (_poisson_series,
+                                    class_log_normalizing_constants)
 from repro_torch.kernels import buzen as tk
 from repro_torch.scenario.spec import PAPER_CLUSTERS_TABLE1, ClassSpec
 
@@ -148,3 +157,168 @@ def test_cpu_runs_plain_and_counts_no_launch():
         tk.buzen_classes_batched(torch.as_tensor(lr),
                                  torch.as_tensor(cnt[:, :2]),
                                  torch.as_tensor(lg), 10)
+
+
+def _table1_rows(seed, B, scale, with_cs):
+    """Table 1's five profiles as classes (counts x ``scale``) at random
+    per-member routing masses, their aggregated IS log-loads, and two
+    count-0 columns (one at log_rho = -inf, one at a finite log-load); the
+    CS station as a count-1 column when ``with_cs``."""
+    rng = np.random.default_rng(seed)
+    spec = ClassSpec.from_clusters(PAPER_CLUSTERS_TABLE1)
+    counts = spec.count * scale
+    mass = rng.dirichlet(np.ones(len(counts)), size=B)
+    lr = np.log(mass / counts) - np.log(spec.mu_c)
+    lg = np.log((mass * (1.0 / spec.mu_d + 1.0 / spec.mu_u)).sum(-1))
+    lr = np.concatenate([lr[:, :2], np.full((B, 1), -np.inf), lr[:, 2:],
+                         np.full((B, 1), -1.5)], axis=1)
+    cnt = np.tile(np.concatenate([counts[:2], [0], counts[2:], [0]]),
+                  (B, 1)).astype(np.float64)
+    if with_cs:
+        lr = np.concatenate([lr, np.log(rng.uniform(0.1, 1.0, (B, 1)))], 1)
+        cnt = np.concatenate([cnt, np.ones((B, 1))], 1)
+    return lr, cnt, lg
+
+
+def _grad_cases():
+    # (kind, seed, B, S or scale, m_max, with_cs)
+    return [("rows", 10, 3, 4, 20, False), ("rows", 11, 2, 6, 33, True),
+            ("rows", 12, 1, 1, 0, False), ("table1", 13, 2, 1, 132, False),
+            ("table1", 14, 2, 1, 132, True),
+            ("table1", 15, 2, 10_000, 132, False),
+            ("table1", 16, 2, 10_000, 132, True)]
+
+
+@pytest.mark.parametrize("kind,seed,B,size,m_max,with_cs", _grad_cases())
+def test_backward_plain_matches_jax_grad(kind, seed, B, size, m_max,
+                                         with_cs):
+    """``buzen_classes_log_Z_backward_plain`` is ``jax.grad`` of the JAX
+    package's float64 class DP ``_reference_class_log_Z`` on the real
+    columns (its padded partials are NaN or 0 there; the wrapper pins them)
+    and of ``buzen_classes_log_Z_batched`` on every column, to ``rtol
+    1e-9``: small random classes, and Table 1's counts at n = 100 and 1e6
+    with count-0 columns, with and without the CS column."""
+    if kind == "rows":
+        lr, cnt, lg = _rows(seed, B, size, with_cs, with_pad=size > 2)
+    else:
+        lr, cnt, lg = _table1_rows(seed, B, size, with_cs)
+    w = np.random.default_rng(seed + 1).normal(size=(B, m_max + 1))
+    live = np.isfinite(lr) & (cnt > 0)
+
+    def donor(a, b):
+        return jnp.sum(jnp.asarray(w) * jk._reference_class_log_Z(
+            a, jnp.asarray(cnt), b, m_max))
+
+    def wrapped(a, b):
+        return jnp.sum(jnp.asarray(w) * jk.buzen_classes_log_Z_batched(
+            a, jnp.asarray(cnt), b, m_max))
+
+    d_lr, d_lg = jax.jit(jax.grad(donor, argnums=(0, 1)))(
+        jnp.asarray(lr), jnp.asarray(lg))
+    j_lr, j_lg = jax.jit(jax.grad(wrapped, argnums=(0, 1)))(
+        jnp.asarray(lr), jnp.asarray(lg))
+    got_lr, got_lg = tk.buzen_classes_log_Z_backward_plain(
+        torch.as_tensor(lr), torch.as_tensor(cnt), torch.as_tensor(lg),
+        torch.as_tensor(w), m_max)
+    assert got_lr.dtype == got_lg.dtype == torch.float64
+    np.testing.assert_allclose(got_lr.numpy()[live], np.asarray(d_lr)[live],
+                               rtol=1e-9, atol=1e-300)
+    np.testing.assert_allclose(got_lg.numpy(), np.asarray(d_lg), rtol=1e-9,
+                               atol=1e-300)
+    np.testing.assert_allclose(got_lr.numpy(), np.asarray(j_lr), rtol=1e-9,
+                               atol=1e-300)
+    np.testing.assert_allclose(got_lg.numpy(), np.asarray(j_lg), rtol=1e-9,
+                               atol=1e-300)
+    assert np.all(got_lr.numpy()[~live] == 0.0)
+
+
+@pytest.mark.parametrize("where", ["front", "middle", "end"])
+def test_backward_plain_padded_partials_exact(where):
+    """Two count-0 columns (one at log_rho = -inf, one finite): their
+    partials are exactly 0, and the real columns' partials and d/d lg are
+    bitwise those of the unpadded rows."""
+    lr, cnt, lg = _rows(20, 3, 5, with_cs=True)
+    w = torch.as_tensor(np.random.default_rng(21).normal(size=(3, 41)))
+    at = {"front": 0, "middle": 3, "end": 6}[where]
+    lr_p = np.insert(lr, [at, at], [-np.inf, -2.0], axis=1)
+    cnt_p = np.insert(cnt, [at, at], 0.0, axis=1)
+    real = [i for i in range(8) if i not in (at, at + 1)]
+    t = torch.as_tensor
+    base = tk.buzen_classes_log_Z_backward_plain(t(lr), t(cnt), t(lg), w, 40)
+    got = tk.buzen_classes_log_Z_backward_plain(t(lr_p), t(cnt_p), t(lg), w,
+                                                40)
+    assert torch.equal(got[0][:, real], base[0])
+    assert torch.equal(got[1], base[1])
+    assert torch.all(got[0][:, [at, at + 1]] == 0.0)
+
+
+def _class_kernel_arithmetic(log_rho, counts, log_gamma_total, m_max):
+    """``buzen_classes_kernel``'s arithmetic written out in PyTorch: the
+    Poisson row and every series in float64 (``_class_series``'s order),
+    both in log2 units; row ``m`` of a live column is ``R + log2(sum_k
+    exp2(float32(w2[k] + U2[m - k] - R)))`` with ``R`` the largest float64
+    term, the sum in float32, the row float64; padded columns skipped; the
+    output rounded to float32 in natural units."""
+    l2e = 1.4426950408889634
+    m_pad = m_max + 1
+    j = torch.arange(m_pad)
+    q = j[:, None] - j[None, :]                              # [m, k]: m - k
+    valid = q >= 0
+    qi = q.clamp_min(0)
+    u2 = _poisson_series(log_gamma_total.to(torch.float64), m_max) * l2e
+    w2 = tk._class_series(log_rho, counts, m_pad, torch.float64) * l2e
+    live = tk._class_live(log_rho.to(torch.float64), counts)
+    for s in range(w2.shape[1]):
+        t = torch.where(valid, w2[:, s, None, :] + u2[:, qi], -torch.inf)
+        r = t.amax(dim=-1)
+        e = (t - r[..., None]).to(torch.float32)
+        tot = torch.where(valid, torch.exp2(e), 0.0).sum(dim=-1)
+        new = r + torch.log2(tot).to(torch.float64)
+        u2 = torch.where(live[:, s, None], new, u2)
+    return (u2 * 0.6931471805599453).to(torch.float32)
+
+
+@pytest.mark.parametrize("scale", [1, 100, 10_000])
+def test_kernel_arithmetic_tracks_the_f64_dp(scale):
+    """The class kernel's arithmetic (float64 series and row, float32
+    exponents) on Table 1's classes at n = 100, 1e4 and 1e6, m_max = 132,
+    with and without the CS column: within ``2e-5`` of the float64 class
+    DP (the plain float32 version misses it by up to about ``1.3e-5`` at
+    these sizes, against ``rtol 3e-5, atol 3e-4``), and with its count-0
+    columns bitwise the run without them."""
+    for with_cs in (False, True):
+        lr, cnt, lg = _table1_rows(30 + scale % 7, 4, scale, with_cs)
+        want = np.asarray(jk._reference_class_log_Z(
+            jnp.asarray(lr), jnp.asarray(cnt), jnp.asarray(lg), 132))
+        t = torch.as_tensor
+        got = _class_kernel_arithmetic(t(lr), t(cnt), t(lg), 132)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+        real = np.isfinite(lr[0]) & (cnt[0] > 0)
+        assert torch.equal(_class_kernel_arithmetic(
+            t(lr[:, real]), t(cnt[:, real]), t(lg), 132), got)
+
+
+def test_cpu_runs_both_plain_versions_and_counts_no_launch():
+    """On CPU tensors the forward and backward wrappers and the autograd
+    function run the plain versions and count no launch; the backward
+    wrapper refuses what the kernel would not take."""
+    lr, cnt, lg = (torch.as_tensor(x) for x in _rows(40, 2, 4, True, True))
+    g = torch.as_tensor(np.random.default_rng(41).normal(size=(2, 16)))
+    fwd = tk.buzen_classes_batched.launches
+    bwd = tk.buzen_classes_log_Z_backward.launches
+    got = tk.buzen_classes_log_Z_backward(lr, cnt, lg, g, 15)
+    want = tk.buzen_classes_log_Z_backward_plain(lr, cnt, lg, g, 15)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    a = lr.clone().requires_grad_(True)
+    b = lg.clone().requires_grad_(True)
+    out = tk.buzen_classes_log_Z_batched(a, cnt, b, 15)
+    assert torch.equal(out.float(), tk.buzen_classes_batched_plain(
+        lr, cnt, lg, 15))
+    g_lr, g_lg = torch.autograd.grad(out, (a, b), g)
+    assert torch.equal(g_lr, want[0]) and torch.equal(g_lg, want[1])
+    assert tk.buzen_classes_batched.launches == fwd
+    assert tk.buzen_classes_log_Z_backward.launches == bwd
+    with pytest.raises(ValueError):
+        tk.buzen_classes_log_Z_backward(lr, cnt, lg, g[:, :5], 15)
+    with pytest.raises(ValueError):
+        tk.buzen_classes_log_Z_backward(lr, cnt[:, :2], lg, g, 15)
