@@ -176,7 +176,31 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      ring, bfloat16: one part) beside its bytes bound, at the serve shape
      (one part; also timed in 2) and at B = 2 with a full 8,192-entry
      ring (the cache split in 8 parts; also timed in one), with the split
-     plan of each.
+     plan of each;
+ 11. the Scenario API at the paper's size (run after phase 8, with the
+     Buzen backend set to ``kernel`` process-wide and restored after): (a)
+     ``Scenario(network=Table 1 (n = 100), energy=Table 1,
+     strategy=StrategySpec("time_opt", m_max=132, steps=200),
+     sim=SimSpec(backend="kernel", chunk=8))`` round-trips its JSON byte for
+     byte (its hash printed); (b) ``resolve_strategy`` of it equals phase
+     4's ``time_optimal`` bitwise (p* and m*); (c) ``make_strategies`` over
+     the six strategies (Table 1's power profile, ``steps=200``, ``m_max =
+     132``), each one's wall time, m and launches logged: ``time_opt``
+     bitwise phase 4's, ``energy_opt`` bitwise ``energy_optimal_routing``,
+     ``joint`` exactly one sweep's Buzen launches (201 forward, 200
+     backward: it reuses ``time_opt``'s tau*), and ``joint_optimal`` at 50
+     steps on ``kernel`` within rtol 1e-4 of ``torch`` with the same m*;
+     (d) the class ``time_opt`` on phase 8's n = 1e6 class set equals phase
+     8's ``kernel`` sweep bitwise, kernels 5 and 5b launching; (e)
+     ``DeviceTrainer.from_scenario`` with the scenario's ``DataSpec``
+     (EMNIST fallback, Dirichlet(0.2), 47 x 200, a 0.2 test split) on the
+     full-width CNN, lanes ``asyncsgd`` and ``time_opt`` x seeds 0 and 1,
+     horizon 100 / lambda(p*, m*), bitwise a ``DeviceTrainer`` built by hand
+     (kernels 3 and 4 launching); (f) ``examples/quickstart_torch.py`` in
+     a process of its own exits 0 and prints the m* and tau* of an
+     in-process ``time_optimal`` at its settings.  The counts are zeroed
+     at the phase's start: kernels 1, 1b, 3, 4, 5 and 5b must each have
+     launched by its end.
 
 Phase 3 also holds the fused-update kernel against its plain version
 (bitwise on the new parameters, ``rtol 1e-5`` on the squared norm) at
@@ -675,10 +699,12 @@ def class_rows(rng, B, counts, mu_c, with_cs, dev):
             for x in (lr, cnt.astype(np.float64), lg)]
 
 
-def class_phase(dev, consts, net, res_k, M: int) -> tuple[dict, dict]:
+def class_phase(dev, consts, net, res_k, M: int) -> tuple:
     """Phase 8 (see the module docstring); returns the records of kernel 5
     and of the class backward kernel, with their launches on this phase's
-    main path and their max abs errors against their plain versions."""
+    main path and their max abs errors against their plain versions, and
+    the n = 1e6 class set with its ``kernel`` sweep's result (phase 11
+    resolves the same sweep through the Scenario API)."""
     import numpy as np
     import torch
 
@@ -909,7 +935,249 @@ def class_phase(dev, consts, net, res_k, M: int) -> tuple[dict, dict]:
             {"name": "buzen_classes_backward", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/buzen.cu",
              "replaces": "src/repro/kernels/buzen.py:329",
-             "launches": launches[1], "max_abs_err": bwd_err})
+             "launches": launches[1], "max_abs_err": bwd_err},
+            specs[10**6], rbig)
+
+
+def scenario_phase(dev, card: str, net, res_k, lam_star, big_spec, big_res,
+                   M: int) -> None:
+    """Phase 11 (see the module docstring): the Scenario API on the card
+    at the paper's size, held against phases 4 and 8 and against a
+    hand-built trainer; the Buzen backend is ``kernel`` process-wide for
+    the phase, restored after it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import buzen as cbz
+    from repro_torch.core.energy import energy_optimal_routing, minimal_energy
+    from repro_torch.core.optimize import joint_optimal, time_optimal
+    from repro_torch.fl import (AsyncFLConfig, DeviceTrainer, cnn_classifier,
+                                make_strategies)
+    from repro_torch.kernels import buzen as kb
+    from repro_torch.kernels import events as ke
+    from repro_torch.kernels import fused_update as kf
+    from repro_torch.scenario import (PAPER_CLUSTERS_TABLE1, STRATEGIES,
+                                      DataSpec, EnergySpec, LearningSpec,
+                                      NetworkSpec, Scenario, SimSpec,
+                                      StrategySpec, resolve_strategy)
+
+    t_phase = time.perf_counter()
+    counted = {"buzen": kb.buzen_batched,
+               "buzen_backward": kb.buzen_log_Z_backward,
+               "buzen_classes": kb.buzen_classes_batched,
+               "buzen_classes_backward": kb.buzen_classes_log_Z_backward,
+               "event_step": ke.event_step_lanes,
+               "megastep": ke.megastep_lanes,
+               "fused_update": kf.fused_async_update_flat}
+    for c in counted.values():
+        c.launches = 0
+
+    def since(before):
+        got = {k: c.launches - before[k] for k, c in counted.items()}
+        return {k: v for k, v in got.items() if v}
+
+    def snap():
+        return {k: c.launches for k, c in counted.items()}
+
+    saved = cbz.get_backend()
+    cbz.set_backend("kernel")
+    try:
+        # -- 11a. the scenario and its JSON --------------------------------
+        scn = Scenario(
+            network=NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1),
+            energy=EnergySpec.from_clusters(PAPER_CLUSTERS_TABLE1),
+            strategy=StrategySpec("time_opt", m_max=M, steps=200),
+            sim=SimSpec(backend="kernel", chunk=8))
+        text = scn.to_json()
+        back = Scenario.from_json(text)
+        check(back == scn and back.to_json() == text,
+              "Scenario JSON round trip")
+        log(f"phase 11: Scenario n={scn.n} round-trips its JSON "
+            f"({len(text)} bytes) byte for byte; hash {scn.hash()}")
+
+        # -- 11b. time_opt through the registry == phase 4's sweep ---------
+        before = snap()
+        t0 = time.perf_counter()
+        p, m = resolve_strategy(scn, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(m == res_k.m and np.array_equal(p, res_k.p.cpu().numpy()),
+              f"resolve_strategy(time_opt) m={m} != phase 4's m*={res_k.m} "
+              f"or p* not bitwise")
+        log(f"phase 11: resolve_strategy(time_opt) == phase 4's "
+            f"time_optimal bitwise (m*={m}) in {wall:.2f} s; launches "
+            f"{since(before)} ({card})")
+
+        # -- 11c. the six strategies through make_strategies ---------------
+        power = scn.power(device=dev)
+        consts = scn.consts
+        six = ("asyncsgd", "max_throughput", "round_opt", "time_opt",
+               "energy_opt", "joint")
+        spent = {}
+
+        def timed(name, fn):
+            def run(ctx):
+                b = snap()
+                t0 = time.perf_counter()
+                out = fn(ctx)
+                torch.cuda.synchronize()
+                spent[name] = (time.perf_counter() - t0, since(b))
+                return out
+            return run
+
+        with mock.patch.dict(STRATEGIES._entries, {
+                k: timed(k, STRATEGIES.get(k)) for k in six}):
+            strategies = make_strategies(net, consts, power, which=six,
+                                         steps=200, m_max=M)
+        for name in six:
+            log(f"phase 11: make_strategies {name}: m={strategies[name][1]}"
+                f", {spent[name][0]:.2f} s, launches {spent[name][1]} "
+                f"({card})")
+        check(strategies["time_opt"][1] == res_k.m and np.array_equal(
+            strategies["time_opt"][0], res_k.p.cpu().numpy()),
+            "make_strategies time_opt != phase 4's sweep")
+        check(np.array_equal(strategies["energy_opt"][0],
+                             energy_optimal_routing(net, power).cpu().numpy())
+              and strategies["energy_opt"][1] == 1,
+              "energy_opt != energy_optimal_routing")
+        joint_launches = spent["joint"][1]
+        check(joint_launches.get("buzen") == 201
+              and joint_launches.get("buzen_backward") == 200,
+              f"joint ran more than its own sweep (a second time_opt "
+              f"sweep?): {joint_launches}")
+        for name in six:
+            p_s = strategies[name][0]
+            check(bool(np.isfinite(p_s).all())
+                  and abs(float(p_s.sum()) - 1.0) < 1e-9,
+                  f"{name}: p not a distribution")
+        # joint's sweep on kernel against torch, at 50 steps
+        tau_star = float(res_k.value)
+        e_star = float(minimal_energy(net, consts, power))
+        sweeps = {}
+        for be in ("kernel", "torch"):
+            t0 = time.perf_counter()
+            sweeps[be] = joint_optimal(net, consts, power, 0.1, tau_star,
+                                       e_star, m_max=M, steps=50,
+                                       backend=be)
+            torch.cuda.synchronize()
+            sweeps[be] = (sweeps[be], time.perf_counter() - t0)
+        (jk, sk), (jt, st) = sweeps["kernel"], sweeps["torch"]
+        vk = np.array([v for _, v in jk.history])
+        vt = np.array([v for _, v in jt.history])
+        rel = float((np.abs(vk - vt) / np.abs(vt)).max())
+        check(bool(np.isfinite(vk).all()) and rel <= 1e-4 and jk.m == jt.m,
+              f"joint sweep kernel vs torch: rel {rel}, m* {jk.m} vs {jt.m}")
+        log(f"phase 11: joint_optimal (rho 0.1, m = 1..{M}, 50 steps) "
+            f"kernel m*={jk.m} ({sk:.2f} s) == torch m*={jt.m} ({st:.2f} s);"
+            f" sweep max rel diff {rel:.3g} (bound 1e-4)")
+
+        # -- 11d. class time_opt through the registry == phase 8's sweep ---
+        cls_scn = Scenario(network=NetworkSpec(classes=big_spec),
+                           strategy=StrategySpec("time_opt", m_max=M,
+                                                 steps=200))
+        before = snap()
+        t0 = time.perf_counter()
+        p, m = resolve_strategy(cls_scn, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = since(before)
+        check(m == big_res.m
+              and np.array_equal(p, big_res.p.cpu().numpy()),
+              f"class resolve_strategy m={m} != phase 8's m*={big_res.m} or "
+              f"p* not bitwise")
+        check(launched.get("buzen_classes", 0) > 0
+              and launched.get("buzen_classes_backward", 0) > 0,
+              f"class resolution: kernels 5/5b did not launch: {launched}")
+        log(f"phase 11: class resolve_strategy(time_opt), n={cls_scn.n}, "
+            f"== phase 8's kernel sweep bitwise (m*={m}) in {wall:.2f} s; "
+            f"launches {launched} ({card})")
+
+        # -- 11e. training through DeviceTrainer.from_scenario -------------
+        t0 = time.perf_counter()
+        train_scn = scn.replace(
+            learning=LearningSpec(grad_clip=5.0),
+            data=DataSpec(dataset="emnist", partition="dirichlet", alpha=0.2,
+                          num_classes=47, samples_per_class=200,
+                          test_fraction=0.2))
+        clients, test = train_scn.data.build(train_scn.n)
+        horizon = 100.0 / lam_star
+        over = dict(batch_size=32, eval_every_time=horizon / 10)
+        lanes = [("asyncsgd", 0), ("asyncsgd", 1), ("time_opt", 0),
+                 ("time_opt", 1)]
+        args = ([strategies[k][0] for k, _ in lanes],
+                [strategies[k][1] for k, _ in lanes],
+                [train_scn.with_strategy(k).eta() for k, _ in lanes],
+                [s for _, s in lanes], horizon)
+        data_s = time.perf_counter() - t0
+        before = snap()
+        t0 = time.perf_counter()
+        tr = DeviceTrainer.from_scenario(
+            train_scn, cnn_classifier(28, 47, device=dev), clients,
+            test_data=test, device=dev, **over)
+        logs_a, fin_a = tr.run_lanes(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = since(before)
+        hand = DeviceTrainer(
+            cnn_classifier(28, 47, device=dev), clients,
+            train_scn.params(device=dev),
+            AsyncFLConfig(eta=0.05, grad_clip=5.0, **over), test_data=test,
+            power=train_scn.power(device=dev), sim_backend="kernel",
+            sim_chunk=8, device=dev)
+        logs_b, fin_b = hand.run_lanes(*args)
+        check(torch.equal(fin_a, fin_b) and all(
+            (a.times, a.losses, a.accuracies, a.updates, a.throughput,
+             a.energy) == (b.times, b.losses, b.accuracies, b.updates,
+                           b.throughput, b.energy)
+            and np.array_equal(a.mean_delay, b.mean_delay)
+            for a, b in zip(logs_a, logs_b)),
+            "DeviceTrainer.from_scenario != the hand-built trainer")
+        check(launched.get("megastep", 0) > 0
+              and launched.get("fused_update", 0) > 0,
+              f"training through from_scenario: kernels 3/4 did not launch: "
+              f"{launched}")
+        check(all(np.isfinite(lg.losses).all() for lg in logs_a),
+              "a from_scenario training loss is not finite")
+        log(f"phase 11: DeviceTrainer.from_scenario (CNN, 4 lanes asyncsgd/"
+            f"time_opt x seeds 0, 1, horizon {horizon:.6g} = 100 / lambda*; "
+            f"data built from its DataSpec in {data_s:.2f} s): updates per "
+            f"lane {[lg.updates[-1] for lg in logs_a]}, losses "
+            f"{[round(lg.losses[-1], 4) for lg in logs_a]}, {wall:.2f} s; "
+            f"== the hand-built trainer bitwise; launches {launched} "
+            f"({card})")
+    finally:
+        cbz.set_backend(saved)
+    total = snap()
+    check(all(total[k] > 0 for k in ("buzen", "buzen_backward",
+                                     "buzen_classes",
+                                     "buzen_classes_backward", "megastep",
+                                     "fused_update")),
+          f"a kernel of the Scenario path never launched: {total}")
+
+    # -- 11f. the example, in a process of its own ----------------------------
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable,
+                          str(ROOT / "examples" / "quickstart_torch.py")],
+                         capture_output=True, text=True, timeout=600)
+    ex_s = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"examples/quickstart_torch.py exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    for line in out.stdout.strip().splitlines():
+        log(f"phase 11: quickstart | {line}")
+    found = re.search(r"time-optimized: m\* = (\d+), tau\* = ([0-9.]+)",
+                      out.stdout)
+    check(found is not None, "the example printed no m* and tau*")
+    small = NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1, 10)
+    want = time_optimal(small.params(device=dev), LearningSpec().consts,
+                        m_max=small.n + 6, steps=200, backend="kernel")
+    check(int(found.group(1)) == want.m
+          and found.group(2) == f"{want.value:.1f}",
+          f"the example's m*, tau* {found.groups()} != in-process "
+          f"{want.m}, {want.value:.1f}")
+    log(f"phase 11: examples/quickstart_torch.py exited 0 in {ex_s:.1f} s; "
+        f"m*={want.m}, tau*={want.value:.1f} as in this process; launches "
+        f"{total} ({card}) [{time.perf_counter() - t_phase:.1f} s]")
 
 
 def lm_phase(dev, card: str, seed: int) -> dict:
@@ -2188,16 +2456,20 @@ def main() -> int:
         "bound_ms": fu_bound_ms, "bound_by": "bytes", "library_ms": None})
 
     # -- 8. the class-aggregated path: n = 100 and n = 1e6 ----------------
-    class_rec, class_bwd_rec = class_phase(dev, consts, net, res_k, M)
+    class_rec, class_bwd_rec, big_spec, big_res = class_phase(
+        dev, consts, net, res_k, M)
     class_rec.update(class_times)
     class_bwd_rec.update(class_bwd_times)
+
+    # -- 11. the Scenario API: resolution, from_scenario, the quickstart ---
+    scenario_phase(dev, card, net, res_k, lam_star, big_spec, big_res, M)
 
     # -- 9. the dense LM's prefill: Qwen3-8B, kernel 6 ---------------------
     flash_rec = lm_phase(dev, card, seed)
 
     # -- 10. the dense LM's decode and the serve loop, kernel 7 -----------
     decode_rec = decode_phase(dev, card, seed)
-    log(f"chip_smoke: phases 1-10 passed in "
+    log(f"chip_smoke: phases 1-11 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [buzen_rec, bwd_rec, event_rec, mega_rec,

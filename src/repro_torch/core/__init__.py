@@ -29,5 +29,5 @@ from .jackson import (analyze, delay_jacobian, expected_relative_delay,
                       throughput, throughput_grad)
 from .numerics import DTYPE, NEG_INF, seqcumsum, seqsum
 from .optimize import (OptResult, SweepResult, batched_concurrency_sweep,
-                       max_throughput, optimize_routing, round_optimal,
-                       time_optimal, time_optimal_classes)
+                       joint_optimal, max_throughput, optimize_routing,
+                       round_optimal, time_optimal, time_optimal_classes)

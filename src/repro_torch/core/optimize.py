@@ -12,8 +12,8 @@ The routing vector lives on the simplex via ``p = softmax(theta)``
     the batched Buzen DP once for the whole ``[B, n]`` routing batch
     (``"torch"`` or ``"kernel"`` backend) and the summed loss decouples
     row-wise, so the step is exactly ``B`` independent Adam runs;
-  * :func:`time_optimal` (``search="batched"``), :func:`round_optimal`,
-    :func:`max_throughput`;
+  * :func:`time_optimal` and :func:`joint_optimal` (``search="batched"``),
+    :func:`round_optimal`, :func:`max_throughput`;
   * :func:`time_optimal_classes` — the same sweep over a class-aggregated
     population (:class:`ClassParams`), with logits on the class masses.
 """
@@ -275,3 +275,25 @@ def round_optimal(params: NetworkParams, consts: LearningConstants, m: int,
 def max_throughput(params: NetworkParams, m: int, **kw) -> OptResult:
     return optimize_routing(make_throughput_objective(params), params.n, m,
                             device=params.device, **kw)
+
+
+def joint_optimal(params: NetworkParams, consts: LearningConstants,
+                  power: PowerProfile, rho: float, tau_star: float,
+                  e_star: float, m_max: Optional[int] = None, *,
+                  search: str = "batched", **kw) -> OptResult:
+    """``(p*_rho, m*_rho)``: the Eq. 18 scalarization at Pareto weight
+    ``rho``, by one batched sweep over ``m = 1..m_max`` with ``rho`` as
+    every row's context (``search="batched"``; the pruned and sequential
+    searches are not ported yet)."""
+    from .batched import make_joint_objective_padded
+
+    if search != "batched":
+        raise ValueError(f"unknown search mode: {search!r}; the port "
+                         "implements 'batched'")
+    m_max = m_max or params.n + 32
+    m_grid = np.arange(1, m_max + 1)
+    res = batched_concurrency_sweep(
+        make_joint_objective_padded(params, consts, power, tau_star, e_star,
+                                    m_max), params,
+        m_grid=m_grid, ctx=np.full(m_grid.shape, rho), m_max=m_max, **kw)
+    return res.best

@@ -61,8 +61,9 @@ randomness differently, so trainer-level cross-checks are statistical.
 The reference's documented deviations (fixed eval batch, minibatches drawn
 with replacement at full ``batch_size``, float32 parameter updates, energy
 integrated exactly to the horizon, the throughput denominator when a
-``max_updates`` cap binds) hold here too.  ``from_scenario`` and update
-telemetry rings are not ported yet.
+``max_updates`` cap binds) hold here too.  :meth:`DeviceTrainer.from_scenario`
+builds the trainer from a declarative ``repro_torch.scenario.Scenario``;
+the update telemetry rings are not ported yet.
 """
 from __future__ import annotations
 
@@ -294,6 +295,32 @@ class DeviceTrainer:
                 np.asarray(y)[idx], dtype=torch.int64, device=self.device)
         else:
             self.test_x = self.test_y = None
+
+    @classmethod
+    def from_scenario(cls, scenario, model: torch.nn.Module, clients, *,
+                      test_data=None, loss_fn: Callable = cross_entropy_loss,
+                      device="cuda", **config_overrides) -> "DeviceTrainer":
+        """The trainer for a declarative ``repro_torch.scenario.Scenario``:
+        the network's rates and law, the grad clip, eta and power profile
+        come from the spec, the event-engine backend and megastep chunk
+        from its ``SimSpec``; ``config_overrides`` feed ``AsyncFLConfig``.
+        Lane routing and concurrency still vary per :meth:`run_lanes` call
+        (resolve them with ``repro_torch.scenario.resolve_strategy``).  A
+        scenario that asks for telemetry rings raises: they are not ported
+        (ROADMAP Queue 1 item 6), and training without them would drop
+        what was asked for."""
+        sim, trace = scenario.sim, scenario.trace
+        if trace is not None and (trace.events > 0 or trace.updates > 0):
+            raise NotImplementedError(
+                f"TraceSpec(events={trace.events}, updates={trace.updates}):"
+                " the event and update telemetry rings are not ported yet "
+                "(ROADMAP Queue 1 item 6)")
+        return cls(model, clients, scenario.params(device=device),
+                   scenario.fl_config(**config_overrides),
+                   test_data=test_data, power=scenario.power(device=device),
+                   loss_fn=loss_fn,
+                   sim_backend=None if sim is None else sim.backend,
+                   sim_chunk=1 if sim is None else sim.chunk, device=device)
 
     # -- parameters ---------------------------------------------------------
 

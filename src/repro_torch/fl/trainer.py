@@ -21,7 +21,8 @@ In both backends each dispatched task carries a snapshot of the global
 parameters; when its uplink (or CS-buffer service) completes, the gradient —
 computed at the stale snapshot on the owning client's local data — is
 applied with the bias-corrected step ``eta / (n p_C)`` (Algorithm 1,
-line 6).  ``from_scenario`` waits for the port's Scenario API.
+line 6).  :meth:`AsyncFLTrainer.from_scenario` builds a trainer from a
+declarative ``repro_torch.scenario.Scenario``.
 """
 from __future__ import annotations
 
@@ -112,6 +113,24 @@ class AsyncFLTrainer:
         self.p = self.p / self.p.sum()
         self.rng = np.random.default_rng(config.seed + 1)
         self._device = None  # the lane engine, built on first use
+
+    @classmethod
+    def from_scenario(cls, scenario, model: torch.nn.Module, client_data:
+                      list, *, test_data=None,
+                      loss_fn: Callable = cross_entropy_loss, device="cuda",
+                      **config_overrides) -> "AsyncFLTrainer":
+        """A trainer for a declarative ``repro_torch.scenario.Scenario``:
+        the strategy registry resolves ``(p, m)`` on ``device``, the
+        network spec gives the rates and law, the learning spec eta and
+        clipping; ``config_overrides`` feed ``AsyncFLConfig`` (e.g.
+        ``batch_size=32, backend="host"``)."""
+        from ..scenario.suite import resolve_strategy
+
+        p, m = resolve_strategy(scenario, device=device)
+        return cls(model, client_data, scenario.params(p, device=device), m,
+                   config=scenario.fl_config(**config_overrides),
+                   test_data=test_data, power=scenario.power(device=device),
+                   loss_fn=loss_fn, device=device)
 
     # -- device backend -----------------------------------------------------
 

@@ -1141,3 +1141,78 @@ def test_serve_tiny_preset_on_the_card(cuda, capsys):
     torch.testing.assert_close(ref.prompt_logits, gen.prompt_logits,
                                rtol=1e-4, atol=1e-4)
     assert torch.equal(ref.step_logits[:, 11:].argmax(-1), gen.tokens)
+
+
+# ---------------------------------------------------------------------------
+# the Scenario API on the card: resolution and from_scenario
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def kernel_buzen():
+    from repro_torch.core import buzen
+
+    saved = buzen.get_backend()
+    buzen.set_backend("kernel")
+    yield
+    buzen.set_backend(saved)
+
+
+def test_resolve_strategy_on_the_card_is_the_direct_sweep(cuda,
+                                                         kernel_buzen):
+    from repro_torch.scenario import Scenario, StrategySpec, resolve_strategy
+
+    consts = LearningSpec().consts
+    net = NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1, 10)
+    scn = Scenario(network=net, strategy=StrategySpec("time_opt", m_max=17,
+                                                      steps=40))
+    p, m = resolve_strategy(scn)
+    want = time_optimal(net.params(device=cuda), consts, m_max=17, steps=40,
+                        backend="kernel")
+    assert m == want.m
+    assert np.array_equal(p, want.p.cpu().numpy())
+    cls = NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1, aggregate=True)
+    scn = Scenario(network=cls, strategy=StrategySpec("time_opt", m_max=40,
+                                                      steps=40))
+    p, m = resolve_strategy(scn)
+    want = time_optimal_classes(cls.class_params(device=cuda), consts, 40,
+                                steps=40, backend="kernel")
+    assert m == want.m
+    assert np.array_equal(p, want.p.cpu().numpy())
+
+
+def test_device_trainer_from_scenario_on_the_card_is_hand_built(cuda):
+    from repro_torch.data import iid_partition, make_synthetic_image_dataset
+    from repro_torch.fl import AsyncFLConfig, DeviceTrainer, mlp_classifier
+    from repro_torch.scenario import (EnergySpec, Scenario, SimSpec,
+                                      resolve_strategy)
+
+    full = make_synthetic_image_dataset(num_classes=4, samples_per_class=16,
+                                        image_size=8, seed=0)
+    clients = [(full.x[i], full.y[i]) for i in iid_partition(full.y, 9)]
+    test = (full.x[::3], full.y[::3])
+    scn = Scenario(network=NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1,
+                                                     10),
+                   energy=EnergySpec.from_clusters(PAPER_CLUSTERS_TABLE1, 10),
+                   learning=LearningSpec(grad_clip=5.0),
+                   sim=SimSpec(backend="kernel", chunk=8))
+    over = dict(batch_size=8, eval_every_time=50.0)
+    tr = DeviceTrainer.from_scenario(
+        scn, mlp_classifier(64, 4, hidden=(16,), device=cuda), clients,
+        test_data=test, **over)
+    hand = DeviceTrainer(
+        mlp_classifier(64, 4, hidden=(16,), device=cuda), clients,
+        scn.params(device=cuda), AsyncFLConfig(eta=0.05, grad_clip=5.0,
+                                               **over),
+        test_data=test, power=scn.power(device=cuda), sim_backend="kernel",
+        sim_chunk=8, device=cuda)
+    p, m = resolve_strategy(scn)
+    args = ([p, p], [m, m], [0.05, 0.05], [0, 1], 400.0)
+    ke.megastep_lanes.launches = 0
+    logs_a, fin_a = tr.run_lanes(*args)
+    assert ke.megastep_lanes.launches > 0
+    logs_b, fin_b = hand.run_lanes(*args)
+    assert torch.equal(fin_a, fin_b)
+    for a, b in zip(logs_a, logs_b):
+        assert a.updates[-1] > 10
+        assert (a.times, a.losses, a.updates, a.energy) == (
+            b.times, b.losses, b.updates, b.energy)

@@ -103,8 +103,10 @@ def test_entry_points_default_to_the_card():
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     assert files
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert examples
     smoke = ROOT / "chip_smoke.py"
-    return files + ([smoke] if smoke.exists() else [])
+    return files + examples + ([smoke] if smoke.exists() else [])
 
 
 def _forbidden(name: str) -> bool:
