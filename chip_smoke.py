@@ -195,12 +195,43 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      ``DeviceTrainer.from_scenario`` with the scenario's ``DataSpec``
      (EMNIST fallback, Dirichlet(0.2), 47 x 200, a 0.2 test split) on the
      full-width CNN, lanes ``asyncsgd`` and ``time_opt`` x seeds 0 and 1,
-     horizon 100 / lambda(p*, m*), bitwise a ``DeviceTrainer`` built by hand
+     horizon 50 / lambda(p*, m*), bitwise a ``DeviceTrainer`` built by hand
      (kernels 3 and 4 launching); (f) ``examples/quickstart_torch.py`` in
      a process of its own exits 0 and prints the m* and tau* of an
      in-process ``time_optimal`` at its settings.  The counts are zeroed
      at the phase's start: kernels 1, 1b, 3, 4, 5 and 5b must each have
      launched by its end.
+ 12. ``ScenarioSuite`` at the paper's size (run after phase 11, reusing
+     its strategies, with the Buzen backend ``kernel`` process-wide and
+     restored after): (a) ``ScenarioSuite.strategy_grid`` of Table 1 (n =
+     100, its energy spec, phase 11e's EMNIST ``DataSpec``, ``SimSpec(
+     backend="kernel", chunk=8)``) over ``asyncsgd``, ``max_throughput``,
+     ``round_opt`` and ``time_opt`` x seeds 0 and 1 (``steps=200``,
+     ``m_max=132``): ``resolve()`` equals phase 11's ``make_strategies``
+     bitwise; (b) ``analyze``: one program, 4 lanes, one launch of kernel 1
+     for the bucket, each row within rtol 1e-4 of the same suite on the
+     ``torch`` route; (c) ``simulate`` (3,000 updates after 4,000 of
+     warm-up): one program, 8 lanes, every lane bitwise
+     ``simulate_stats_lanes`` of its scenario alone on ``kernel`` (same
+     seed, table size and chunk), each strategy's lane mean within 10% of
+     Prop. 4, kernel 3 launching; (d) ``train``: the full-width CNN for
+     50 / lambda* (at most 150 rounds), one trainer, 8 lanes, the logs
+     bitwise ``DeviceTrainer.run_lanes`` built by hand from the same
+     padded nets, clients, powers, backend and chunk, kernels 3 and 4
+     launching; (e) Table 1 at scales 10, 2 and 1 (n = 9, 49, 100;
+     explicit uniform routing, m = n) with phase 8's n = 1e6 class set
+     (``time_opt``, bitwise phase 8's ``kernel`` sweep): ``analyze`` in
+     two programs with one launch each of kernels 1 and 5, every
+     per-client row bitwise its network alone at the bucket's table size
+     and within rtol 1e-4 of a suite of its own (bitwise where the table
+     sizes agree); ``simulate`` of the per-client three (600 after 400) in
+     one program, each lane bitwise its solo run; (f) a re-run of every
+     mode: ``cache_hits == len(suite)``, ``programs == 0``, no launch; (g)
+     ``examples/paper_scale_sim_torch.main()`` in process (6 lanes in one
+     program, within 10% of Prop. 4, its re-run a cache hit) and
+     ``examples/async_fl_emnist_torch.py --horizon 20`` in a process of
+     its own (exit 0, "4 lanes in 1 programs").  Each check logs its wall
+     time and the launches of kernels 1, 1b, 3, 4, 5 and 5b.
 
 Phase 3 also holds the fused-update kernel against its plain version
 (bitwise on the new parameters, ``rtol 1e-5`` on the squared norm) at
@@ -248,6 +279,11 @@ CLASS_OPS_PER_TERM = 5
 PHASE4_UPDATES = 1500
 POWER_UPDATES = 300
 WINDOW_UPDATES = 200
+# phase 12's strategy grid on the event engine: deep enough for every
+# strategy's lanes to leave their start-up transient (Prop. 4's gate), and
+# its CNN lanes' round cap
+SUITE_UPDATES, SUITE_WARMUP = 3000, 4000
+TRAIN_CAP = 150
 # phase 8's class lanes at E = 1 against E = 8 and with a power profile:
 # on class lanes the chunk moves only the draw cursor's window, and power
 # only adds the energy integral, so short runs check both
@@ -940,11 +976,12 @@ def class_phase(dev, consts, net, res_k, M: int) -> tuple:
 
 
 def scenario_phase(dev, card: str, net, res_k, lam_star, big_spec, big_res,
-                   M: int) -> None:
+                   M: int) -> dict:
     """Phase 11 (see the module docstring): the Scenario API on the card
     at the paper's size, held against phases 4 and 8 and against a
     hand-built trainer; the Buzen backend is ``kernel`` process-wide for
-    the phase, restored after it."""
+    the phase, restored after it.  Returns ``make_strategies``' six
+    ``(p, m)`` (phase 12 holds the suite's resolution to them)."""
     import numpy as np
     import torch
 
@@ -1100,7 +1137,7 @@ def scenario_phase(dev, card: str, net, res_k, lam_star, big_spec, big_res,
                           num_classes=47, samples_per_class=200,
                           test_fraction=0.2))
         clients, test = train_scn.data.build(train_scn.n)
-        horizon = 100.0 / lam_star
+        horizon = 50.0 / lam_star
         over = dict(batch_size=32, eval_every_time=horizon / 10)
         lanes = [("asyncsgd", 0), ("asyncsgd", 1), ("time_opt", 0),
                  ("time_opt", 1)]
@@ -1139,7 +1176,7 @@ def scenario_phase(dev, card: str, net, res_k, lam_star, big_spec, big_res,
         check(all(np.isfinite(lg.losses).all() for lg in logs_a),
               "a from_scenario training loss is not finite")
         log(f"phase 11: DeviceTrainer.from_scenario (CNN, 4 lanes asyncsgd/"
-            f"time_opt x seeds 0, 1, horizon {horizon:.6g} = 100 / lambda*; "
+            f"time_opt x seeds 0, 1, horizon {horizon:.6g} = 50 / lambda*; "
             f"data built from its DataSpec in {data_s:.2f} s): updates per "
             f"lane {[lg.updates[-1] for lg in logs_a]}, losses "
             f"{[round(lg.losses[-1], 4) for lg in logs_a]}, {wall:.2f} s; "
@@ -1178,6 +1215,352 @@ def scenario_phase(dev, card: str, net, res_k, lam_star, big_spec, big_res,
     log(f"phase 11: examples/quickstart_torch.py exited 0 in {ex_s:.1f} s; "
         f"m*={want.m}, tau*={want.value:.1f} as in this process; launches "
         f"{total} ({card}) [{time.perf_counter() - t_phase:.1f} s]")
+    return strategies
+
+
+def suite_phase(dev, card: str, res_k, lam_star, strategies, big_spec,
+                big_res, M: int) -> None:
+    """Phase 12 (see the module docstring): ``ScenarioSuite`` on the card
+    at the paper's size, held against phase 11's resolution, phase 8's
+    class sweep and the port's own direct calls on the card; the Buzen
+    backend is ``kernel`` process-wide for the phase, restored after
+    it."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import buzen as cbz
+    from repro_torch.core.buzen import pad_network
+    from repro_torch.core.events import stack_lanes
+    from repro_torch.core.jackson import throughput
+    from repro_torch.fl import DeviceTrainer, cnn_classifier
+    from repro_torch.kernels import buzen as kb
+    from repro_torch.kernels import events as ke
+    from repro_torch.kernels import fused_update as kf
+    from repro_torch.scenario import (PAPER_CLUSTERS_TABLE1, DataSpec,
+                                      EnergySpec, NetworkSpec, Scenario,
+                                      ScenarioSuite, SimSpec, StrategySpec)
+    from repro_torch.scenario import suite as ts
+    from repro_torch.sim import simulate_stats_lanes
+
+    t_phase = time.perf_counter()
+    counted = {"buzen": kb.buzen_batched,
+               "buzen_backward": kb.buzen_log_Z_backward,
+               "buzen_classes": kb.buzen_classes_batched,
+               "buzen_classes_backward": kb.buzen_classes_log_Z_backward,
+               "event_step": ke.event_step_lanes,
+               "megastep": ke.megastep_lanes,
+               "fused_update": kf.fused_async_update_flat}
+    for c in counted.values():
+        c.launches = 0
+
+    def snap():
+        return {k: c.launches for k, c in counted.items()}
+
+    def since(before):
+        got = {k: c.launches - before[k] for k, c in counted.items()}
+        return {k: v for k, v in got.items() if v}
+
+    def timed(fn):
+        before = snap()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, since(before)
+
+    def same_stats(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f))
+                   for f in a._fields)
+
+    def same_logs(a, b):
+        return ((a.times, a.losses, a.accuracies, a.updates, a.throughput,
+                 a.energy) == (b.times, b.losses, b.accuracies, b.updates,
+                               b.throughput, b.energy)
+                and np.array_equal(a.mean_delay, b.mean_delay))
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-300)).max())
+
+    saved = cbz.get_backend()
+    cbz.set_backend("kernel")
+    try:
+        # -- 12a. the strategy grid resolves as phase 11 did ---------------
+        four = ("asyncsgd", "max_throughput", "round_opt", "time_opt")
+        data = DataSpec(dataset="emnist", partition="dirichlet", alpha=0.2,
+                        num_classes=47, samples_per_class=200,
+                        test_fraction=0.2)
+        base = Scenario(
+            network=NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1),
+            energy=EnergySpec.from_clusters(PAPER_CLUSTERS_TABLE1),
+            data=data, sim=SimSpec(backend="kernel", chunk=8))
+        suite = ScenarioSuite.strategy_grid(base, four, seeds=(0, 1),
+                                            steps=200, m_max=M, device=dev)
+        resolved, wall, launched = timed(suite.resolve)
+        for name in four:
+            check(resolved[name][1] == strategies[name][1]
+                  and np.array_equal(resolved[name][0], strategies[name][0]),
+                  f"suite.resolve()[{name}] != phase 11's make_strategies")
+        check(resolved["time_opt"][1] == res_k.m and np.array_equal(
+            resolved["time_opt"][0], res_k.p.cpu().numpy()),
+            "the suite's time_opt != phase 4's sweep")
+        log(f"phase 12: strategy grid (n={base.n}, {len(suite)} strategies "
+            f"x 2 seeds): resolve() == phase 11's make_strategies bitwise, "
+            f"m {[resolved[k][1] for k in four]} (time_opt = phase 4's "
+            f"m*={res_k.m}), {wall:.2f} s; launches {launched}")
+
+        # -- 12b. analyze: one program, one kernel-1 launch ----------------
+        ana, wall, launched = timed(lambda: suite.run(mode="analyze"))
+        check(ana.programs == 1 and ana.lanes == 4,
+              f"analyze: {ana.programs} programs, {ana.lanes} lanes")
+        check(launched.get("buzen") == 1,
+              f"analyze: kernel 1 launched {launched.get('buzen')} times "
+              f"for one bucket")
+        cbz.set_backend("torch")
+        try:
+            ana_t, wall_t, _ = timed(lambda: suite.run(mode="analyze"))
+        finally:
+            cbz.set_backend("kernel")
+        worst = 0.0
+        for name in four:
+            a, b = ana.entries[name], ana_t.entries[name]
+            for f in ("throughput", "K_eps", "tau", "energy", "delays"):
+                worst = max(worst, rel(a[f], b[f]))
+            check(np.isfinite(a["tau"]) and a["delays"].shape == (base.n,),
+                  f"analyze {name}: tau {a['tau']}")
+        check(worst <= 1e-4, f"analyze kernel vs torch: max rel {worst}")
+        log(f"phase 12: analyze 4 lanes in {ana.programs} program on "
+            f"kernel ({wall:.3f} s, launches {launched}) == the torch "
+            f"route ({wall_t:.3f} s) within rtol 1e-4 (max rel "
+            f"{worst:.3g}); tau "
+            f"{[round(ana.entries[k]['tau'], 1) for k in four]}")
+
+        # -- 12c. simulate: one program, each lane its solo run ------------
+        # (deeper than paper_scale_sim's 600 after 400: max_throughput's
+        # skewed routing at m = 100 is still in its start-up transient
+        # there, at two thirds of Prop. 4, so the gate would read that)
+        U, W = SUITE_UPDATES, SUITE_WARMUP
+        sim, wall, launched = timed(lambda: suite.run(
+            mode="simulate", num_updates=U, warmup=W))
+        check(sim.programs == 1 and sim.lanes == 8,
+              f"simulate: {sim.programs} programs, {sim.lanes} lanes")
+        check(launched.get("megastep", 0) > 0,
+              f"simulate: kernel 3 did not launch: {launched}")
+        m_top = max(resolved[k][1] for k in four)
+        t0 = time.perf_counter()
+        gaps = {}
+        for name in four:
+            scn = suite.scenarios[name]
+            p, m = resolved[name]
+            for seed, got in zip(suite.seeds, sim.entries[name]):
+                alone = simulate_stats_lanes(
+                    [scn.params(p, device=dev)], [m], U, warmup=W,
+                    seeds=[seed], m_max=m_top, backend="kernel", chunk=8,
+                    power=[scn.power(device=dev)])
+                check(same_stats(stack_lanes([got]), alone),
+                      f"simulate {name} seed {seed} != its solo run")
+            lam = float(throughput(scn.params(p, device=dev), m))
+            thr = float(np.mean([float(s.throughput)
+                                 for s in sim.entries[name]]))
+            gaps[name] = abs(thr - lam) / lam
+            check(gaps[name] <= 0.1,
+                  f"simulate {name}: throughput {thr} vs Prop. 4 {lam}")
+        solo_s = time.perf_counter() - t0
+        log(f"phase 12: simulate 8 lanes ({U} updates after {W}, kernel, "
+            f"E = 8, m_max {m_top}) in {sim.programs} program, {wall:.2f} "
+            f"s, launches {launched}; every lane == its solo "
+            f"simulate_stats_lanes bitwise ({solo_s:.2f} s); throughput vs "
+            f"Prop. 4 {({k: round(v, 4) for k, v in gaps.items()})}")
+
+        # -- 12d. train: one trainer, 8 lanes, == run_lanes by hand --------
+        # about 50 updates at lambda*; max_throughput runs 30x faster, so
+        # its lanes are capped at TRAIN_CAP rounds
+        horizon = 50.0 / lam_star
+        over = dict(batch_size=32, eval_every_time=horizon / 10)
+        model = cnn_classifier(28, 47, device=dev)
+        tr, wall, launched = timed(lambda: suite.run(
+            mode="train", model=model, horizon_time=horizon,
+            max_updates=TRAIN_CAP, **over))
+        check(tr.programs == 1 and tr.lanes == 8,
+              f"train: {tr.programs} trainers, {tr.lanes} lanes")
+        check(launched.get("megastep", 0) > 0
+              and launched.get("fused_update", 0) > 0,
+              f"train: kernels 3/4 did not launch: {launched}")
+        clients, test = suite._client_data(base, "base")
+        n = base.n
+        lanes = [(k, s) for k in four for s in suite.seeds]
+        hand = DeviceTrainer(cnn_classifier(28, 47, device=dev), clients,
+                             pad_network(base.params(device=dev), n),
+                             base.fl_config(**over), test_data=test,
+                             sim_backend="kernel", sim_chunk=8, device=dev)
+        t0 = time.perf_counter()
+        logs_b, _ = hand.run_lanes(
+            [resolved[k][0] for k, _ in lanes],
+            [resolved[k][1] for k, _ in lanes],
+            [suite.scenarios[k].eta() for k, _ in lanes],
+            [s for _, s in lanes], horizon, max_updates=TRAIN_CAP,
+            nets=[pad_network(base.params(device=dev), n)] * 8,
+            lane_clients=[clients] * 8,
+            lane_powers=[base.power(device=dev)] * 8)
+        torch.cuda.synchronize()
+        hand_s = time.perf_counter() - t0
+        logs_a = [lg for k in four for lg in tr.entries[k]]
+        check(all(same_logs(a, b) for a, b in zip(logs_a, logs_b)),
+              "train: the suite's logs != DeviceTrainer.run_lanes by hand")
+        check(all(np.isfinite(lg.losses).all() for lg in logs_a),
+              "train: a loss is not finite")
+        log(f"phase 12: train 8 CNN lanes (horizon {horizon:.6g} = 50 / "
+            f"lambda*, at most {TRAIN_CAP} rounds) on {tr.programs} trainer "
+            f"in {wall:.2f} s: updates "
+            f"{[lg.updates[-1] for lg in logs_a]}; == run_lanes by hand "
+            f"bitwise ({hand_s:.2f} s); launches {launched}")
+
+        # -- 12e. a mixed population and a class set -----------------------
+        per = {}
+        for scale in (10, 2, 1):
+            net_s = NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1, scale)
+            per[f"n{net_s.n}"] = Scenario(
+                network=net_s,
+                strategy=StrategySpec("explicit",
+                                      p=np.full(net_s.n, 1.0 / net_s.n),
+                                      m=net_s.n),
+                sim=SimSpec(backend="kernel", chunk=8))
+        cls_scn = Scenario(network=NetworkSpec(classes=big_spec),
+                           strategy=StrategySpec("time_opt", m_max=M,
+                                                 steps=200))
+        mixed = ScenarioSuite({**per, "classes": cls_scn}, seeds=(0,),
+                              device=dev)
+        res_m, wall_r, _ = timed(mixed.resolve)
+        check(res_m["classes"][1] == big_res.m and np.array_equal(
+            res_m["classes"][0], big_res.p.cpu().numpy()),
+            "the suite's class time_opt != phase 8's kernel sweep")
+        ana_m, wall, launched = timed(lambda: mixed.run(mode="analyze"))
+        check(ana_m.programs == 2, f"mixed analyze: {ana_m.programs} programs")
+        check(launched.get("buzen") == 1
+              and launched.get("buzen_classes") == 1,
+              f"mixed analyze: one launch of kernels 1 and 5 each, got "
+              f"{launched}")
+        table = max(res_m[k][1] for k in per)
+        drift = {}
+        for name, scn in per.items():
+            p, m = res_m[name]
+            row = ana_m.entries[name]
+            # the padding contract: the row is its network alone, unpadded,
+            # at the bucket's table size, bitwise
+            fn = ts._build_analyze(table, False, False)
+            alone = fn(stack_lanes([scn.params(p, device=dev)]),
+                       torch.tensor([m], device=dev),
+                       ts._stack_consts([scn.consts], dev), None,
+                       torch.zeros(1, dtype=torch.float64, device=dev))
+            check(all(row[f] == float(alone[f][0])
+                      for f in ("throughput", "K_eps", "tau"))
+                  and np.array_equal(row["delays"],
+                                      alone["delays"][0].cpu().numpy()),
+                  f"mixed analyze {name} != its network alone at m_max "
+                  f"{table}")
+            solo = ScenarioSuite({name: scn}, device=dev).run(
+                mode="analyze")
+            s_row = solo.entries[name]
+            if m == table:
+                check(s_row["tau"] == row["tau"] and np.array_equal(
+                    s_row["delays"], row["delays"]),
+                    f"mixed analyze {name} != a suite of its own")
+            drift[name] = max(rel(s_row[f], row[f])
+                              for f in ("throughput", "K_eps", "tau",
+                                        "delays"))
+            check(drift[name] <= 1e-4,
+                  f"mixed analyze {name} vs a suite of its own: "
+                  f"{drift[name]}")
+        crow = ana_m.entries["classes"]
+        check(np.isfinite(crow["tau"]) and crow["m"] == big_res.m
+              and crow["delays"].shape == (big_spec.C,),
+              f"class analyze row {crow['tau']}, m {crow['m']}")
+        log(f"phase 12: mixed suite n = {list(per)} + classes (n = "
+            f"{cls_scn.n}): class time_opt == phase 8 bitwise (m*="
+            f"{res_m['classes'][1]}, {wall_r:.2f} s); analyze "
+            f"{ana_m.programs} programs in {wall:.3f} s, launches "
+            f"{launched}; each per-client row == its network alone at m_max "
+            f"{table} bitwise; against a suite of its own (its own m_max) "
+            f"max rel {drift} (bound 1e-4; bitwise at m = {table})")
+        per_suite = ScenarioSuite(per, seeds=(0,), device=dev)
+        U, W = 600, 400  # paper_scale_sim's depth: bitwise checks only
+        sim_m, wall, launched = timed(lambda: per_suite.run(
+            mode="simulate", num_updates=U, warmup=W))
+        check(sim_m.programs == 1 and sim_m.lanes == 3,
+              f"mixed simulate: {sim_m.programs} programs")
+        for name, scn in per.items():
+            p, m = res_m[name]
+            alone = simulate_stats_lanes(
+                [scn.params(p, device=dev)], [m], U, warmup=W, seeds=[0],
+                m_max=table, backend="kernel", chunk=8)
+            check(same_stats(stack_lanes(sim_m.entries[name]), alone),
+                  f"mixed simulate {name} != its solo run")
+        log(f"phase 12: mixed simulate 3 lanes (n padded to "
+            f"{max(s.n for s in per.values())}) in {sim_m.programs} program, "
+            f"{wall:.2f} s, launches {launched}; each lane == its solo run "
+            f"at m_max {table} bitwise")
+
+        # -- 12f. re-runs come from the caches -----------------------------
+        for what, s_, mode, kw in (
+                ("grid", suite, "analyze", {}),
+                ("grid", suite, "simulate",
+                 dict(num_updates=SUITE_UPDATES, warmup=SUITE_WARMUP)),
+                ("grid", suite, "train",
+                 dict(model=model, horizon_time=horizon,
+                      max_updates=TRAIN_CAP, **over)),
+                ("mixed", mixed, "analyze", {}),
+                ("per-client", per_suite, "simulate",
+                 dict(num_updates=U, warmup=W))):
+            again, wall, launched = timed(lambda: s_.run(mode=mode, **kw))
+            check(again.cache_hits == len(s_) and again.programs == 0
+                  and not launched,
+                  f"re-run {what} {mode}: {again.cache_hits} hits, "
+                  f"{again.programs} programs, launches {launched}")
+        log(f"phase 12: re-runs of every mode: cache_hits == len(suite), "
+            f"programs 0, no launch; counters "
+            f"{suite.metrics.snapshot()['counters']}")
+    finally:
+        cbz.set_backend(saved)
+    total = snap()
+    check(all(total[k] > 0 for k in ("buzen", "buzen_classes", "megastep",
+                                     "fused_update")),
+          f"a kernel of the suite path never launched: {total}")
+
+    # -- 12g. the examples -------------------------------------------------
+    spec = importlib.util.spec_from_file_location(
+        "paper_scale_sim_torch",
+        ROOT / "examples" / "paper_scale_sim_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got, wall, launched = timed(lambda: mod.main(device=dev))
+    check(got["lanes"] == 6 and got["programs"] == 1
+          and got["cache_hits"] == 1
+          and abs(got["throughput"] - got["closed_form"])
+          <= 0.1 * got["closed_form"],
+          f"paper_scale_sim_torch.main(): {got}")
+    log(f"phase 12: paper_scale_sim_torch.main() (n={got['n']}, m={got['m']},"
+        f" 6 lanes, {got['backend']}) in {wall:.2f} s: throughput "
+        f"{got['throughput']:.4f} vs Prop. 4 {got['closed_form']:.4f}; "
+        f"launches {launched}")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable,
+                          str(ROOT / "examples" / "async_fl_emnist_torch.py"),
+                          "--horizon", "20"],
+                         capture_output=True, text=True, timeout=600)
+    ex_s = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"examples/async_fl_emnist_torch.py exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    for line in out.stdout.strip().splitlines():
+        log(f"phase 12: async_fl_emnist | {line}")
+    found = re.search(r"lane trainer on cuda: (\d+) lanes in (\d+) programs",
+                      out.stdout)
+    check(found is not None and found.groups() == ("4", "1"),
+          "the EMNIST example printed no '4 lanes in 1 programs' line")
+    log(f"phase 12: examples/async_fl_emnist_torch.py --horizon 20 exited 0 "
+        f"in {ex_s:.1f} s; launches {total} ({card}) "
+        f"[{time.perf_counter() - t_phase:.1f} s]")
 
 
 def lm_phase(dev, card: str, seed: int) -> dict:
@@ -2462,14 +2845,18 @@ def main() -> int:
     class_bwd_rec.update(class_bwd_times)
 
     # -- 11. the Scenario API: resolution, from_scenario, the quickstart ---
-    scenario_phase(dev, card, net, res_k, lam_star, big_spec, big_res, M)
+    strategies = scenario_phase(dev, card, net, res_k, lam_star, big_spec,
+                                big_res, M)
+
+    # -- 12. ScenarioSuite: analyze, simulate, train, the examples ---------
+    suite_phase(dev, card, res_k, lam_star, strategies, big_spec, big_res, M)
 
     # -- 9. the dense LM's prefill: Qwen3-8B, kernel 6 ---------------------
     flash_rec = lm_phase(dev, card, seed)
 
     # -- 10. the dense LM's decode and the serve loop, kernel 7 -----------
     decode_rec = decode_phase(dev, card, seed)
-    log(f"chip_smoke: phases 1-11 passed in "
+    log(f"chip_smoke: phases 1-12 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [buzen_rec, bwd_rec, event_rec, mega_rec,

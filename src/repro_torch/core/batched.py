@@ -48,6 +48,8 @@ def batch_log_normalizing_constants(params: NetworkParams,
                                     ) -> torch.Tensor:
     """``log Z_{n, 0..m_max}`` for every routing row of ``p_batch [B, n]``.
 
+    The rates are shared (``[n]``, scalar ``mu_cs``) or one network per row
+    (``[B, n]``, ``mu_cs [B]``, as lane-stacked networks give them).
     ``"kernel"`` runs the batched CUDA Buzen kernel with the CS station
     appended as one more column; ``"torch"`` runs the float64 DP with the
     batch as a leading axis.  ``None`` defers to the process-wide flag.
@@ -56,8 +58,10 @@ def batch_log_normalizing_constants(params: NetworkParams,
     if backend == "kernel":
         from ..kernels.buzen import buzen_log_Z_batched
 
-        log_rho = torch.log(p_batch) - torch.log(params.mu_c)[None, :]
-        gamma = p_batch * (1.0 / params.mu_d + 1.0 / params.mu_u)[None, :]
+        # the rates broadcast against the rows: [n] over every row, [B, n]
+        # row by row
+        log_rho = torch.log(p_batch) - torch.log(params.mu_c)
+        gamma = p_batch * (1.0 / params.mu_d + 1.0 / params.mu_u)
         log_gamma_total = torch.log(seqsum(gamma, dim=-1))
         if params.mu_cs is not None:
             log_load_cs = (torch.log(seqsum(p_batch, dim=-1))
@@ -149,7 +153,8 @@ def round_complexity_padded(params: NetworkParams, m: torch.Tensor,
     delays = expected_relative_delay_padded(params, m, logZ, m_max)
     if mask is not None:
         p_safe = torch.where(mask, p, 1.0)
-        inv_np = torch.where(mask, 1.0 / (n * p_safe), 0.0)
+        # n_active is a scalar, or [B] on lane-stacked networks
+        inv_np = torch.where(mask, 1.0 / (n[..., None] * p_safe), 0.0)
         stale_terms = torch.where(mask, delays / p_safe**2, 0.0)
     else:
         inv_np = 1.0 / (n * p)

@@ -50,9 +50,11 @@ class NetworkParams(NamedTuple):
 
     Leaves are float64 tensors on one device.  ``p`` may carry leading
     batch axes (``[..., n]``, one routing row per batch entry) while the
-    rates stay ``[n]``.  Padded-``n`` convention: rows beyond ``n_active``
-    carry zero routing mass and unit rates (:func:`pad_network`);
-    ``n_active is None`` means every row is real.
+    rates stay ``[n]``; lane-stacked networks (``stack_lanes``) carry one
+    lane axis on every leaf (``p [L, n]``, ``n_active [L]``).  Padded-``n``
+    convention: rows beyond ``n_active`` carry zero routing mass and unit
+    rates (:func:`pad_network`); ``n_active is None`` means every row is
+    real.
     """
 
     p: torch.Tensor
@@ -78,7 +80,9 @@ class NetworkParams(NamedTuple):
     def active_mask(self) -> Optional[torch.Tensor]:
         if self.n_active is None:
             return None
-        return torch.arange(self.n, device=self.device) < self.n_active
+        # [..., n]: a lane-stacked n_active [L] gives one mask row per lane
+        return (torch.arange(self.n, device=self.device)
+                < self.n_active[..., None])
 
     @property
     def log_rho(self) -> torch.Tensor:
@@ -381,7 +385,8 @@ def class_log_normalizing_constants(classes: ClassParams, m_max: int, *,
     to float64 roundoff and is bitwise invariant to :func:`pad_classes`.
     ``backend="kernel"`` runs the CUDA class Buzen kernel (float32
     forward, float64 backward) with the CS station as a count-1 column.
-    ``classes.p`` may carry leading batch axes (``count`` stays ``[C]``).
+    ``classes.p`` may carry leading batch axes (``count`` stays ``[C]``),
+    or every leaf one lane axis (lane-stacked class sets, ``p [L, C]``).
     """
     backend = _backend if backend is None else backend
     if backend == "kernel":

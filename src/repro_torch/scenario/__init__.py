@@ -1,8 +1,10 @@
 """repro_torch.scenario — the declarative Scenario API (port of
 ``repro.scenario``): timing laws and the registries, the spec
 (:class:`Scenario` and its sub-specs, JSON round-trips, ``hash``,
-``stack``) and the strategy and objective registrations with
-:func:`resolve_strategy`.  ``ScenarioSuite`` is not ported yet.
+``stack``), the strategy and objective registrations with
+:func:`resolve_strategy`, and :class:`ScenarioSuite` (``analyze``,
+``simulate`` and ``train`` over bucketed, padded lanes) with its
+:class:`SuiteResult` and :class:`SuiteCaches`.
 
 Import structure, as in the JAX package: this ``__init__`` eagerly loads
 only the dependency-free ``registry`` and ``laws`` modules (the engines in
@@ -22,7 +24,8 @@ _SPEC = ("Scenario", "NetworkSpec", "ClassSpec", "LearningSpec", "EnergySpec",
          "PAPER_CLUSTERS_TABLE1", "PAPER_CLUSTERS_TABLE6", "expand_clusters",
          "DEFAULT_ETA", "MAX_THROUGHPUT_ETA", "EXPLICIT", "stack")
 _SUITE = ("ObjectiveDef", "ResolveContext", "resolve_strategy",
-          "get_objective", "default_m_max")
+          "get_objective", "default_m_max", "ScenarioSuite", "SuiteResult",
+          "SuiteCaches")
 
 __all__ = [
     "Registry", "TIMING_LAWS", "STRATEGIES", "OBJECTIVES", "PARTITIONS",

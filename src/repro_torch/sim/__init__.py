@@ -1,9 +1,12 @@
 """repro_torch.sim — the simulation-backend subsystem of the event engine
-(port of ``repro.sim``): the backend flag and the lane-batched runs."""
+(port of ``repro.sim``): the backend flag, the lane-batched runs and the
+memoized lane runners (``build_lanes_fn``, ``build_class_lanes_fn``)."""
 from .backend import BACKENDS, get_backend, resolve_backend, set_backend
-from .batched_events import (run_lanes, simulate_stats_classes_lanes,
-                             simulate_stats_lanes)
+from .batched_events import (build_class_lanes_fn, build_lanes_fn, run_lanes,
+                             simulate_stats_classes_lanes,
+                             simulate_stats_lanes, stack_lanes)
 
 __all__ = ["BACKENDS", "set_backend", "get_backend", "resolve_backend",
            "run_lanes", "simulate_stats_lanes",
-           "simulate_stats_classes_lanes"]
+           "simulate_stats_classes_lanes", "build_lanes_fn",
+           "build_class_lanes_fn", "stack_lanes"]

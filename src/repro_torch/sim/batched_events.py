@@ -19,9 +19,14 @@ equal singles and every ``chunk`` equals ``chunk = 1``, bitwise.
 networks (:class:`repro_torch.core.buzen.ClassParams`) through the same
 loop on ``"reference"`` and ``"batched"``; the class transition has no
 kernel, so ``"kernel"`` raises for class lanes.
+
+:func:`build_lanes_fn` and :func:`build_class_lanes_fn` return the runner
+of one static signature (the programs ``ScenarioSuite`` dispatches its
+buckets through), memoized per signature.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -29,7 +34,7 @@ import torch
 from ..core import events
 from ..core.buzen import ClassParams, NetworkParams
 from ..core.events import (DRAW_EVENTS, EventStats, finalize_stats, lane,
-                           stack_lanes)
+                           stack_lanes)  # noqa: F401  (re-exported)
 from ..scenario.laws import get_law
 from .backend import resolve_backend
 
@@ -149,3 +154,66 @@ def _lanes(kind, params, ms, num_updates: int, *, warmup, generators, seeds,
                      warmup=int(warmup), distribution=distribution,
                      m_max=m_max, power=power, backend=backend,
                      chunk=int(chunk), draw_events=int(draw_events))
+
+
+def _refuse_traces(trace_events: int) -> None:
+    if int(trace_events) > 0:
+        raise NotImplementedError(
+            f"trace_events={trace_events}: the event telemetry ring is not "
+            "ported yet (ROADMAP Queue 1 item 6)")
+
+
+def build_lanes_fn(backend: str, num_updates: int, warmup: int,
+                   distribution: str, m_max: int, has_power: bool, *,
+                   trace_events: int = 0, chunk: int = 1):
+    """The lane-sweep runner for one static signature:
+    ``fn(lane_params, m_vec, generators, power) -> EventStats`` with a
+    leading lane axis on every field.  ``lane_params`` is lane-stacked
+    (``[L, n]`` leaves), ``m_vec`` the ``L`` concurrencies, ``generators``
+    one ``torch.Generator`` per lane and ``power`` ``None`` when
+    ``has_power`` is false, else a lane-stacked ``PowerProfile``.  ``chunk
+    > 1`` retires that many events per step (bitwise the same statistics).
+    Runners are memoized per signature; ``trace_events > 0`` (the event
+    telemetry ring) raises."""
+    _refuse_traces(trace_events)
+    get_law(distribution)
+    return _build_lanes_fn(NetworkParams, resolve_backend(backend),
+                           int(num_updates), int(warmup), distribution,
+                           int(m_max), bool(has_power), int(chunk))
+
+
+def build_class_lanes_fn(backend: str, num_updates: int, warmup: int,
+                         distribution: str, m_max: int, has_power: bool, *,
+                         trace_events: int = 0, chunk: int = 1):
+    """:func:`build_lanes_fn` for lanes of class-aggregated networks
+    (lane-stacked :class:`ClassParams`, per-class power profiles).  No
+    kernel exists for the class transition: ``"kernel"`` raises."""
+    _refuse_traces(trace_events)
+    get_law(distribution)
+    backend = resolve_backend(backend)
+    if backend == "kernel":
+        raise ValueError(
+            "the class-aggregated event engine has no kernel; pin "
+            "backend='batched' or 'reference' for class lanes")
+    return _build_lanes_fn(ClassParams, backend, int(num_updates),
+                           int(warmup), distribution, int(m_max),
+                           bool(has_power), int(chunk))
+
+
+@functools.lru_cache(maxsize=None)
+def _build_lanes_fn(kind, backend: str, num_updates: int, warmup: int,
+                    distribution: str, m_max: int, has_power: bool,
+                    chunk: int):
+    def fn(lane_params, m_vec, generators, power) -> EventStats:
+        if not isinstance(lane_params, kind):
+            raise TypeError(f"expected {kind.__name__} lanes, got "
+                            f"{type(lane_params).__name__}")
+        if (power is not None) != has_power:
+            raise ValueError(f"this runner was built with has_power="
+                             f"{has_power}, got power={power!r}")
+        return run_lanes(lane_params, [int(m) for m in m_vec],
+                         list(generators), num_updates, warmup=warmup,
+                         distribution=distribution, m_max=m_max,
+                         power=power, backend=backend, chunk=chunk)
+
+    return fn

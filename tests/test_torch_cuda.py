@@ -1216,3 +1216,107 @@ def test_device_trainer_from_scenario_on_the_card_is_hand_built(cuda):
         assert a.updates[-1] > 10
         assert (a.times, a.losses, a.updates, a.energy) == (
             b.times, b.losses, b.updates, b.energy)
+
+
+# ---------------------------------------------------------------------------
+# ScenarioSuite on the card: lane-stacked Buzen routes, simulate backends
+# ---------------------------------------------------------------------------
+
+def _lane_nets(dev, sizes, mu_cs=None):
+    from repro_torch.core.buzen import pad_network
+
+    rng = np.random.default_rng(sum(sizes))
+    nets = []
+    for n in sizes:
+        t = [torch.as_tensor(x, dtype=torch.float64, device=dev)
+             for x in (rng.dirichlet(np.ones(n)), rng.uniform(0.5, 3, n),
+                       rng.uniform(0.5, 3, n), rng.uniform(0.5, 3, n))]
+        net = NetworkParams(*t)
+        nets.append(net if mu_cs is None else net.with_cs(mu_cs))
+    n_max = max(sizes)
+    return nets, E.stack_lanes([pad_network(x, n_max) for x in nets])
+
+
+@pytest.mark.parametrize("mu_cs", [None, 2.5])
+def test_kernel_route_lane_stacked_networks_bitwise_alone(cuda, mu_cs):
+    from repro_torch.core.buzen import log_normalizing_constants
+
+    nets, lanes = _lane_nets(cuda, (5, 9, 12), mu_cs)
+    kb.buzen_batched.launches = 0
+    got = log_normalizing_constants(lanes, 20, backend="kernel")
+    assert kb.buzen_batched.launches == 1
+    for i, net in enumerate(nets):
+        want = log_normalizing_constants(net, 20, backend="kernel")
+        assert torch.equal(got[i], want), i
+    # a shared network with a batch of routing rows is what it was: the
+    # wrapper's rows, one by one, through the same kernel
+    net = nets[1]
+    rows = torch.stack([net.p, net.p.flip(0)])
+    shared = log_normalizing_constants(net._replace(p=rows), 20,
+                                       backend="kernel")
+    from repro_torch.core.numerics import seqsum
+
+    log_rho = torch.log(rows) - torch.log(net.mu_c)[None, :]
+    gamma = rows * (1.0 / net.mu_d + 1.0 / net.mu_u)[None, :]
+    if mu_cs is not None:
+        log_rho = torch.cat([log_rho, (torch.log(seqsum(rows, dim=-1))
+                                       - torch.log(net.mu_cs))[:, None]], -1)
+    assert torch.equal(shared, kb.buzen_log_Z_batched(
+        log_rho, torch.log(seqsum(gamma, dim=-1)), 20))
+
+
+def test_kernel_route_lane_stacked_classes_bitwise_alone(cuda):
+    from repro_torch.core.buzen import (ClassParams,
+                                        class_log_normalizing_constants)
+
+    rng = np.random.default_rng(3)
+    sets = []
+    for counts in ([3, 4, 0], [1, 5, 2], [7, 0, 0]):
+        t = [torch.as_tensor(x, dtype=torch.float64, device=cuda)
+             for x in (rng.uniform(0.01, 0.1, 3), rng.uniform(0.5, 3, 3),
+                       rng.uniform(0.5, 3, 3), rng.uniform(0.5, 3, 3))]
+        sets.append(ClassParams(*t, count=torch.as_tensor(
+            counts, dtype=torch.int64, device=cuda)))
+    lanes = E.stack_lanes(sets)
+    kb.buzen_classes_batched.launches = 0
+    got = class_log_normalizing_constants(lanes, 24, backend="kernel")
+    assert kb.buzen_classes_batched.launches == 1
+    for i, cp in enumerate(sets):
+        assert torch.equal(got[i], class_log_normalizing_constants(
+            cp, 24, backend="kernel")), i
+
+
+def test_suite_simulate_kernel_equals_batched(cuda):
+    from repro_torch.scenario import (EnergySpec, Scenario, ScenarioSuite,
+                                      SimSpec, StrategySpec)
+
+    rng = np.random.default_rng(8)
+    scns = {}
+    for n, m in ((4, 3), (7, 5), (9, 4)):
+        scns[f"n{n}"] = Scenario(
+            network=NetworkSpec(mu_c=rng.uniform(0.5, 3, n),
+                                mu_d=rng.uniform(0.5, 3, n),
+                                mu_u=rng.uniform(0.5, 3, n)),
+            strategy=StrategySpec("explicit", p=rng.dirichlet(np.ones(n)),
+                                  m=m), sim=SimSpec(chunk=8))
+    scns["power"] = Scenario(
+        network=NetworkSpec(mu_c=rng.uniform(0.5, 3, 5),
+                            mu_d=rng.uniform(0.5, 3, 5),
+                            mu_u=rng.uniform(0.5, 3, 5), mu_cs=2.0),
+        energy=EnergySpec(kappa=rng.uniform(0.1, 2, 5),
+                          P_u=rng.uniform(0.5, 3, 5),
+                          P_d=rng.uniform(0.5, 3, 5), P_cs=0.5),
+        strategy=StrategySpec("asyncsgd"), sim=SimSpec(chunk=8))
+    out = {}
+    for be in ("batched", "kernel"):
+        suite = ScenarioSuite(scns, seeds=(0, 1))
+        ke.megastep_lanes.launches = 0
+        out[be] = suite.run(mode="simulate", num_updates=300, warmup=50,
+                            backend=be)
+        assert out[be].programs == 2
+        assert (ke.megastep_lanes.launches > 0) == (be == "kernel")
+    for name in scns:
+        for a, b in zip(out["batched"].entries[name],
+                        out["kernel"].entries[name]):
+            for f in a._fields:
+                assert torch.equal(getattr(a, f), getattr(b, f)), (name, f)
