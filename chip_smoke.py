@@ -18,8 +18,9 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      their padded columns bitwise the same, forward and real partials;
   3. the ``kernel`` route (the event lane kernel) against ``batched``: 6
      lanes, n = 100, m_max = 132, 2,000 events from the same pre-drawn
-     blocks, exponential and deterministic laws, with and without a CS
-     station — bitwise; the same events through the transition-only
+     blocks, exponential and deterministic laws (500 under the lognormal
+     and hyperexponential laws), with and without a CS station — bitwise;
+     for the scale laws the same events through the transition-only
      event kernel and its plain version, each carrying its own tables
      (every event's tables, time and descriptors bitwise); then the
      transition-only megastep kernel against its plain version on random
@@ -31,7 +32,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      with its statistics) against their plain versions (the plain
      transition, then ``replay_event`` per kept event) on every
      ``EventState`` leaf, the event times and the descriptors, bitwise: 6
-     lanes at n = 100, m_max = 132, both laws, CS on and off, power none,
+     lanes at n = 100, m_max = 132, all four laws (the scale, H2 and
+     lognormal rate forms of the kernel), CS on and off, power none,
      without and with ``P_cs`` (the energy integral on the card's DFMA
      against the plain version's emulated fused multiply-adds), ``keep``
      masks, chunk 1, 7 and 32 with per-lane ``rem < chunk`` and
@@ -85,7 +87,7 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      clients), batch 32, ``grad_clip`` 5, through ``run_strategy_grid``:
      ``asyncsgd`` (uniform p, m = n) and ``time_opt`` (phase 4's
      ``(p*, m*)``) x 2 seeds = 4 lanes, ``sim_backend="kernel"``,
-     ``sim_chunk=8``, horizon 400 / lambda(p*, m*).  The counts are zeroed
+     ``sim_chunk=8``, horizon 200 / lambda(p*, m*).  The counts are zeroed
      just before this run and read just after it: the fused update launches
      once per update round and the megastep lane kernel on every
      ``next_update`` (the event lane kernel and the transition-only kernels
@@ -232,6 +234,20 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      ``examples/async_fl_emnist_torch.py --horizon 20`` in a process of
      its own (exit 0, "4 lanes in 1 programs").  Each check logs its wall
      time and the launches of kernels 1, 1b, 3, 4, 5 and 5b.
+ 13. the lognormal and hyperexponential laws on the main path (run after
+     phase 12, with the event kernels' counts zeroed just before and read
+     just after): (a) for each law, 6 lanes at (p*, m*) of Table 1 (n =
+     100) on ``kernel`` at E = 8, 15,000 updates after 400 (exactly
+     ceil(events / 8) megastep launches, no other event kernel), their
+     pooled throughput within rtol 0.06 of the port's host simulator
+     ``AsyncNetworkSim`` on the same law (60,000 updates after 400), Prop.
+     4 logged beside them (exact for exponential service only, not a
+     gate); (b) a hyperexponential ``ScenarioSuite.simulate`` (``time_opt``
+     at (p*, m*) and ``asyncsgd``, 2 seeds, 300 updates after 50, E = 8)
+     on ``kernel`` bitwise the same suite on ``batched``, one program each;
+     (c) the device ms per lock-step event of the lane kernel's three rate
+     forms (scale, H2, lognormal) at E = 1 and 8 (6 lanes x m*, two
+     ``torch.profiler`` traces, the larger).
 
 Phase 3 also holds the fused-update kernel against its plain version
 (bitwise on the new parameters, ``rtol 1e-5`` on the squared norm) at
@@ -284,6 +300,15 @@ WINDOW_UPDATES = 200
 # its CNN lanes' round cap
 SUITE_UPDATES, SUITE_WARMUP = 3000, 4000
 TRAIN_CAP = 150
+# phase 13's depth: the card's 6 lanes and the host simulator (updates
+# after 400 of warm-up each), and its H2 suite's on each route.  At
+# phase 4's 1,500 updates the H2 lanes' pooled throughput spreads 4.25%
+# (one standard deviation over ten seed sets of 6 lanes, tools/
+# law_spread.py on the card), too close to the 6% gate; at 15,000 it
+# spreads 1.2%, and a 60,000-update host run about as much
+LAW_UPDATES = 15_000
+HOST_UPDATES = 60_000
+SUITE_LAW_UPDATES = 300
 # phase 8's class lanes at E = 1 against E = 8 and with a power profile:
 # on class lanes the chunk moves only the draw cursor's window, and power
 # only adds the energy integral, so short runs check both
@@ -344,13 +369,16 @@ def lane_inputs(dev, net, n, rng, K, m_max, law, with_cs, power):
     """``K`` lanes at ``net``'s rates with Dirichlet routing, their power
     profile (``power`` None, ``"no_pcs"`` or ``"pcs"``), states of
     ``m_max / K`` to ``m_max`` tasks (a window of updates 4 to 24) and a
-    function of ``count`` giving ``fs [K, count, 4]`` and ``c_new [K,
-    count]`` drawn from ``rng``."""
+    function of ``count`` giving ``fs [K, count, W]`` and ``c_new [K,
+    count]`` drawn from ``rng`` in the law's rate form (normals for the
+    lognormal, the branch factors after the four scalars for the
+    hyperexponential)."""
     import numpy as np
     import torch
 
     from repro_torch.core.energy import PowerProfile
     from repro_torch.core.events import init_state, stack_lanes
+    from repro_torch.scenario.laws import H2_FAST, H2_SLOW
 
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
     prms, pws, states = [], [], []
@@ -369,10 +397,15 @@ def lane_inputs(dev, net, n, rng, K, m_max, law, with_cs, power):
     def events(count):
         unit = ((lambda: np.ones((K, count))) if law == "deterministic"
                 else (lambda: rng.exponential(size=(K, count))))
-        fs = np.stack([unit(), unit(), unit() / 2.0,
-                       unit() / 5.0 if with_cs else np.zeros((K, count))],
-                      -1)
-        return t(fs), t(rng.integers(0, n, (K, count))).to(torch.int32)
+        x = ((lambda: rng.normal(size=(K, count))) if law == "lognormal"
+             else unit)
+        cols = [x(), x(), unit() / 2.0,
+                unit() / 5.0 if with_cs else np.zeros((K, count))]
+        if law == "hyperexponential":
+            cols += [rng.choice([H2_FAST, H2_SLOW], (K, count))
+                     for _ in "uc"]
+        return (t(np.stack(cols, -1)),
+                t(rng.integers(0, n, (K, count))).to(torch.int32))
 
     return (stack_lanes(prms), None if power is None else stack_lanes(pws),
             stack_lanes(states), events)
@@ -410,9 +443,11 @@ def lane_phase3(dev, net, n, rng) -> float:
             keep = (None if i % 4 == 0 else
                     torch.as_tensor(rng.random(K) < 0.8, device=dev))
             got = ke.event_step_lanes(params, st, fs[:, i], cn[:, i],
-                                      power=pw, keep=keep, donate=mine)
+                                      power=pw, keep=keep, donate=mine,
+                                      law=law)
             want = E.event_step_lanes_plain(params, want_st, fs[:, i],
-                                            cn[:, i], power=pw, keep=keep)
+                                            cn[:, i], power=pw, keep=keep,
+                                            law=law)
             torch.cuda.synchronize()
             same(got, want, f"event {i}, {what}")
             st, want_st, mine = got[0], want[0], True
@@ -423,10 +458,10 @@ def lane_phase3(dev, net, n, rng) -> float:
                 rem[0] = chunk
                 got = ke.megastep_lanes(params, st, fs, cn, rem.tolist(),
                                         power=pw, stop_on_update=stop,
-                                        donate=True)
+                                        donate=True, law=law)
                 want = E.megastep_lanes_plain(params, want_st, fs, cn,
                                               rem.tolist(), power=pw,
-                                              stop_on_update=stop)
+                                              stop_on_update=stop, law=law)
                 torch.cuda.synchronize()
                 same(got, want, f"chunk {chunk}, stop {stop}, {what}")
                 st, want_st = got[0], want[0]
@@ -434,7 +469,10 @@ def lane_phase3(dev, net, n, rng) -> float:
 
     cases = [("exponential", False, None), ("exponential", True, "pcs"),
              ("deterministic", True, "no_pcs"),
-             ("deterministic", False, "pcs")]
+             ("deterministic", False, "pcs"),
+             ("hyperexponential", True, "pcs"),
+             ("hyperexponential", False, None),
+             ("lognormal", False, "no_pcs"), ("lognormal", True, "pcs")]
     chunks = [(1, False, 4), (7, False, 6), (7, True, 6), (32, False, 2),
               (32, True, 2)]
     rounds = [run(net, n, 6, 132, *case, 60, chunks) for case in cases]
@@ -445,7 +483,7 @@ def lane_phase3(dev, net, n, rng) -> float:
     big_chunks = [(1, False, 2), (7, False, 2), (7, True, 2), (32, False, 1),
                   (32, True, 1)]
     rounds += [run(big, 3000, 3, 40, *case, 20, big_chunks)
-               for case in cases[:3]]
+               for case in cases[:3] + cases[4:5] + cases[6:7]]
     # a sub-batch of lanes keeps its rows' bits
     params, pw, st, draw = lane_inputs(dev, net, n, rng, 6, 132,
                                        "exponential", False, "no_pcs")
@@ -466,11 +504,13 @@ def lane_phase3(dev, net, n, rng) -> float:
           "lane kernel: a sub-batch's rows differ from the full batch's")
     log(f"phase 3: lane kernels == plain lane steps bitwise on every "
         f"EventState leaf, time and descriptor (n = {n}, m_max = 132, 6 "
-        f"lanes, staged in shared memory: both laws, CS on/off, power none "
-        f"/ without / with P_cs on DFMA, keep masks, chunk 1/7/32, rem < "
-        f"chunk, stop_on_update on/off; n = 3000, m_max = 40, 3 lanes, in "
-        f"global memory: the same but for the deterministic law without "
-        f"CS; a sub-batch bitwise; rounds reached {rounds})")
+        f"lanes, staged in shared memory: all four laws (the scale, H2 and "
+        f"lognormal forms), CS on/off, power none / without / with P_cs on "
+        f"DFMA, keep masks, chunk 1/7/32, rem < chunk, stop_on_update "
+        f"on/off; n = 3000, m_max = 40, 3 lanes, in global memory: "
+        f"exponential with and without CS, deterministic with CS, H2 with "
+        f"CS and P_cs, lognormal without CS; a sub-batch bitwise; rounds "
+        f"reached {rounds})")
     return err
 
 
@@ -583,13 +623,13 @@ def train_phase(dev, net, n, p_star, m_star, lam_star) -> dict:
                for i in dirichlet_partition(train.y, n, alpha=0.2)]
     strategies = {"asyncsgd": (np.full(n, 1.0 / n), n),
                   "time_opt": (p_star.p, m_star)}
-    horizon = 400.0 / lam_star
+    horizon = 200.0 / lam_star
     seeds = (0, 1)
     log(f"phase 7: data ready in {time.perf_counter() - t0:.2f} s: "
         f"{len(train.y)} train / {len(test.y)} test samples over {n} "
         f"clients (sizes {min(len(y) for _, y in clients)}.."
         f"{max(len(y) for _, y in clients)}); horizon {horizon:.6g} "
-        f"(400 / lambda(p*, m*={m_star}) = 400 / {lam_star:.6g})")
+        f"(200 / lambda(p*, m*={m_star}) = 200 / {lam_star:.6g})")
 
     def trainer(chunk):
         cfg = AsyncFLConfig(eta=DEFAULT_ETA, batch_size=32, grad_clip=5.0,
@@ -1563,6 +1603,152 @@ def suite_phase(dev, card: str, res_k, lam_star, strategies, big_spec,
         f"[{time.perf_counter() - t_phase:.1f} s]")
 
 
+def laws_phase(dev, card: str, net, n: int, p_star, m_star: int,
+               lam_star: float) -> None:
+    """Phase 13 (see the module docstring): the lognormal and
+    hyperexponential laws on the main path at the paper's size, their lane
+    kernel instantiations' device time beside the scale form's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.events import (EventState, EventStream, init_state,
+                                         stack_lanes)
+    from repro_torch.core.simulator import AsyncNetworkSim
+    from repro_torch.kernels import events as ke
+    from repro_torch.scenario import (NetworkSpec, Scenario, ScenarioSuite,
+                                      SimSpec, StrategySpec)
+    from repro_torch.sim import simulate_stats_lanes
+
+    t_phase = time.perf_counter()
+    counted = (ke.event_step_lanes, ke.megastep_lanes, ke.event_step_tables,
+               ke.megastep_tables)
+    for c in counted:
+        c.launches = 0
+    U, W = LAW_UPDATES, 400
+    events = 3 * (U + W) + 3 * m_star + 8
+    for law in ("hyperexponential", "lognormal"):
+        # -- 13a. 6 lanes at (p*, m*) on the kernel route, E = 8 ------------
+        before = [c.launches for c in counted]
+        t0 = time.perf_counter()
+        st = simulate_stats_lanes([p_star] * 6, [m_star] * 6, U, warmup=W,
+                                  seeds=range(6), distribution=law,
+                                  backend="kernel", chunk=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = [c.launches - b for c, b in zip(counted, before)]
+        check(got == [0, -(-events // 8), 0, 0],
+              f"simulate[{law}, kernel, E=8]: launches (event lanes, "
+              f"megastep lanes, event, megastep) {got}")
+        check(bool(torch.isfinite(st.mean_delay).all()
+                   and (st.updates == U).all()),
+              f"simulate[{law}]: updates {st.updates.tolist()}")
+        # pooled over the lanes: the updates over the summed horizon
+        thr = float(st.updates.sum() / st.time.sum())
+        t0 = time.perf_counter()
+        host = AsyncNetworkSim(p_star, m_star, distribution=law,
+                               seed=7).run(HOST_UPDATES, warmup=W)
+        host_s = time.perf_counter() - t0
+        rel = abs(thr - host.throughput) / host.throughput
+        check(rel <= 0.06, f"{law}: the card's lanes' throughput {thr} vs "
+              f"the host simulator's {host.throughput} (rel {rel:.4f})")
+        log(f"phase 13: {law}: 6 lanes x {U} updates after {W} at (p*, "
+            f"m*={m_star}) on kernel, E = 8: {wall:.2f} s, "
+            f"{1e3 * wall / events:.4f} ms per lock-step event, "
+            f"{got[1]} megastep launches; throughput {thr:.6g} vs "
+            f"AsyncNetworkSim {host.throughput:.6g} ({HOST_UPDATES} "
+            f"updates after {W}, {host_s:.2f} s): rel {rel:.4f} (gate "
+            f"0.06); Prop. 4 (exact for exponential service only) "
+            f"{lam_star:.6g}: card {thr / lam_star - 1:+.4f}, host "
+            f"{host.throughput / lam_star - 1:+.4f}")
+
+    # -- 13b. an H2 ScenarioSuite on kernel == the same suite on batched ---
+    spec = NetworkSpec(mu_c=net.mu_c.tolist(), mu_d=net.mu_d.tolist(),
+                       mu_u=net.mu_u.tolist(), law="hyperexponential")
+    scns = {"time_opt": Scenario(network=spec, strategy=StrategySpec(
+                "explicit", p=p_star.p.tolist(), m=m_star),
+                sim=SimSpec(chunk=8)),
+            "asyncsgd": Scenario(network=spec,
+                                 strategy=StrategySpec("asyncsgd"),
+                                 sim=SimSpec(chunk=8))}
+    out = {}
+    for be in ("kernel", "batched"):
+        before = ke.megastep_lanes.launches
+        t0 = time.perf_counter()
+        out[be] = ScenarioSuite(scns, seeds=(0, 1), device=dev).run(
+            mode="simulate", num_updates=SUITE_LAW_UPDATES, warmup=50,
+            backend=be)
+        torch.cuda.synchronize()
+        out[be + "_s"] = time.perf_counter() - t0
+        out[be + "_launches"] = ke.megastep_lanes.launches - before
+        check(out[be].programs == 1 and out[be].lanes == 4,
+              f"H2 suite[{be}]: {out[be].programs} programs, "
+              f"{out[be].lanes} lanes")
+    check(out["kernel_launches"] > 0 and out["batched_launches"] == 0,
+          f"H2 suite: megastep launches {out['kernel_launches']} on kernel, "
+          f"{out['batched_launches']} on batched")
+    for name in scns:
+        for a, b in zip(out["kernel"].entries[name],
+                        out["batched"].entries[name]):
+            check(all(torch.equal(getattr(a, f), getattr(b, f))
+                      for f in a._fields),
+                  f"H2 suite: {name} on kernel != batched")
+    log(f"phase 13: H2 ScenarioSuite.simulate (time_opt m={m_star} and "
+        f"asyncsgd m={n}, 2 seeds, {SUITE_LAW_UPDATES} updates after 50, "
+        f"E = 8): one program, 4 lanes, kernel ({out['kernel_s']:.2f} s, "
+        f"{out['kernel_launches']} megastep launches) == batched "
+        f"({out['batched_s']:.2f} s) bitwise on every lane")
+    counts = [c.launches for c in counted]
+    check(counts[1] > 0 and counts[2] == 0 and counts[3] == 0,
+          f"phase 13's launches (event lanes, megastep lanes, event, "
+          f"megastep): {counts}")
+
+    # -- 13c. device ms of each law form's lane kernel, E = 1 and 8 --------
+    lane_params = stack_lanes([p_star] * 6)
+    forms = {"exponential": "0", "hyperexponential": "1", "lognormal": "2"}
+    per_event = {}
+    for chunk, reps in ((1, 200), (8, 50)):
+        calls = []
+        for law in forms:
+            gens = [torch.Generator(device=dev).manual_seed(900 + i)
+                    for i in range(6)]
+            st = stack_lanes([init_state(p_star, m_star, g, m_max=m_star,
+                                         distribution=law) for g in gens])
+            own = EventState(*[x.clone() for x in st])
+            fs, cn, _ = EventStream([p_star] * 6, gens,
+                                    distribution=law).window(chunk)
+            if chunk == 1:
+                calls.append(lambda s=own, f=fs[:, 0], c=cn[:, 0], lw=law:
+                             ke.event_step_lanes(lane_params, s, f, c,
+                                                 donate=True, law=lw))
+            else:
+                calls.append(lambda s=own, f=fs, c=cn, lw=law:
+                             ke.megastep_lanes(lane_params, s, f, c, 8,
+                                               donate=True, law=lw))
+
+        def run(calls=calls, reps=reps):
+            for fn in calls:
+                for _ in range(reps):
+                    fn()
+
+        run()
+        torch.cuda.synchronize()
+        best = {}
+        for _ in range(2):  # the larger of two traces (records may drop)
+            for name, (ms, k) in profiled(run)[2].items():
+                if "lanes_kernel" in name:
+                    form = re.search(r"(\d)>", name).group(1)
+                    best[form] = max(best.get(form, (0.0, 0)), (ms, k))
+        for law, form in forms.items():
+            ms, k = best.get(form, (0.0, 0))
+            per_event[(law, chunk)] = (ms / k / chunk if k
+                                       else float("nan"))
+    log(f"phase 13: lane kernel device ms per lock-step event (6 lanes x "
+        f"m*={m_star}, n={n}, one launch retires E events; {card}): "
+        + ", ".join(f"{law} E={e} {v:.6f}"
+                    for (law, e), v in per_event.items()))
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
 def lm_phase(dev, card: str, seed: int) -> dict:
     """Phase 9 (see the module docstring); returns kernel 6's record with
     its launches on one full-depth prefill."""
@@ -2197,10 +2383,16 @@ def main() -> int:
 
     # -- 3. the event kernels against their plain versions -----------------
     # run_event_blocks on the kernel route: the event lane kernel, 2,000
-    # times from the same blocks as the batched route; then the same events
-    # through the transition-only event kernel and its plain version
-    K, EV = 6, 2000
-    for law in ("exponential", "deterministic"):
+    # times from the same blocks as the batched route (500 times under the
+    # lognormal and hyperexponential laws: the batched route takes about
+    # 2.5 ms an event); then, for the scale laws, the same events through
+    # the transition-only event kernel and its plain version (the TPU
+    # kernels' contract, the scale form only)
+    K = 6
+    for law in ("exponential", "deterministic", "lognormal",
+                "hyperexponential"):
+        scale = law in ("exponential", "deterministic")
+        EV = 2000 if scale else 500
         for mu_cs in (None, 5.0):
             lanes = []
             for _ in range(K):
@@ -2228,6 +2420,8 @@ def main() -> int:
             log(f"phase 3: event lane kernel == batched bitwise ({law}, "
                 f"mu_cs={mu_cs}, {EV} events x {K} lanes, round "
                 f"{outs[0].round.tolist()})")
+            if not scale:
+                continue
             # the transition alone on the same events: the event kernel
             # and its plain version, each carrying its own tables and
             # counters from st0
@@ -2851,12 +3045,15 @@ def main() -> int:
     # -- 12. ScenarioSuite: analyze, simulate, train, the examples ---------
     suite_phase(dev, card, res_k, lam_star, strategies, big_spec, big_res, M)
 
+    # -- 13. the lognormal and hyperexponential laws ----------------------
+    laws_phase(dev, card, net, n, p_star, m_star, lam_star)
+
     # -- 9. the dense LM's prefill: Qwen3-8B, kernel 6 ---------------------
     flash_rec = lm_phase(dev, card, seed)
 
     # -- 10. the dense LM's decode and the serve loop, kernel 7 -----------
     decode_rec = decode_phase(dev, card, seed)
-    log(f"chip_smoke: phases 1-12 passed in "
+    log(f"chip_smoke: phases 1-13 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [buzen_rec, bwd_rec, event_rec, mega_rec,

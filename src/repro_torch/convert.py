@@ -99,16 +99,27 @@ def event_blocks(leaves: Mapping, *, device="cuda",
                  dtype=DTYPE) -> EventBlocks:
     """``EventBlocks`` (routed client or class, and member, as int64); a
     JAX block without a CS carries ``svc_cs = ()`` and one of the
-    per-client engine ``member = ()``, which become ``None``."""
+    per-client engine ``member = ()``, which become ``None``.
+
+    The uplink and computation leaves are the law's unit parts: the
+    hyperexponential's ``(branch, e)`` pair (a tuple, as the JAX law's
+    ``unit_draw`` returns it) becomes the port's ``[..., 2]`` leaf.  The
+    JAX lognormal stores raw subkeys there; the caller passes the normals
+    ``jax.random.normal(k)`` of those keys in their place."""
     def opt(name):
         x = leaves.get(name)
         return None if x is None or np.asarray(x).size == 0 else x
 
+    def unit(x):
+        if isinstance(x, (tuple, list)):
+            x = np.stack([np.asarray(v) for v in x], axis=-1)
+        return _tensor(x, device, dtype)
+
     return EventBlocks(
         c_new=_tensor(leaves["c_new"], device, torch.int64),
         svc_down=_tensor(leaves["svc_down"], device, dtype),
-        up=_tensor(leaves["up"], device, dtype),
-        comp=_tensor(leaves["comp"], device, dtype),
+        up=unit(leaves["up"]),
+        comp=unit(leaves["comp"]),
         svc_cs=_tensor(opt("svc_cs"), device, dtype),
         member=_tensor(opt("member"), device, torch.int64))
 

@@ -26,7 +26,12 @@ state-independent and is drawn up front, for many events at once, as
 its events in order.  The generator path and an injected-blocks path
 (e.g. blocks drawn by the JAX package) feed the same cursor, which is how
 the port is held bitwise to the JAX engine.  Same-seed parity with
-``jax.random`` is not ported.
+``jax.random`` is not ported.  The uplink and computation services are
+stored as the timing law's rate-free parts and every route applies the
+completing client's rate in the law's form
+(:func:`repro_torch.scenario.laws.apply_rate`): ``x / mu`` for the
+exponential and deterministic laws, ``x / (f mu)`` for the
+hyperexponential, ``exp((z - log mu) - 0.5)`` for the lognormal.
 
 Every state leaf carries a leading lane axis ``[K, ...]`` in the step;
 :func:`init_state` builds one lane and :func:`stack_lanes` stacks them.
@@ -47,7 +52,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..scenario.laws import get_law
+from ..scenario.laws import form_width, get_law, law_form
 from .buzen import ClassParams, NetworkParams
 from .numerics import DTYPE, fma, seqcumsum, seqsum
 
@@ -129,7 +134,9 @@ class EventBlocks(NamedTuple):
     The routing draw, the downlink service of the re-dispatched task and
     the CS service resolve fully up front; the uplink and computation
     services depend on the completing client's rate, so they are stored as
-    the law's unit parts and rate-applied inside the step.
+    the law's unit parts and rate-applied inside the step (a ``[events]``
+    leaf, or ``[events, 2]`` for the hyperexponential's pair of branch
+    uniform and unit exponential).
     """
 
     c_new: torch.Tensor     # routed client (class, for the class engine)
@@ -367,19 +374,22 @@ def lane(tree, i: int):
 # ---------------------------------------------------------------------------
 
 def _unit_scalars(blk: EventBlocks, distribution: str):
-    """The kernels' per-event scalars of ``blk``: ``[..., 4]`` float64
-    ``[e_up, e_comp, svc_down, svc_cs]`` with the unit parts at unit rate
-    (the kernels rescale them by the completing client's rate, ``e /
-    mu[c]``: the law's own ``unit_apply``), the routed clients (classes)
-    as int32, and the routed members as int32 (``None`` for the
-    per-client engine)."""
+    """The kernels' per-event scalars of ``blk``: ``[..., W]`` float64
+    ``[x_up, x_comp, svc_down, svc_cs]``, then for the ``"h2"`` form the
+    branch factors ``[f_up, f_comp]`` (``W = 6``; else ``W = 4``), with the
+    unit parts split by the law's ``unit_split`` (the kernels apply the
+    completing client's rate, :func:`repro_torch.scenario.laws.apply_rate`),
+    the routed clients (classes) as int32, and the routed members as int32
+    (``None`` for the per-client engine)."""
     law = get_law(distribution)
-    one = torch.ones((), dtype=DTYPE, device=blk.svc_down.device)
+    x_up, f_up = law.unit_split(blk.up)
+    x_comp, f_comp = law.unit_split(blk.comp)
     svc_cs = (blk.svc_cs if blk.svc_cs is not None
               else torch.zeros_like(blk.svc_down))
-    fs = torch.stack([law.unit_apply(blk.up, one),
-                      law.unit_apply(blk.comp, one), blk.svc_down, svc_cs],
-                     dim=-1)
+    cols = [x_up, x_comp, blk.svc_down, svc_cs]
+    if f_up is not None:
+        cols += [f_up, f_comp]
+    fs = torch.stack(cols, dim=-1)
     mb = None if blk.member is None else blk.member.to(torch.int32)
     return fs, blk.c_new.to(torch.int32), mb
 
@@ -412,6 +422,7 @@ class EventStream:
         self._prefix = [seqcumsum(prm.mass if isinstance(prm, ClassParams)
                                   else prm.p) for prm in self._params]
         self._dist = distribution
+        self.form = get_law(distribution).form  # the steps' rate form
         self._block = int(block)
         self._total = total
         self._drawn = 0  # events drawn so far, the same for every lane
@@ -465,7 +476,7 @@ class EventStream:
 
     def window(self, chunk: int):
         """The next ``chunk`` events of every lane from its cursor:
-        ``(fs [K, chunk, 4], c_new [K, chunk], member [K, chunk])`` (see
+        ``(fs [K, chunk, W], c_new [K, chunk], member [K, chunk])`` (see
         :func:`_unit_scalars`; ``member`` is ``None`` for per-client
         lanes).  Past the end of a finite stream the window is
         zero-filled: those events must be masked."""
@@ -606,15 +617,18 @@ def _select(keep, a, b):
 
 def megastep_lanes_plain(params, state: EventState, fs, c_new, rem, *,
                          power=None, stop_on_update: bool = False,
-                         donate: bool = False):
+                         donate: bool = False, law: str = "scale"):
     """Up to ``chunk`` events per lane in PyTorch — the plain version of
     the CUDA lane steps
     (:func:`repro_torch.kernels.events.megastep_lanes`): the plain
     megastep transition, then :func:`replay_event` per kept event, in
     event order.  ``rem`` is an int, one int per lane or an int32 ``[K]``
-    tensor.  Never reuses a donated buffer."""
+    tensor; ``law`` the rate form of ``fs [K, chunk, W]``
+    (:func:`repro_torch.scenario.laws.apply_rate`).  Never reuses a donated
+    buffer."""
     from ..kernels.events import megastep_tables_plain
 
+    law = law_form(law)
     n = params.p.shape[-1]
     has_cs = params.mu_cs is not None
     K, chunk = c_new.shape
@@ -626,8 +640,9 @@ def megastep_lanes_plain(params, state: EventState, fs, c_new, rem, *,
                        rem_t[:, None], c_new], dim=1).to(torch.int32)
     *tables, t_mat, int_mat = megastep_tables_plain(
         state.finish, state.phase, state.client, state.seq, state.disp_round,
-        params.mu_c, params.mu_u, fs.reshape(K, 4 * chunk), iscal,
-        has_cs=has_cs, chunk=chunk, stop_on_update=stop_on_update)
+        params.mu_c, params.mu_u, fs.reshape(K, form_width(law) * chunk),
+        iscal, has_cs=has_cs, chunk=chunk, stop_on_update=stop_on_update,
+        law=law)
     D = int_mat.view(K, chunk, 10)
     keep_mat = D[..., 9] > 0
     if stop_on_update or isinstance(rem, torch.Tensor):
@@ -645,7 +660,8 @@ def megastep_lanes_plain(params, state: EventState, fs, c_new, rem, *,
 
 
 def event_step_lanes_plain(params, state: EventState, fs, c_new, *,
-                           power=None, keep=None, donate: bool = False):
+                           power=None, keep=None, donate: bool = False,
+                           law: str = "scale"):
     """One event per lane in PyTorch — the plain version of
     :func:`repro_torch.kernels.events.event_step_lanes`: the megastep of
     one event (:func:`megastep_lanes_plain`), kept where ``keep [K]``.
@@ -653,7 +669,8 @@ def event_step_lanes_plain(params, state: EventState, fs, c_new, *,
     9]``."""
     rem = 1 if keep is None else keep.to(torch.int32)
     st, t_mat, int_mat = megastep_lanes_plain(
-        params, state, fs[:, None], c_new[:, None], rem, power=power)
+        params, state, fs[:, None], c_new[:, None], rem, power=power,
+        law=law)
     return st, t_mat, int_mat[:, :9]
 
 
@@ -681,11 +698,13 @@ _CLASS_TABLES = ("finish", "phase", "cls", "member", "seq", "disp_round")
 
 
 def step_class_event_lanes(classes, state: ClassEventState, fs, c_new,
-                           member, *, power=None, keep=None):
+                           member, *, power=None, keep=None,
+                           law: str = "scale"):
     """One event for every lane of the class engine: ``state`` leaves
     ``[K, ...]``, ``classes``/``power`` leaves ``[K, C]`` (scalars
-    ``[K]``), ``fs [K, 4]``, ``c_new [K]`` and ``member [K]`` the event's
-    scalars and routed ``(class, member)`` pairs.  The transition is
+    ``[K]``), ``fs [K, W]``, ``c_new [K]`` and ``member [K]`` the event's
+    scalars (of the rate form ``law``) and routed ``(class, member)``
+    pairs.  The transition is
     :func:`repro_torch.kernels.events.class_step_tables_plain`, the
     statistics :func:`replay_event` over ``C`` owners.  Lanes where
     ``keep [K]`` is false stay as they were.  Returns ``(ClassEventState,
@@ -699,7 +718,7 @@ def step_class_event_lanes(classes, state: ClassEventState, fs, c_new,
     *tables, t_col, int_col = class_step_tables_plain(
         state.finish, state.phase, state.cls, state.member, state.seq,
         state.disp_round, classes.mu_c, classes.mu_u, fs, iscal,
-        has_cs=has_cs)
+        has_cs=has_cs, law=law)
     new_state = replay_event(state, t_col[:, 0], int_col, iscal[:, 0], n=C,
                              has_cs=has_cs, power=power, keep=keep)
     if keep is not None:
@@ -722,7 +741,8 @@ def run_events(params: NetworkParams, state: EventState,
     statistics; the first writes new buffers and the rest reuse them, so
     ``state`` itself is never written.  With :class:`ClassParams` lanes
     every event runs the class transition (:func:`step_class_event_lanes`),
-    ``chunk`` events taken from the stream at a time.
+    ``chunk`` events taken from the stream at a time.  The steps apply the
+    rates in the stream's law's form (``stream.form``).
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -733,6 +753,7 @@ def run_events(params: NetworkParams, state: EventState,
         raise ValueError(
             "the class-aggregated event engine has no kernel; pin "
             "backend='batched' or 'reference' for class lanes")
+    law = stream.form
     done = 0
     owned = False  # whether state's buffers are this call's own
     while done < num_events:
@@ -741,13 +762,14 @@ def run_events(params: NetworkParams, state: EventState,
         if classes:
             for i in range(rem):
                 state, _ = step_class_event_lanes(
-                    params, state, fs[:, i], cn[:, i], mb[:, i], power=power)
+                    params, state, fs[:, i], cn[:, i], mb[:, i], power=power,
+                    law=law)
         elif chunk == 1:
             state = step(params, state, fs[:, 0], cn[:, 0], power=power,
-                         donate=owned)[0]
+                         donate=owned, law=law)[0]
         else:
             state = megastep(params, state, fs, cn, rem, power=power,
-                             donate=owned)[0]
+                             donate=owned, law=law)[0]
         owned = True
         stream.advance(rem)
         done += rem
@@ -766,8 +788,8 @@ def step_event_block(params: NetworkParams, state: EventState,
     transition and :func:`replay_event`.
     """
     fs, cn, _ = _unit_scalars(blk, distribution)
-    state, t_col, int_col = _lane_steps(backend)[0](params, state, fs, cn,
-                                                    power=power)
+    state, t_col, int_col = _lane_steps(backend)[0](
+        params, state, fs, cn, power=power, law=get_law(distribution).form)
     return state, _event_out(t_col, int_col)
 
 
@@ -778,7 +800,8 @@ def step_class_event_block(classes, state: ClassEventState,
     """The class engine's :func:`step_event_block`: one event per lane
     with its randomness (and routed member) pre-resolved in ``blk``."""
     fs, cn, mb = _unit_scalars(blk, distribution)
-    return step_class_event_lanes(classes, state, fs, cn, mb, power=power)
+    return step_class_event_lanes(classes, state, fs, cn, mb, power=power,
+                                  law=get_law(distribution).form)
 
 
 def run_event_blocks(params: NetworkParams, state: EventState,
@@ -847,6 +870,7 @@ def next_update(params: NetworkParams, state: EventState,
     dev = state.finish.device
     if max_steps is None:
         max_steps = (4 if params.mu_cs is not None else 3) * m_max + 8
+    law = stream.form
     zero = torch.zeros(K, dtype=torch.int32, device=dev)
     out = [torch.zeros(K, dtype=DTYPE, device=dev), zero, zero, zero]
     steps = [0] * K
@@ -858,7 +882,7 @@ def next_update(params: NetworkParams, state: EventState,
             keep = torch.as_tensor(active, device=dev)
             state, t_col, int_col = step(params, state, fs[:, 0], cn[:, 0],
                                          power=power, keep=keep,
-                                         donate=owned)
+                                         donate=owned, law=law)
             taken = [int(a) for a in active]
             got = ((int_col[:, 2] > 0) & keep).tolist()
             new = [t_col[:, 0], int_col[:, 0], int_col[:, 1], int_col[:, 3]]
@@ -866,7 +890,7 @@ def next_update(params: NetworkParams, state: EventState,
             rem = [max_steps - s if a else 0 for s, a in zip(steps, active)]
             state, t_mat, int_mat = megastep(params, state, fs, cn, rem,
                                              power=power, stop_on_update=True,
-                                             donate=owned)
+                                             donate=owned, law=law)
             D = int_mat.view(K, chunk, 10)
             kept = D[..., 9] > 0
             n_kept = kept.sum(dim=1)

@@ -31,13 +31,24 @@
 //
 // Ties go to the lowest index, the rule of the TPU kernel's
 // _first_index_min; the deterministic law makes equal clocks common, so this
-// rule decides trajectories.  Service variates arrive drawn at unit rate
-// ([e_up, e_comp, svc_down, svc_cs] per event) and are rescaled by the
-// completing client's rate here (e / mu[c]).  Build with -fmad=false and
-// IEEE division: the f64 results are then bitwise those of the plain
-// PyTorch versions; the energy integral's three fused multiply-adds are
-// explicit fma() calls, which Hopper's DFMA rounds once, as the plain
-// version's emulation (repro_torch.core.numerics.fma) does.
+// rule decides trajectories.  The uplink and computation services arrive as
+// the timing law's rate-free parts (per event [x_up, x_comp, svc_down,
+// svc_cs], and for the H2 form the branch factors [f_up, f_comp] after
+// them) and the completing client's rate is applied here, in the law's form
+// (repro_torch.scenario.laws.apply_rate), a template parameter:
+//
+//   * LAW_SCALE (exponential, deterministic; the TPU kernels' contract):
+//     x / mu[c], x the variate at unit rate;
+//   * LAW_H2 (hyperexponential): x / (f * mu[c]);
+//   * LAW_LOGNORMAL: exp((x - log(mu[c])) - 0.5), x a standard normal, with
+//     CUDA's double exp and log, the functions PyTorch's CUDA exp and log
+//     call.
+//
+// Build with -fmad=false and IEEE division: the f64 results are then
+// bitwise those of the plain PyTorch versions; the energy integral's three
+// fused multiply-adds are explicit fma() calls, which Hopper's DFMA rounds
+// once, as the plain version's emulation (repro_torch.core.numerics.fma)
+// does.
 //
 // Layout of the transition: one warp per lane (the TPU's grid axis); slots
 // are strided over the warp, and the argmin and both FIFO picks are warp
@@ -59,6 +70,26 @@
 #define CS_SERV 5
 
 #define FULL 0xffffffffu
+
+// the rate forms of the timing laws (repro_torch.scenario.laws.FORMS)
+#define LAW_SCALE 0
+#define LAW_H2 1
+#define LAW_LOGNORMAL 2
+
+// per-event scalars of a form: [x_up, x_comp, svc_down, svc_cs] and, for
+// H2, [f_up, f_comp]
+__host__ __device__ constexpr int law_width(int law) {
+  return law == LAW_H2 ? 6 : 4;
+}
+
+// the completing client's rate applied to a rate-free part
+template <int LAW>
+__device__ __forceinline__ double apply_rate(double x, double f,
+                                             double rate) {
+  if (LAW == LAW_H2) return x / (f * rate);
+  if (LAW == LAW_LOGNORMAL) return exp((x - log(rate)) - 0.5);
+  return x / rate;
+}
 
 // (value, index) pair min with ties to the lowest index
 __device__ __forceinline__ void min_pair_f64(double& v, int& i) {
@@ -83,9 +114,10 @@ __device__ __forceinline__ void min_pair_i32(int& v, int& i) {
   }
 }
 
-// One event's outside-drawn scalars and counters.
+// One event's outside-drawn scalars and counters (f_up and f_comp only
+// for the H2 form).
 struct EventIn {
-  double e_up, e_comp, svc_down, svc_cs;
+  double x_up, x_comp, svc_down, svc_cs, f_up, f_comp;
   int c_new, seq_ctr, rnd;
 };
 
@@ -99,7 +131,9 @@ struct EventDesc {
 // fin..dis; when `write`, writes the new rows to o_fin..o_dis, which may be
 // the same rows (the lane's shared memory): every read of another
 // thread's slot comes before the first __syncwarp() below, and each thread
-// then writes only its own slots.  mu_c/mu_u are the lane's rate rows.
+// then writes only its own slots.  mu_c/mu_u are the lane's rate rows, LAW
+// the timing law's rate form.
+template <int LAW>
 __device__ EventDesc one_event(const double* fin, const int* pha,
                                const int* cli, const int* sq, const int* dis,
                                double* o_fin, int* o_pha, int* o_cli,
@@ -136,8 +170,8 @@ __device__ EventDesc one_event(const double* fin, const int* pha,
   const bool c_ok = c >= 0 && c < n;
   const double rate_u = c_ok ? mu_u[c] : 0.0;
   const double rate_c = c_ok ? mu_c[c] : 0.0;
-  const double svc_up = in.e_up / rate_u;
-  const double svc_c = in.e_comp / rate_c;
+  const double svc_up = apply_rate<LAW>(in.x_up, in.f_up, rate_u);
+  const double svc_c = apply_rate<LAW>(in.x_comp, in.f_comp, rate_c);
 
   // -- 2. phase promotion / routing of slot j -------------------------------
   const int phase_j = is_down ? COMP_WAIT
@@ -235,7 +269,7 @@ __device__ __forceinline__ void write_desc(int* d, const EventDesc& e) {
 // statistics
 // ---------------------------------------------------------------------------
 //
-// lanes_kernel<SMEM, STATS>, one CTA per lane.  For each kept event, in
+// lanes_kernel<SMEM, STATS, LAW>, one CTA per lane.  For each kept event, in
 // order, warp 0 runs one_event() on the lane's task table, and with STATS
 // the CTA then does replay_one, the statistics of
 // repro_torch.core.events.replay_event (with _lane_stats), in its order
@@ -255,7 +289,8 @@ __device__ __forceinline__ void write_desc(int* d, const EventDesc& e) {
 //
 // STATS = false is the transition alone, the contract of the TPU kernels
 // (event_step, megastep below: tables in, tables and descriptors out), on
-// one warp.  STATS = true is the main path's: a CTA of LANE_THREADS carries
+// one warp, in the LAW_SCALE form only.  With STATS every form is built,
+// and the launch picks it from LaneArgs::law.  STATS = true is the main path's: a CTA of LANE_THREADS carries
 // the lane's whole EventState, so that one launch retires its events and no
 // PyTorch operation runs per event.  Its statistics thread sits outside
 // warp 0: it takes the previous event's carries and this event's power sum
@@ -335,9 +370,9 @@ struct LaneArgs {
   const double* P_u;
   const double* P_d;
   const double* P_cs;
-  // the events: fs [K, chunk, 4] (a lane's row fs_stride apart, each row
-  // contiguous), c_new [K, chunk] (rows cn_stride apart); rem [K] (null:
-  // rem_all for every lane), keep [K] (null: every lane)
+  // the events: fs [K, chunk, law_width(law)] (a lane's row fs_stride
+  // apart, each row contiguous), c_new [K, chunk] (rows cn_stride apart);
+  // rem [K] (null: rem_all for every lane), keep [K] (null: every lane)
   const double* fs;
   const int* c_new;
   const int* rem;
@@ -349,6 +384,7 @@ struct LaneArgs {
   // round, seq_ctr and rem are sc_stride apart from lane to lane
   long long fs_stride, cn_stride, sc_stride;
   int K, m_max, n, has_cs, chunk, rem_all, stop_on_update, desc_width;
+  int law;  // the rate form: LAW_SCALE, LAW_H2 or LAW_LOGNORMAL
 };
 
 // torch.minimum: a NaN operand gives NaN
@@ -424,19 +460,21 @@ __device__ __forceinline__ void copy_row(T* dst, const T* src, int len) {
     for (int i = threadIdx.x; i < len; i += blockDim.x) dst[i] = src[i];
 }
 
-// Dynamic shared memory of a staged lane: the f64 rows, then the int32 rows.
+// Dynamic shared memory of a staged lane: the f64 rows, then the int32 rows
+// (`width` scalars an event).
 static size_t lane_smem_bytes(int m_max, int n, int chunk, bool stats,
-                              bool power) {
+                              bool power, int width) {
   const size_t S = stats ? 3 * (size_t)n + 1 : 0;
   const size_t ns = stats ? (size_t)n : 0;
   return 8 * ((size_t)m_max + 2 * S + 2 * ns + 2 * (size_t)n +
-              (power ? 3 * (size_t)n : 0) + 4 * (size_t)chunk) +
+              (power ? 3 * (size_t)n : 0) + (size_t)width * chunk) +
          4 * (4 * (size_t)m_max + ns + chunk);
 }
 
-template <bool SMEM, bool STATS>
+template <bool SMEM, bool STATS, int LAW>
 __device__ __forceinline__ void lane_events(const LaneArgs& a,
                                             double* smem) {
+  constexpr int W = law_width(LAW);
   __shared__ double s_t;  // the kept event's clock and descriptors
   __shared__ int s_d[9];
   const int k = blockIdx.x;
@@ -462,7 +500,7 @@ __device__ __forceinline__ void lane_events(const LaneArgs& a,
     double* s_muu = s_muc + n;
     double* s_pw = s_muu + n;
     double* s_fs = s_pw + (power ? 3 * n : 0);
-    pha = reinterpret_cast<int*>(s_fs + 4 * chunk);
+    pha = reinterpret_cast<int*>(s_fs + W * chunk);
     cli = pha + M;
     sq = cli + M;
     dis = sq + M;
@@ -494,7 +532,7 @@ __device__ __forceinline__ void lane_events(const LaneArgs& a,
         s_pw[2 * n + i] = a.P_d[nr + i];
       }
     }
-    for (int i = tid; i < 4 * chunk; i += blockDim.x)
+    for (int i = tid; i < W * chunk; i += blockDim.x)
       s_fs[i] = a.fs[k * a.fs_stride + i];
     for (int i = tid; i < chunk; i += blockDim.x)
       s_cn[i] = a.c_new[k * a.cn_stride + i];
@@ -575,15 +613,18 @@ __device__ __forceinline__ void lane_events(const LaneArgs& a,
     const bool keep = i < rem && !done;  // the same in every thread
     if (tid < 32) {
       EventIn in;
-      in.e_up = fs[4 * i + 0];
-      in.e_comp = fs[4 * i + 1];
-      in.svc_down = fs[4 * i + 2];
-      in.svc_cs = fs[4 * i + 3];
+      in.x_up = fs[W * i + 0];
+      in.x_comp = fs[W * i + 1];
+      in.svc_down = fs[W * i + 2];
+      in.svc_cs = fs[W * i + 3];
+      in.f_up = W > 4 ? fs[W * i + 4] : 0.0;
+      in.f_comp = W > 4 ? fs[W * i + 5] : 0.0;
       in.c_new = cn[i];
       in.seq_ctr = seq_ctr;
       in.rnd = rnd;
-      const EventDesc d = one_event(fin, pha, cli, sq, dis, fin, pha, cli, sq,
-                                    dis, keep, muc, muu, M, n, has_cs, in);
+      const EventDesc d = one_event<LAW>(fin, pha, cli, sq, dis, fin, pha,
+                                         cli, sq, dis, keep, muc, muu, M, n,
+                                         has_cs, in);
       if (keep) seq_ctr = d.new_seq_ctr;
       if (!STATS && keep) {
         rnd = d.new_round;
@@ -682,17 +723,17 @@ __device__ __forceinline__ void lane_events(const LaneArgs& a,
   }
 }
 
-template <bool SMEM, bool STATS>
+template <bool SMEM, bool STATS, int LAW>
 __global__ void __launch_bounds__(LANE_THREADS)
     lanes_kernel(const LaneArgs a) {
   extern __shared__ double lane_rows[];
-  lane_events<SMEM, STATS>(a, lane_rows);
+  lane_events<SMEM, STATS, LAW>(a, lane_rows);
 }
 
-// The most dynamic shared memory one block of lanes_kernel<true, STATS> may
-// take on the current device: the opt-in limit less the kernel's static
-// shared memory (asked once per device).
-template <bool STATS>
+// The most dynamic shared memory one block of lanes_kernel<true, STATS, LAW>
+// may take on the current device: the opt-in limit less the kernel's static
+// shared memory (asked once per device and instantiation).
+template <bool STATS, int LAW>
 static cudaError_t stage_limit(size_t* limit) {
   static size_t known[64];  // by device; 0 until asked
   int dev = 0;
@@ -708,33 +749,34 @@ static cudaError_t stage_limit(size_t* limit) {
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(
-      &attr, reinterpret_cast<const void*>(lanes_kernel<true, STATS>));
+      &attr, reinterpret_cast<const void*>(lanes_kernel<true, STATS, LAW>));
   if (err != cudaSuccess) return err;
   *limit = (size_t)optin - attr.sharedSizeBytes;
   if (dev < 64) known[dev] = *limit;
   return cudaSuccess;
 }
 
-template <bool STATS>
+template <bool STATS, int LAW>
 static int launch_lanes(const LaneArgs& a, cudaStream_t stream) {
   if (a.K <= 0) return 0;
   const int threads = STATS ? LANE_THREADS : 32;
   const size_t smem = lane_smem_bytes(a.m_max, a.n, a.chunk, STATS,
-                                      STATS && a.P_c != nullptr);
+                                      STATS && a.P_c != nullptr,
+                                      law_width(LAW));
   size_t limit = 0;
-  cudaError_t err = stage_limit<STATS>(&limit);
+  cudaError_t err = stage_limit<STATS, LAW>(&limit);
   if (err != cudaSuccess) return (int)err;
   if (smem <= limit) {
     if (smem > 48 * 1024) {
       // above 48 KB a block's dynamic shared memory needs an opt-in
-      err = cudaFuncSetAttribute(lanes_kernel<true, STATS>,
+      err = cudaFuncSetAttribute(lanes_kernel<true, STATS, LAW>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    lanes_kernel<true, STATS><<<a.K, threads, smem, stream>>>(a);
+    lanes_kernel<true, STATS, LAW><<<a.K, threads, smem, stream>>>(a);
   } else {
-    lanes_kernel<false, STATS><<<a.K, threads, 0, stream>>>(a);
+    lanes_kernel<false, STATS, LAW><<<a.K, threads, 0, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -778,7 +820,7 @@ extern "C" int event_step(const double* finish, const int* phase,
   a.chunk = 1;
   a.rem_all = 1;
   a.desc_width = 9;
-  return launch_lanes<false>(a, stream);
+  return launch_lanes<false, LAW_SCALE>(a, stream);
 }
 
 // The transition alone for up to `chunk` events per lane: fscal [K, 4 *
@@ -822,10 +864,20 @@ extern "C" int megastep(const double* finish, const int* phase,
   a.chunk = chunk;
   a.stop_on_update = stop_on_update;
   a.desc_width = 10;
-  return launch_lanes<false>(a, stream);
+  return launch_lanes<false, LAW_SCALE>(a, stream);
 }
 
-// The main path's lane steps: the events with their statistics.
+// The main path's lane steps: the events with their statistics, in the
+// rate form a->law.
 extern "C" int lanes(const LaneArgs* a, cudaStream_t stream) {
-  return launch_lanes<true>(*a, stream);
+  switch (a->law) {
+    case LAW_SCALE:
+      return launch_lanes<true, LAW_SCALE>(*a, stream);
+    case LAW_H2:
+      return launch_lanes<true, LAW_H2>(*a, stream);
+    case LAW_LOGNORMAL:
+      return launch_lanes<true, LAW_LOGNORMAL>(*a, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

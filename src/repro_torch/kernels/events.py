@@ -28,6 +28,14 @@ the O(1) occupancy carries), so that no PyTorch operation runs per event.
 In the JAX package those statistics are ``jnp`` around the kernel that XLA
 fuses; an eager port turned each of them into a launch.
 
+The completing client's rate is applied inside the kernel in the timing
+law's form (:func:`repro_torch.scenario.laws.apply_rate`), a template
+parameter of the lane kernel: ``"scale"`` (exponential, deterministic:
+``x / mu``), ``"h2"`` (hyperexponential: ``x / (f mu)``, ``fs`` six
+scalars an event) and ``"lognormal"`` (``exp((z - log mu) - 0.5)``).  The
+transition-only entry points keep the TPU kernels' contract, the
+``"scale"`` form.
+
 At the main path's sizes every launch is bound by the launch itself; its
 bytes are tens of KB.  Each wrapper launches the kernel for CUDA tensors
 (or raises) and runs its plain version for CPU tensors only: for the
@@ -46,6 +54,7 @@ from typing import Optional
 import torch
 
 from ..core import events as E
+from ..scenario.laws import FORMS, apply_rate, form_width, law_form
 from . import build
 
 
@@ -57,15 +66,19 @@ def _first_index_min(values: torch.Tensor, idx: torch.Tensor):
 
 
 def event_step_tables_plain(finish, phase, client, seq, disp_round, mu_c,
-                            mu_u, fscal, iscal, *, has_cs: bool):
+                            mu_u, fscal, iscal, *, has_cs: bool,
+                            law: str = "scale"):
     """One event per lane in PyTorch — the contract of the CUDA kernel
-    (and of the JAX package's ``event_step_oracle``)."""
+    (and, for the ``"scale"`` form, of the JAX package's
+    ``event_step_oracle``); ``fscal [K, W]`` holds the event's scalars in
+    the rate form ``law``."""
     return _step_plain(finish, phase, client, seq, disp_round, mu_c, mu_u,
-                       fscal, iscal, has_cs=has_cs)[:7]
+                       fscal, iscal, has_cs=has_cs, law=law)[:7]
 
 
 def class_step_tables_plain(finish, phase, cls, member, seq, disp_round,
-                            mu_c, mu_u, fscal, iscal, *, has_cs: bool):
+                            mu_c, mu_u, fscal, iscal, *, has_cs: bool,
+                            law: str = "scale"):
     """One event per lane of the class-aggregated engine, in PyTorch.
 
     The transition of :func:`event_step_tables_plain` with each task owned
@@ -80,15 +93,18 @@ def class_step_tables_plain(finish, phase, cls, member, seq, disp_round,
     """
     finish, phase, cls, seq, disp, t_col, desc, member = _step_plain(
         finish, phase, cls, seq, disp_round, mu_c, mu_u, fscal, iscal,
-        has_cs=has_cs, member=member)
+        has_cs=has_cs, member=member, law=law)
     return finish, phase, cls, member, seq, disp, t_col, desc
 
 
 def _step_plain(finish, phase, client, seq, disp_round, mu_c, mu_u, fscal,
-                iscal, *, has_cs: bool, member=None):
+                iscal, *, has_cs: bool, member=None, law: str = "scale"):
     """The shared body: ``client`` owns the rates; with ``member`` given a
     task's compute station is its ``(client, member)`` pair and the
-    routed member is ``iscal[:, 3]``."""
+    routed member is ``iscal[:, 3]``.  The uplink and computation services
+    are ``fscal``'s first two columns with the completing client's rates
+    applied in the form ``law`` (the ``"h2"`` factors in columns 4 and
+    5)."""
     K, M = finish.shape
     dev = finish.device
     idx = torch.arange(M, device=dev)
@@ -106,8 +122,12 @@ def _step_plain(finish, phase, client, seq, disp_round, mu_c, mu_u, fscal,
     is_update = is_cs if has_cs else is_up
     new_round = rnd + is_update.to(torch.int32)
     cl = c.long()
-    svc_up = fscal[:, 0] / mu_u[lanes, cl]
-    svc_c = fscal[:, 1] / mu_c[lanes, cl]
+    law = law_form(law)
+    h2 = law == "h2"
+    svc_up = apply_rate(law, fscal[:, 0], fscal[:, 4] if h2 else None,
+                        mu_u[lanes, cl])
+    svc_c = apply_rate(law, fscal[:, 1], fscal[:, 5] if h2 else None,
+                       mu_c[lanes, cl])
 
     phase_j = torch.where(is_down, E.COMP_WAIT, torch.where(
         is_comp, E.UP, torch.where(is_update, E.DOWN, E.CS_WAIT)))
@@ -163,12 +183,15 @@ def _step_plain(finish, phase, client, seq, disp_round, mu_c, mu_u, fscal,
 
 def megastep_tables_plain(finish, phase, client, seq, disp_round, mu_c,
                           mu_u, fscal, iscal, *, has_cs: bool, chunk: int,
-                          stop_on_update: bool = False):
+                          stop_on_update: bool = False, law: str = "scale"):
     """Up to ``chunk`` events per lane in PyTorch — the contract of the CUDA
     megastep kernel and of the JAX package's ``_megastep_kernel``: event
     ``i`` is :func:`event_step_tables_plain` on the held table, kept when
     ``keep_i = (i < rem) & ~done``.  A masked event still computes its
-    transition and descriptors, and the table and counters are held."""
+    transition and descriptors, and the table and counters are held.
+    ``fscal [K, W * chunk]`` holds ``W`` scalars an event in the rate form
+    ``law``."""
+    W = form_width(law_form(law))
     K = finish.shape[0]
     tbl = (finish, phase, client, seq, disp_round)
     seq_ctr, rnd, rem = iscal[:, 0], iscal[:, 1], iscal[:, 2]
@@ -177,7 +200,8 @@ def megastep_tables_plain(finish, phase, client, seq, disp_round, mu_c,
     for i in range(chunk):
         one = torch.stack([iscal[:, 3 + i], seq_ctr, rnd], dim=-1)
         *tbl2, t_col, d = event_step_tables_plain(
-            *tbl, mu_c, mu_u, fscal[:, 4 * i:4 * i + 4], one, has_cs=has_cs)
+            *tbl, mu_c, mu_u, fscal[:, W * i:W * i + W], one, has_cs=has_cs,
+            law=law)
         keep = (i < rem) & ~done
         if stop_on_update:
             done = done | (keep & (d[:, 2] > 0))
@@ -300,7 +324,7 @@ _MUTABLE = tuple(f for f in E.EventState._fields if f not in _CONST)
 _OTHER = ("mu_c", "mu_u", "P_c", "P_u", "P_d", "P_cs", "fs", "c_new", "rem",
           "keep", "ev_t", "ev_int")
 _INTS = ("K", "m_max", "n", "has_cs", "chunk", "rem_all", "stop_on_update",
-         "desc_width")
+         "desc_width", "law")
 
 
 class _LaneArgs(ctypes.Structure):
@@ -316,10 +340,10 @@ class _LaneArgs(ctypes.Structure):
 
 @functools.lru_cache(maxsize=64)
 def _lane_specs(K: int, M: int, n: int, chunk: Optional[int], power: bool,
-                pcs: bool, keep: bool) -> tuple:
+                pcs: bool, keep: bool, width: int) -> tuple:
     """``(name, dtype, shape)`` of each input of a lane step, in the order
     of :func:`_lane_tensors` (``chunk`` ``None``: the one event of
-    :func:`event_step_lanes`, ``fs [K, 4]`` and ``c_new [K]``)."""
+    :func:`event_step_lanes`, ``fs [K, width]`` and ``c_new [K]``)."""
     f64, i32 = torch.float64, torch.int32
     kf, ki, S = (f64, (K,)), (i32, (K,)), 3 * n + 1
     state = dict(t=kf, round=ki, seq_ctr=ki, client=(i32, (K, M)),
@@ -331,7 +355,8 @@ def _lane_specs(K: int, M: int, n: int, chunk: Optional[int], power: bool,
                  serving=(f64, (K, n)), cs_busy=(torch.bool, (K,)))
     specs = [(f"state.{k}", *state[k]) for k in E.EventState._fields]
     specs += [("mu_c", f64, (K, n)), ("mu_u", f64, (K, n)),
-              ("fs", f64, (K, 4) if chunk is None else (K, chunk, 4)),
+              ("fs", f64, (K, width) if chunk is None
+               else (K, chunk, width)),
               ("c_new", i32, (K,) if chunk is None else (K, chunk))]
     if power:
         specs += [(f"power.{k}", f64, (K, n)) for k in ("P_c", "P_u", "P_d")]
@@ -355,15 +380,16 @@ def _lane_tensors(params, state, power, fs, c_new, keep) -> list:
 
 
 def _check_lanes(what: str, params, state, power, fs, c_new, keep,
-                 chunk: Optional[int]):
+                 chunk: Optional[int], law: str):
     """Raise ``ValueError`` unless every input of a lane step has the
-    dtype, shape and device the kernel takes."""
+    dtype, shape and device the kernel takes (``fs`` the width of the rate
+    form ``law``)."""
     K, M = state.finish.shape
     dev = state.finish.device
     specs = _lane_specs(K, M, params.mu_c.shape[-1], chunk,
                         power is not None,
                         power is not None and power.P_cs is not None,
-                        keep is not None)
+                        keep is not None, form_width(law))
     for (name, dtype, shape), x in zip(specs, _lane_tensors(
             params, state, power, fs, c_new, keep)):
         if x.dtype != dtype or x.shape != shape:
@@ -405,7 +431,7 @@ def _rem_arg(rem, K: int, dev):
 
 def _launch_lanes(counter, params, state, power, fs, c_new, *, chunk: int,
                   rem, keep, stop_on_update: bool, desc_width: int,
-                  donate: bool):
+                  donate: bool, law: str):
     """Launch ``csrc/events.cu``'s lane steps on the checked inputs:
     returns the new state (in the donated buffers of ``state`` when
     ``donate``, else in new ones; the leaves a step never changes are
@@ -417,7 +443,8 @@ def _launch_lanes(counter, params, state, power, fs, c_new, *, chunk: int,
     leaves = {f: getattr(state, f).contiguous() for f in E.EventState._fields}
     out = {f: leaves[f] if donate else torch.empty_like(leaves[f])
            for f in _MUTABLE}
-    if fs.stride(-1) != 1 or (fs.dim() == 3 and fs.stride(1) != 4):
+    if fs.stride(-1) != 1 or (fs.dim() == 3
+                              and fs.stride(1) != fs.shape[-1]):
         fs = fs.contiguous()
     if c_new.dim() == 2 and c_new.stride(1) != 1:
         c_new = c_new.contiguous()
@@ -443,7 +470,8 @@ def _launch_lanes(counter, params, state, power, fs, c_new, *, chunk: int,
     args.fs_stride, args.cn_stride = fs.stride(0), c_new.stride(0)
     args.sc_stride = 1
     for f, v in zip(_INTS, (K, M, n, params.mu_cs is not None, chunk,
-                            rem_all, stop_on_update, desc_width)):
+                            rem_all, stop_on_update, desc_width,
+                            FORMS.index(law))):
         setattr(args, f, int(v))
     fn = build.load("events").lanes
     if not fn.argtypes:  # the library caches its function objects
@@ -456,29 +484,33 @@ def _launch_lanes(counter, params, state, power, fs, c_new, *, chunk: int,
 
 
 def event_step_lanes(params, state, fs, c_new, *, power=None, keep=None,
-                     donate: bool = False):
+                     donate: bool = False, law: str = "scale"):
     """One event per lane on ``K`` lane-stacked states, statistics and all.
 
     ``params``/``power`` leaves ``[K, n]`` (``P_cs`` ``[K]``), ``state``
     an :class:`~repro_torch.core.events.EventState` with ``[K, ...]``
-    leaves, ``fs`` float64 ``[K, 4]`` (``[e_up, e_comp, svc_down,
-    svc_cs]``, rows may be strided) and ``c_new`` int32 ``[K]`` the event's
-    scalars and routed clients; lanes where ``keep [K]`` (bool) is false
-    stay as they were.  Returns the new state, ``t_new [K, 1]`` and the
-    nine descriptors ``[K, 9]`` of :func:`event_step_tables`.  With
-    ``donate`` the kernel may write the new state into ``state``'s own
-    buffers (the caller must own them and use only the result).
+    leaves, ``fs`` float64 ``[K, W]`` and ``c_new`` int32 ``[K]`` the
+    event's scalars and routed clients; lanes where ``keep [K]`` (bool) is
+    false stay as they were.  ``law`` is the rate form (or a law's name):
+    ``"scale"`` and ``"lognormal"`` take ``W = 4`` scalars ``[x_up,
+    x_comp, svc_down, svc_cs]`` (``x`` the unit-rate variate or the
+    normal), ``"h2"`` ``W = 6``, the branch factors ``[f_up, f_comp]``
+    after them; rows may be strided.  Returns the new state, ``t_new [K,
+    1]`` and the nine descriptors ``[K, 9]`` of :func:`event_step_tables`.
+    With ``donate`` the kernel may write the new state into ``state``'s
+    own buffers (the caller must own them and use only the result).
     """
+    law = law_form(law)
     _check_lanes("event_step_lanes", params, state, power, fs, c_new, keep,
-                 None)
+                 None, law)
     if state.finish.is_cuda:
         return _launch_lanes(event_step_lanes, params, state, power, fs,
                              c_new, chunk=1, rem=1, keep=keep,
                              stop_on_update=False, desc_width=9,
-                             donate=donate)
+                             donate=donate, law=law)
     if state.finish.device.type == "cpu":
         return E.event_step_lanes_plain(params, state, fs, c_new,
-                                        power=power, keep=keep)
+                                        power=power, keep=keep, law=law)
     raise ValueError(f"no event lane kernel for device {state.finish.device}")
 
 
@@ -486,11 +518,12 @@ event_step_lanes.launches = 0
 
 
 def megastep_lanes(params, state, fs, c_new, rem, *, power=None,
-                   stop_on_update: bool = False, donate: bool = False):
+                   stop_on_update: bool = False, donate: bool = False,
+                   law: str = "scale"):
     """Up to ``chunk`` events per lane on ``K`` lane-stacked states in one
     launch, statistics and all.
 
-    As :func:`event_step_lanes`, with ``fs`` float64 ``[K, chunk, 4]`` and
+    As :func:`event_step_lanes`, with ``fs`` float64 ``[K, chunk, W]`` and
     ``c_new`` int32 ``[K, chunk]``; event ``i`` of lane ``k`` is kept when
     ``i < rem[k]`` (``rem`` an int, one int per lane or an int32 ``[K]``
     tensor) and, with ``stop_on_update``, no earlier kept event of the
@@ -502,18 +535,19 @@ def megastep_lanes(params, state, fs, c_new, rem, *, power=None,
         raise ValueError(f"c_new must be [K, chunk >= 1], got "
                          f"{tuple(c_new.shape)}")
     chunk = c_new.shape[1]
+    law = law_form(law)
     _check_lanes("megastep_lanes", params, state, power, fs, c_new, None,
-                 chunk)
+                 chunk, law)
     _check_rem(rem, c_new.shape[0], state.finish.device)
     if state.finish.is_cuda:
         return _launch_lanes(megastep_lanes, params, state, power, fs, c_new,
                              chunk=chunk, rem=rem, keep=None,
                              stop_on_update=stop_on_update, desc_width=10,
-                             donate=donate)
+                             donate=donate, law=law)
     if state.finish.device.type == "cpu":
         return E.megastep_lanes_plain(params, state, fs, c_new, rem,
                                       power=power,
-                                      stop_on_update=stop_on_update)
+                                      stop_on_update=stop_on_update, law=law)
     raise ValueError(f"no megastep lane kernel for device "
                      f"{state.finish.device}")
 

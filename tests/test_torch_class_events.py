@@ -5,7 +5,9 @@
    ``draw_class_event_blocks`` feed both engines, which run the same
    events (JAX ``step_class_event_block`` vs the port's loop).  Every
    state leaf, ``energy`` included, and the statistics must be **bitwise**
-   equal.
+   equal, the hyperexponential law's included; under the lognormal law
+   (JAX's raw subkeys turned into their normals) discrete leaves exactly
+   and float leaves within ``rtol 1e-12, atol 1e-12``.
 2. Inside the port: chunk E equals chunk 1, lanes equal singles,
    ``reference`` equals ``batched`` and padded classes equal unpadded —
    bitwise.
@@ -33,8 +35,17 @@ from repro_torch.sim import simulate_stats_classes_lanes, simulate_stats_lanes
 
 
 def _leaves(tree):
-    return {k: None if v is None else np.asarray(v)
-            for k, v in tree._asdict().items()}
+    """numpy leaves; a tuple leaf (the H2 unit pair) stays a tuple."""
+    def arr(v):
+        if isinstance(v, tuple) and v:
+            return tuple(np.asarray(x) for x in v)
+        return None if v is None else np.asarray(v)
+
+    return {k: arr(v) for k, v in tree._asdict().items()}
+
+
+_normals = jax.jit(lambda ks: jax.vmap(jax.random.normal)(
+    ks.reshape(-1, 2)).reshape(ks.shape[:-1]))
 
 
 def _jax_classes(seed, C, with_cs):
@@ -59,6 +70,10 @@ def _jax_classes(seed, C, with_cs):
     ("exponential", False, False, 5),
     ("deterministic", True, False, None),
     ("deterministic", False, True, None),
+    ("hyperexponential", True, True, 6),
+    ("hyperexponential", False, True, None),
+    ("lognormal", True, True, 6),
+    ("lognormal", False, False, None),
 ])
 def test_injected_class_blocks_bitwise_vs_jax(dist, with_cs, power, c_max):
     C, m, m_max, N = 4, 7, 9, 360
@@ -85,22 +100,30 @@ def test_injected_class_blocks_bitwise_vs_jax(dist, with_cs, power, c_max):
     tpw = (None if jpw is None else
            lanes([convert.power_profile(_leaves(jpw), device="cpu")]))
     tst = lanes([convert.class_event_state(_leaves(st0), device="cpu")])
+    if dist == "lognormal":  # the raw subkeys' normals
+        blk = blk._replace(up=_normals(blk.up), comp=_normals(blk.comp))
     tblk = convert.event_blocks(_leaves(blk), device="cpu")
     assert tblk.member is not None
     tblk = TE.EventBlocks(*[None if x is None else x[:, None] for x in tblk])
+
+    def same(g, w, what):
+        g, w = g.numpy(), np.asarray(w)
+        if dist == "lognormal" and np.issubdtype(w.dtype, np.floating):
+            np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-12,
+                                       err_msg=str(what))
+        else:
+            assert np.array_equal(g, w), what
+
     for chunk in (1, 8):
         got = TE.run_event_blocks(tc, tst, tblk, distribution=dist,
                                   power=tpw, chunk=chunk)
         assert isinstance(got, TE.ClassEventState)
         for name in TE.ClassEventState._fields:
-            assert np.array_equal(getattr(got, name)[0].numpy(),
-                                  np.asarray(getattr(want, name))), \
-                (chunk, name)
+            same(getattr(got, name)[0], getattr(want, name), (chunk, name))
         stats = TE.finalize_stats(got)
         for name in TE.EventStats._fields:
-            assert np.array_equal(getattr(stats, name)[0].numpy(),
-                                  np.asarray(getattr(want_stats, name))), \
-                (chunk, name)
+            same(getattr(stats, name)[0], getattr(want_stats, name),
+                 (chunk, name))
     assert int(want.round) > 75  # the window closed inside the run
 
 

@@ -18,6 +18,9 @@ per-client ones, forward within ``2e-5``, backward within ``rtol 1e-9``);
 both sweeps within ``rtol 1e-4`` of the float64 ones; the event and
 megastep kernels bitwise (IEEE division, no contraction), and so their lane
 counterparts on every ``EventState`` leaf, in shared and in global memory,
+in each timing law's rate form (``x / mu``, the hyperexponential's ``x /
+(f mu)`` and the lognormal's ``exp((z - log mu) - 0.5)`` with CUDA's
+double ``exp`` and ``log``, which PyTorch's CUDA ``exp`` and ``log`` call),
 with the energy integral's fused multiply-adds on the card's DFMA against
 the plain version's emulation (both round once); the fused update
 bitwise on the new parameters (a rounded multiply, then a rounded
@@ -50,6 +53,7 @@ from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import fused_update as kf
 from repro_torch.core.buzen import pad_classes
 from repro_torch.core.optimize import time_optimal, time_optimal_classes
+from repro_torch.scenario.laws import H2_FAST, H2_SLOW
 from repro_torch.scenario.spec import (PAPER_CLUSTERS_TABLE1, ClassSpec,
                                        LearningSpec, NetworkSpec)
 from repro_torch.sim import simulate_stats_classes_lanes, simulate_stats_lanes
@@ -523,8 +527,10 @@ def _lane_inputs(seed, K, n, m_max, with_cs, power, law, device,
     """``K`` lanes of ``n`` clients on ``device``: lane-stacked network
     rates, a power profile (``power`` None, ``"no_pcs"`` or ``"pcs"``),
     initial states of 3 to ``m_max`` tasks and a function of ``(rng,
-    events)`` giving ``fs [K, events, 4]`` and ``c_new [K, events]``
-    (numpy draws; the deterministic law's unit parts are 1)."""
+    events)`` giving ``fs [K, events, W]`` and ``c_new [K, events]``
+    (numpy draws in the law's rate form: the deterministic law's unit
+    parts are 1, the lognormal's are normals, the hyperexponential's
+    carry their branch factors)."""
     rng = np.random.default_rng(seed)
     t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
     prms, pws, states = [], [], []
@@ -547,9 +553,14 @@ def _lane_inputs(seed, K, n, m_max, with_cs, power, law, device,
     def events(rng, N):
         unit = ((lambda: np.ones((K, N))) if law == "deterministic"
                 else (lambda: rng.exponential(size=(K, N))))
-        fs = np.stack([unit(), unit(), unit() / 2.0,
-                       unit() / 3.0 if with_cs else np.zeros((K, N))], -1)
-        return t(fs), t(rng.integers(0, n, (K, N))).to(torch.int32)
+        x = ((lambda: rng.normal(size=(K, N))) if law == "lognormal"
+             else unit)
+        cols = [x(), x(), unit() / 2.0,
+                unit() / 3.0 if with_cs else np.zeros((K, N))]
+        if law == "hyperexponential":
+            cols += [rng.choice([H2_FAST, H2_SLOW], (K, N)) for _ in "uc"]
+        return (t(np.stack(cols, -1)),
+                t(rng.integers(0, n, (K, N))).to(torch.int32))
 
     return (params, None if power is None else E.stack_lanes(pws),
             E.stack_lanes(states), events)
@@ -626,6 +637,115 @@ def test_megastep_lanes_kernel_matches_plain_bitwise(cuda, stop, chunk, law,
         st, want_st = got[0], want[0]
     assert ke.megastep_lanes.launches == before + steps
     assert int(st.round.max()) > (2 if stop else 12)  # past the window
+
+
+_LAW_CASES = [("hyperexponential", False, None),
+              ("hyperexponential", True, "pcs"),
+              ("lognormal", True, "no_pcs"), ("lognormal", False, "pcs")]
+
+
+@pytest.mark.parametrize("storage", ["shared", "global"])
+@pytest.mark.parametrize("law,has_cs,power", _LAW_CASES)
+@pytest.mark.parametrize("chunk", [1, 8, 32])
+def test_law_lanes_kernel_matches_plain_bitwise(cuda, chunk, law, has_cs,
+                                                power, storage):
+    # the H2 and lognormal instantiations: one event with keep masks, or
+    # megasteps with per-lane rem, stop_on_update on every other step
+    params, pw, st, events = _lane_inputs(chunk + 40, 8, _LANE_N[storage],
+                                          24, has_cs, power, law, cuda,
+                                          cap=12)
+    rng = np.random.default_rng(chunk + 41)
+    want_st = st
+    steps = 120 if chunk == 1 else max(4, 240 // chunk)
+    for s in range(steps):
+        fs, cn = events(rng, chunk)
+        if chunk == 1:
+            keep = (None if s % 4 == 0 else
+                    torch.as_tensor(rng.random(8) < 0.8, device=cuda))
+            got = ke.event_step_lanes(params, st, fs[:, 0], cn[:, 0],
+                                      power=pw, keep=keep, donate=s > 0,
+                                      law=law)
+            want = E.event_step_lanes_plain(params, want_st, fs[:, 0],
+                                            cn[:, 0], power=pw, keep=keep,
+                                            law=law)
+        else:
+            rem = rng.integers(0, chunk + 1, 8)
+            rem[0] = chunk
+            got = ke.megastep_lanes(params, st, fs, cn, rem.tolist(),
+                                    power=pw, stop_on_update=s % 2 == 1,
+                                    donate=s > 0, law=law)
+            want = E.megastep_lanes_plain(params, want_st, fs, cn,
+                                          rem.tolist(), power=pw,
+                                          stop_on_update=s % 2 == 1,
+                                          law=law)
+        torch.cuda.synchronize()
+        _same_lanes(got, want, f"{law} step {s}")
+        st, want_st = got[0], want[0]
+    assert int(st.round.max()) > 12  # past the window
+
+
+def test_lognormal_lane_kernel_exp_log_bits_over_a_wide_range(cuda):
+    # every uplink and computation service of 512 lanes over 32 events,
+    # normals of scale 4 and rates from 1e-3 to 1e3: the kernel's exp and
+    # log give the bits of PyTorch's on the card
+    K, n = 512, 16
+    params, _, st, events = _lane_inputs(77, K, n, 40, False, None,
+                                         "lognormal", cuda)
+    rng = np.random.default_rng(78)
+    params = params._replace(**{k: torch.as_tensor(
+        10.0 ** rng.uniform(-3, 3, (K, n)), device=cuda)
+        for k in ("mu_c", "mu_u")})
+    for _ in range(4):
+        fs, cn = events(rng, 32)
+        fs[..., :2] *= 4.0
+        got = ke.megastep_lanes(params, st, fs, cn, 32, law="lognormal")
+        want = E.megastep_lanes_plain(params, st, fs, cn, 32,
+                                      law="lognormal")
+        torch.cuda.synchronize()
+        _same_lanes(got, want, "lognormal wide range")
+        st = got[0]
+
+
+@pytest.mark.parametrize("law", ["hyperexponential", "lognormal"])
+def test_law_lane_backends_and_next_update_on_the_card(cuda, law):
+    rng = np.random.default_rng(13)
+    t = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+    prms = [NetworkParams(p=t(rng.dirichlet(np.ones(20))),
+                          mu_c=t(rng.uniform(0.5, 4.0, 20)),
+                          mu_d=t(rng.uniform(0.5, 4.0, 20)),
+                          mu_u=t(rng.uniform(0.5, 4.0, 20)))
+            for _ in range(4)]
+    prms[1] = prms[1].with_cs(3.0)  # a CS lane alone, the rest without
+    for lanes in ([prms[0], prms[2], prms[3]], [prms[1]]):
+        kw = dict(warmup=50, seeds=range(len(lanes)), distribution=law)
+        ms = [8, 9, 10][:len(lanes)]
+        want = simulate_stats_lanes(lanes, ms, 300, backend="batched", **kw)
+        for chunk in (1, 8, 32):
+            got = simulate_stats_lanes(lanes, ms, 300, backend="kernel",
+                                       chunk=chunk, **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (law, chunk)
+    params = E.stack_lanes([prms[0], prms[2], prms[3]])
+    outs = {}
+    for be, chunk in (("batched", 1), ("kernel", 1), ("kernel", 8)):
+        gens = [torch.Generator(device=cuda).manual_seed(30 + i)
+                for i in range(3)]
+        st = E.stack_lanes([E.init_state(E.lane(params, i), 9, g, m_max=9,
+                                         distribution=law)
+                            for i, g in enumerate(gens)])
+        stream = E.EventStream([E.lane(params, i) for i in range(3)], gens,
+                               distribution=law)
+        ups = []
+        for _ in range(40):
+            st, up = E.next_update(params, st, stream, backend=be,
+                                   chunk=chunk)
+            ups.append(up)
+        outs[(be, chunk)] = (st, ups)
+    for key in (("kernel", 1), ("kernel", 8)):
+        for a, b in zip(outs[key][0], outs[("batched", 1)][0]):
+            assert torch.equal(a, b), key
+        for u, v in zip(outs[key][1], outs[("batched", 1)][1]):
+            assert all(torch.equal(a, b) for a, b in zip(u, v)), key
 
 
 @pytest.mark.parametrize("power", [None, "pcs"])

@@ -3,7 +3,14 @@
 1. Injected blocks: the JAX package's ``init_state`` and
    ``draw_event_blocks`` feed both engines, which then run the same events
    (JAX ``step_event_block`` vs the port's loop on both lane backends).
-   Every state leaf and the final statistics must be **bitwise** equal.
+   Every state leaf and the final statistics must be **bitwise** equal,
+   for the exponential, deterministic and hyperexponential laws (the H2
+   unit pairs as JAX drew them).  The lognormal blocks carry JAX's raw
+   subkeys, which the test turns into their normals with
+   ``jax.random.normal``: discrete leaves exact, float leaves within
+   ``rtol 1e-12, atol 1e-12`` (XLA may contract the normal's last multiply
+   with ``- log(rate)`` into one fused multiply-add inside its fusion, and
+   its ``exp`` and ``log`` are not PyTorch's).
 2. Inside the port: ``kernel`` equals ``batched`` equals ``reference``,
    lanes equal single runs, padded ``n`` equals unpadded — bitwise.
 3. Distributional: the port's own-generator runs and the host simulator
@@ -29,8 +36,25 @@ from repro_torch.sim import simulate_stats_lanes
 
 
 def _leaves(tree):
-    return {k: None if v is None else np.asarray(v)
-            for k, v in tree._asdict().items()}
+    """numpy leaves; a tuple leaf (the H2 unit pair) stays a tuple."""
+    def arr(v):
+        if isinstance(v, tuple) and v:
+            return tuple(np.asarray(x) for x in v)
+        return None if v is None else np.asarray(v)
+
+    return {k: arr(v) for k, v in tree._asdict().items()}
+
+
+_normals = jax.jit(lambda ks: jax.vmap(jax.random.normal)(
+    ks.reshape(-1, 2)).reshape(ks.shape[:-1]))
+
+
+def _unit_leaves(blk, dist):
+    """JAX's blocks as numpy leaves, the lognormal's raw subkeys replaced
+    by their normals ``jax.random.normal(k)``."""
+    if dist == "lognormal":
+        blk = blk._replace(up=_normals(blk.up), comp=_normals(blk.comp))
+    return _leaves(blk)
 
 
 def _jax_net(seed, n, with_cs):
@@ -46,14 +70,10 @@ def _jax_net(seed, n, with_cs):
     return (jp.with_cs(1.5) if with_cs else jp), jpw
 
 
-@pytest.mark.parametrize("dist,with_cs,n_max,power", [
-    ("exponential", False, None, True),
-    ("exponential", True, 7, True),
-    ("exponential", False, 6, False),
-    ("deterministic", False, None, True),
-    ("deterministic", True, 7, False),
-])
-def test_injected_blocks_bitwise_vs_jax(dist, with_cs, n_max, power):
+def _run_injected(dist, with_cs, n_max, power):
+    """JAX's engine and the port's on both lane backends, fed JAX's
+    ``init_state`` and blocks: ``(JAX's final state, its statistics, {backend:
+    the port's final state})``."""
     n, m, m_max, N = 4, 7, 9, 360
     jp, jpw = _jax_net(0, n, with_cs)
     if n_max is not None:
@@ -72,18 +92,33 @@ def test_injected_blocks_bitwise_vs_jax(dist, with_cs, n_max, power):
                                    power=jpw)[0], None
 
     want, _ = jax.jit(lambda s, b: jax.lax.scan(body, s, b))(st0, blk)
-    want_stats = JE.finalize_stats(want)
 
     lanes = TE.stack_lanes
     tp = lanes([convert.network_params(_leaves(jp), device="cpu")])
     tpw = (None if jpw is None else
            lanes([convert.power_profile(_leaves(jpw), device="cpu")]))
     tst = lanes([convert.event_state(_leaves(st0), device="cpu")])
-    tblk = convert.event_blocks(_leaves(blk), device="cpu")
+    tblk = convert.event_blocks(_unit_leaves(blk, dist), device="cpu")
     tblk = TE.EventBlocks(*[None if x is None else x[:, None] for x in tblk])
-    for backend in ("batched", "kernel"):
-        got = TE.run_event_blocks(tp, tst, tblk, distribution=dist,
-                                  power=tpw, backend=backend)
+    got = {backend: TE.run_event_blocks(tp, tst, tblk, distribution=dist,
+                                        power=tpw, backend=backend)
+           for backend in ("batched", "kernel")}
+    assert int(want.round) > 75  # the window closed inside the run
+    return want, JE.finalize_stats(want), got
+
+
+@pytest.mark.parametrize("dist,with_cs,n_max,power", [
+    ("exponential", False, None, True),
+    ("exponential", True, 7, True),
+    ("exponential", False, 6, False),
+    ("deterministic", False, None, True),
+    ("deterministic", True, 7, False),
+    ("hyperexponential", False, None, True),
+    ("hyperexponential", True, 7, True),
+])
+def test_injected_blocks_bitwise_vs_jax(dist, with_cs, n_max, power):
+    want, want_stats, outs = _run_injected(dist, with_cs, n_max, power)
+    for backend, got in outs.items():
         for name in TE.EventState._fields:
             assert np.array_equal(getattr(got, name)[0].numpy(),
                                   np.asarray(getattr(want, name))), \
@@ -93,7 +128,31 @@ def test_injected_blocks_bitwise_vs_jax(dist, with_cs, n_max, power):
             assert np.array_equal(getattr(stats, name)[0].numpy(),
                                   np.asarray(getattr(want_stats, name))), \
                 (backend, name)
-    assert int(want.round) > 75  # the window closed inside the run
+
+
+@pytest.mark.parametrize("with_cs,n_max,power", [(False, None, True),
+                                                 (True, 7, True),
+                                                 (False, 6, False)])
+def test_injected_blocks_lognormal_vs_jax(with_cs, n_max, power):
+    want, want_stats, outs = _run_injected("lognormal", with_cs, n_max,
+                                           power)
+
+    def close(g, w, what):
+        g, w = g.numpy(), np.asarray(w)
+        if np.issubdtype(w.dtype, np.floating):
+            np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-12,
+                                       err_msg=what)
+        else:
+            assert np.array_equal(g, w), what
+
+    for backend, got in outs.items():
+        for name in TE.EventState._fields:
+            close(getattr(got, name)[0], getattr(want, name), (backend, name))
+        stats = TE.finalize_stats(got)
+        for name in TE.EventStats._fields:
+            close(getattr(stats, name)[0], getattr(want_stats, name),
+                  (backend, name))
+    assert torch.equal(outs["batched"].finish, outs["kernel"].finish)
 
 
 def _net(seed, n, with_cs=False):
@@ -159,7 +218,12 @@ def test_generator_seeding_and_validation():
     a = TE.simulate_stats(prm, 4, 50, generator=g)
     b = TE.simulate_stats(prm, 4, 50, seed=7)
     assert _equal(a, b)
-    with pytest.raises(ValueError):
-        TE.simulate_stats(prm, 4, 50, distribution="lognormal")
+    for law in ("lognormal", "hyperexponential"):
+        got = TE.simulate_stats(prm, 4, 50, distribution=law, seed=7)
+        assert int(got.updates) == 50 and bool(got.throughput > 0)
+    with pytest.raises(ValueError, match=r"registered service distributions:"
+                       r" \['deterministic', 'exponential', "
+                       r"'hyperexponential', 'lognormal'\]"):
+        TE.simulate_stats(prm, 4, 50, distribution="weibull")
     with pytest.raises(ValueError):
         simulate_stats_lanes([prm], [4], 10, backend="pallas")

@@ -1,14 +1,20 @@
 """The port's megastep path (``chunk > 1``) and ``next_update``.
 
 1. Inside the port, bitwise: ``simulate_stats(_lanes)`` at ``chunk`` 2 and
-   7 equals ``chunk = 1`` on every lane backend, for both laws, with and
-   without the CS station, with power and with padded ``n``; one case puts
-   a draw-block boundary inside a megastep.  Lanes equal singles.
+   7 equals ``chunk = 1`` on every lane backend, for both scale laws (the
+   other two in ``tests/test_torch_laws.py``), with and without the CS
+   station, with power and with padded ``n``; one case puts a draw-block
+   boundary inside a megastep.  Lanes equal singles.
 2. ``next_update`` against the JAX package: fed the events JAX's
    ``draw_event_blocks`` draws from the state's key, the port's
    ``next_update`` reproduces JAX ``next_update(backend="batched",
    chunk=1)`` bitwise over 6 updates (the update and every state leaf but
-   the key), and at ``chunk`` 4 and 9 it equals its own ``chunk = 1``.
+   the key; the hyperexponential law too), and at ``chunk`` 4 and 9 it
+   equals its own ``chunk = 1``.  Under the lognormal law (JAX's raw
+   subkeys turned into their normals) the port is held against JAX's
+   ``batched`` and ``reference`` backends, never its ``pallas`` one (a
+   reference caveat): discrete results exact, float leaves within ``rtol
+   1e-12, atol 1e-12``.
 """
 import jax
 import jax.numpy as jnp
@@ -95,16 +101,23 @@ def test_simulate_chunks_padded_n_bitwise():
 
 
 def _leaves(tree):
-    return {k: None if v is None else np.asarray(v)
-            for k, v in tree._asdict().items()}
+    """numpy leaves; a tuple leaf (the H2 unit pair) stays a tuple."""
+    def arr(v):
+        if isinstance(v, tuple) and v:
+            return tuple(np.asarray(x) for x in v)
+        return None if v is None else np.asarray(v)
+
+    return {k: arr(v) for k, v in tree._asdict().items()}
 
 
-@pytest.mark.parametrize("dist,with_cs,power", [
-    ("exponential", False, True),
-    ("exponential", True, False),
-    ("deterministic", True, True),
-])
-def test_next_update_fed_jax_stream_bitwise(dist, with_cs, power):
+_normals = jax.jit(lambda ks: jax.vmap(jax.random.normal)(
+    ks.reshape(-1, 2)).reshape(ks.shape[:-1]))
+
+
+def _fed_jax_stream(dist, with_cs, power, jax_backend="batched"):
+    """Two lanes of JAX ``next_update`` over 6 updates and the port's,
+    fed JAX's initial states and the blocks JAX draws from their keys:
+    ``(JAX's runs, port(chunk, backend) -> (state, UpdateOut))``."""
     n, m, m_max, updates, N = 4, 3, 5, 6, 200
     rng = np.random.default_rng(6)
     jp = jbz.NetworkParams(p=jnp.asarray(rng.dirichlet(np.ones(n) * 2.0)),
@@ -128,10 +141,12 @@ def test_next_update_fed_jax_stream_bitwise(dist, with_cs, power):
 
         def body(s, _):
             return JE.next_update(jp, s, distribution=dist, power=jpw,
-                                  backend="batched", chunk=1)
+                                  backend=jax_backend, chunk=1)
 
         stf, upds = jax.lax.scan(body, st, None, length=updates)
         _, blk = JE.draw_event_blocks(jp, st.key, N, distribution=dist)
+        if dist == "lognormal":  # the raw subkeys' normals
+            blk = blk._replace(up=_normals(blk.up), comp=_normals(blk.comp))
         return st, stf, upds, blk
 
     runs = [go(jp, jpw, jax.random.PRNGKey(s)) for s in (8, 9)]  # two lanes
@@ -154,6 +169,18 @@ def test_next_update_fed_jax_stream_bitwise(dist, with_cs, power):
             outs.append(upd)
         return st, TE.UpdateOut(*[torch.stack(x, 1) for x in zip(*outs)])
 
+    return runs, port
+
+
+@pytest.mark.parametrize("dist,with_cs,power", [
+    ("exponential", False, True),
+    ("exponential", True, False),
+    ("deterministic", True, True),
+    ("hyperexponential", True, True),
+])
+def test_next_update_fed_jax_stream_bitwise(dist, with_cs, power):
+    updates = 6
+    runs, port = _fed_jax_stream(dist, with_cs, power)
     st1, upd1 = port(1, "batched")
     for k, (_, stf, upds, _) in enumerate(runs):
         for name in TE.UpdateOut._fields:
@@ -164,6 +191,30 @@ def test_next_update_fed_jax_stream_bitwise(dist, with_cs, power):
                                   np.asarray(getattr(stf, name))), name
     assert int(upd1.steps.sum()) > 2 * updates
     for chunk, backend in ((1, "kernel"), (4, "batched"), (9, "kernel")):
+        st2, upd2 = port(chunk, backend)
+        assert _equal(upd1, upd2) and _equal(st1, st2), (chunk, backend)
+
+
+@pytest.mark.parametrize("jax_backend,with_cs", [("batched", True),
+                                                 ("reference", False)])
+def test_next_update_lognormal_fed_jax_stream(jax_backend, with_cs):
+    runs, port = _fed_jax_stream("lognormal", with_cs, True, jax_backend)
+
+    def close(g, w, what):
+        g, w = g.numpy(), np.asarray(w)
+        if np.issubdtype(w.dtype, np.floating):
+            np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-12,
+                                       err_msg=str(what))
+        else:
+            assert np.array_equal(g, w), what
+
+    st1, upd1 = port(1, "batched")
+    for k, (_, stf, upds, _) in enumerate(runs):
+        for name in TE.UpdateOut._fields:
+            close(getattr(upd1, name)[k], getattr(upds, name), name)
+        for name in TE.EventState._fields:
+            close(getattr(st1, name)[k], getattr(stf, name), name)
+    for chunk, backend in ((1, "kernel"), (9, "kernel")):
         st2, upd2 = port(chunk, backend)
         assert _equal(upd1, upd2) and _equal(st1, st2), (chunk, backend)
 

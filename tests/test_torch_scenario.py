@@ -4,9 +4,9 @@ package's (``repro.scenario``).
 1. JSON: the same constructor calls in both packages give the same
    ``to_json()`` string and the same ``hash()``; each package's dict
    rebuilds the other's scenario; ``from_dict(to_dict())`` is bitwise.
-2. What the port lacks raises at construction, listing its options: the
-   ``lognormal`` and ``hyperexponential`` laws, the ``pallas`` and
-   ``sharded`` backends, ``interpret``.
+2. What the port lacks raises at construction, listing its options: an
+   unregistered law (all four of the JAX package's laws load), the
+   ``pallas`` and ``sharded`` backends, ``interpret``.
 3. Eager validation and the step-size rules, as ``tests/test_scenario.py``.
 4. Strategy resolution on Table 1 at scale 10 with its power profile,
    ``steps=40``, against JAX at the sweep tests' tolerances (m exact,
@@ -89,8 +89,8 @@ def _build(S, case: str):
     elif case == "table1":
         net = S.NetworkSpec.from_clusters(S.PAPER_CLUSTERS_TABLE1, 10)
         energy = S.EnergySpec.from_clusters(S.PAPER_CLUSTERS_TABLE1, 10)
-    elif case == "deterministic":
-        net = dataclasses.replace(net, law="deterministic")
+    elif case in ("deterministic", "lognormal", "hyperexponential"):
+        net = dataclasses.replace(net, law=case)
     elif case.startswith("strategy_"):
         kw["strategy"] = S.StrategySpec(case[9:], steps=17, m_max=n + 3,
                                         search="pruned")
@@ -122,7 +122,8 @@ def _build(S, case: str):
 
 
 CASES = (["per_client", "classes", "classes_mu_cs", "mu_cs", "table1",
-          "deterministic", "explicit", "sim", "sim_default", "data", "named"]
+          "deterministic", "lognormal", "hyperexponential", "explicit",
+          "sim", "sim_default", "data", "named"]
          + [f"strategy_{s}" for s in SIX]
          + [f"objective_{o}" for o in ("time", "round", "throughput",
                                        "energy", "joint")])
@@ -194,11 +195,17 @@ def test_hash_ignores_name_and_keys_are_absent_at_defaults():
 
 @pytest.mark.parametrize("law", ["lognormal", "hyperexponential"])
 def test_unported_laws_raise_listing_the_ports(law):
+    # the law loads from the JAX package's dict, with its JSON and hash;
+    # an unregistered name raises listing the four registered laws
     d = dataclasses.replace(_build(J, "per_client").network,
                             law=law).to_dict()
+    got = T.NetworkSpec.from_dict(d)
+    assert got.law == law and got.to_dict() == d
+    unknown = {"lognormal": "weibull", "hyperexponential": "pareto"}[law]
     with pytest.raises(ValueError, match=r"registered service distributions:"
-                       r" \['deterministic', 'exponential'\]"):
-        T.NetworkSpec.from_dict(d)
+                       r" \['deterministic', 'exponential', "
+                       r"'hyperexponential', 'lognormal'\]"):
+        T.NetworkSpec.from_dict({**d, "law": unknown})
 
 
 @pytest.mark.parametrize("backend", ["pallas", "sharded"])
@@ -532,10 +539,10 @@ def test_build_power_profile_bitwise(P_cs):
         dataclasses.astuple(c) for c in J.PAPER_CLUSTERS_TABLE6]
 
 
-def _fl_problem(S, n=4, sim=None):
+def _fl_problem(S, n=4, sim=None, law="exponential"):
     rng = np.random.default_rng(5)
     net = S.NetworkSpec(mu_c=rng.uniform(1, 4, n), mu_d=rng.uniform(1, 4, n),
-                        mu_u=rng.uniform(1, 4, n))
+                        mu_u=rng.uniform(1, 4, n), law=law)
     en = S.EnergySpec(kappa=rng.uniform(0.1, 1, n), P_u=rng.uniform(1, 2, n),
                       P_d=rng.uniform(1, 2, n))
     return S.Scenario(network=net, energy=en,
@@ -606,6 +613,39 @@ def test_device_trainer_from_scenario_is_the_hand_built_one():
         assert (a is None) == (b is None)
         if a is not None:
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("law", ["lognormal", "hyperexponential"])
+def test_device_trainer_from_scenario_runs_each_law(law):
+    # the law reaches the trainer's event stream: the kernel route at E = 8
+    # equals the hand-built batched trainer at E = 1, and the wiring is
+    # the JAX package's
+    clients, test = _clients()
+    scn = _fl_problem(T, sim=T.SimSpec(backend="kernel", chunk=8), law=law)
+    over = dict(batch_size=8, eval_every_time=4.0)
+    tr = teng.DeviceTrainer.from_scenario(
+        scn, tmodels.mlp_classifier(64, 4, hidden=(8,), device="cpu"),
+        clients, test_data=test, device="cpu", **over)
+    assert tr.cfg.distribution == law
+    hand = teng.DeviceTrainer(
+        tmodels.mlp_classifier(64, 4, hidden=(8,), device="cpu"), clients,
+        scn.params(device="cpu"), ttrainer.AsyncFLConfig(
+            eta=0.05, grad_clip=5.0, distribution=law, **over),
+        test_data=test, power=scn.power(device="cpu"), sim_backend="batched",
+        device="cpu")
+    args = ([np.full(4, 0.25)] * 2, [3, 2], [0.05, 0.05], [0, 1], 12.0)
+    logs_a, fin_a = tr.run_lanes(*args)
+    logs_b, fin_b = hand.run_lanes(*args)
+    assert torch.equal(fin_a, fin_b)
+    for a, b in zip(logs_a, logs_b):
+        assert a.updates[-1] > 3
+        assert (a.updates, a.throughput, a.energy) == (b.updates,
+                                                       b.throughput,
+                                                       b.energy)
+    jtr = jeng.DeviceTrainer.from_scenario(
+        _fl_problem(J, law=law), jmodels.mlp_classifier(64, 4, hidden=(8,)),
+        clients, test_data=test, **over)
+    assert jtr.cfg.distribution == law
 
 
 @pytest.mark.parametrize("trace", [dict(updates=16), dict(events=8)])

@@ -15,7 +15,10 @@ JAX package's, and its bucketing and padding contract.
    ``simulate_stats_classes_lanes``) of its scenario alone at the same
    seed, table size and chunk, on ``reference``, ``batched`` and
    ``kernel`` (plain versions on the CPU); ``programs`` equals JAX's; the
-   law and backend bucket split; the undersized-``m_max`` error.
+   law and backend bucket split (a hyperexponential bucket of two
+   populations and a lognormal one, as the JAX package's
+   ``test_suite_simulate_buckets_mixed_laws_separately``); the
+   undersized-``m_max`` error.
 3. ``train``: an exact bucket bitwise ``DeviceTrainer.run_lanes`` built by
    hand; a ``DataSpec`` bucket of n = 4 and 6 with each lane bitwise the
    scenario trained alone (the lanes share one task table, so alone means
@@ -376,6 +379,34 @@ def test_simulate_programs_match_jax():
     for name, stats in t.entries.items():
         assert stats[0].mean_delay.shape == \
             np.asarray(j.entries[name][0].mean_delay).shape
+
+
+def test_simulate_law_buckets_bitwise_alone():
+    rng = np.random.default_rng(12)
+    jscns = {}
+    for name, law, n, m in (("h2_a", "hyperexponential", 3, 3),
+                            ("h2_b", "hyperexponential", 5, 2),
+                            ("logn", "lognormal", 4, 3),
+                            ("expo", "exponential", 4, 3)):
+        jscns[name] = J.Scenario(network=_net(J, rng, n, law=law),
+                                 strategy=J.StrategySpec(
+                                     "explicit", p=rng.dirichlet(np.ones(n)),
+                                     m=m))
+    kw = dict(num_updates=60, warmup=10)
+    j = JS.ScenarioSuite(jscns, seeds=(0,)).run(mode="simulate", **kw)
+    scns = {k: T.Scenario.from_dict(v.to_dict()) for k, v in jscns.items()}
+    suite = TS.ScenarioSuite(scns, seeds=(0, 1), device="cpu")
+    res = suite.run(mode="simulate", backend="kernel", **kw)
+    assert res.programs == j.programs == 3  # one program per law
+    strategies = suite.resolve()
+    for members in (["h2_a", "h2_b"], ["logn"], ["expo"]):
+        m_max = max(strategies[k][1] for k in members)
+        for name in members:
+            p, m = strategies[name]
+            for seed, got in zip(suite.seeds, res.entries[name]):
+                want = _alone_stats(scns[name], p, m, seed, m_max, "kernel",
+                                    1, kw["num_updates"], kw["warmup"])
+                _assert_stats_equal(tev.lane(want, 0), got, f"{name}/{seed}")
 
 
 def test_simulate_undersized_m_max_raises():

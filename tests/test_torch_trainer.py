@@ -7,7 +7,8 @@
    indices (``dkey = fold_in(PRNGKey(seed), 2)``, then per update
    ``split`` and ``randint(kb, (batch,), 0, sizes[c])``, here for every
    client ``c``) — reproduces JAX's run (``use_fused_update=False``,
-   ``backend="batched"``) on 2 lanes and about 30 updates: update counts,
+   ``backend="batched"``; the exponential, deterministic and
+   hyperexponential laws) on 2 lanes and about 30 updates: update counts,
    ``delay_counts``, ``mean_delay``, throughput, energy and
    ``grid_updates`` bitwise; final parameters at ``rtol 1e-4, atol 1e-5``
    (float32 gradients in two frameworks); grid losses at ``rtol 1e-4``;
@@ -76,8 +77,13 @@ def _tnet(rates, p, mu_cs=None):
 
 
 def _leaves(tree):
-    return {k: None if v is None else np.asarray(v)
-            for k, v in tree._asdict().items()}
+    """numpy leaves; a tuple leaf (the H2 unit pair) stays a tuple."""
+    def arr(v):
+        if isinstance(v, tuple) and v:
+            return tuple(np.asarray(x) for x in v)
+        return None if v is None else np.asarray(v)
+
+    return {k: arr(v) for k, v in tree._asdict().items()}
 
 
 def _models(kind, image, classes):
@@ -133,6 +139,7 @@ CASES = {
     "mlp-exponential": ("mlp", "exponential", None, 0),
     "cnn-deterministic": ("cnn", "deterministic", None, 0),
     "mlp-exponential-cs-lanes": ("mlp", "exponential", 3.0, 2),
+    "mlp-hyperexponential": ("mlp", "hyperexponential", None, 0),
 }
 
 
