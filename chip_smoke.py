@@ -5,7 +5,8 @@ Run from the repository root on a machine with a CUDA device:
 
     python3 chip_smoke.py
 
-Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
+Phases (any failure raises and exits non-zero; nothing falls back to the CPU;
+every seed is a ``jax.random`` key, :mod:`repro_torch.core.prng`):
 
   1. the card (``nvidia-smi`` name and power limit) and the kernels' build,
      from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, at once);
@@ -45,15 +46,16 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      in float64, ``time_optimal(m_max=132, steps=200)`` on the ``kernel``
      and ``torch`` Buzen backends (the sweep values within rtol 1e-4);
      ``simulate_stats_lanes`` at the optimum on 6 seed lanes (1,500 updates
-     after 400 of warm-up) on the ``batched`` backend and on the ``kernel``
-     backend at chunk E = 1, 8 and 32, at m* and at m = 132 (every
-     statistic bitwise equal across backends and E; lane-mean throughput
-     within 10% of Prop. 4), runs of 300 updates with a power profile at
-     E = 1, 8 and 32 and on ``batched`` (bitwise) and without it at E = 1,
-     8 and 32 (the same trajectory), and ``next_update`` on 6 lanes for 200
-     updates at chunk 1 and 8 (the updates and final states bitwise).  Each
-     ``kernel`` run must launch its lane kernel exactly ceil(events / E)
-     times and no transition-only kernel.  The kernels' launch counters are
+     after 400 of warm-up) on the ``kernel`` backend at chunk E = 1, 8 and
+     32, at m* and at m = 132 (every statistic bitwise equal across E;
+     lane-mean throughput within 10% of Prop. 4), runs of 300 updates with
+     a power profile at E = 1, 8 and 32 and on ``batched`` (bitwise) and
+     without it at E = 1, 8 and 32 (the same trajectory) and on
+     ``batched`` at E = 1 (bitwise), and ``next_update`` on 6 lanes for
+     200 updates at chunk 1 and 8 (the updates and final states bitwise).
+     Each ``kernel`` run must launch its lane kernel exactly ceil(events /
+     E) times and no transition-only kernel, and every run the key-chain
+     kernel once a block of 1,024 events.  The kernels' launch counters are
      zeroed just before this phase and read just after it: each kernel
      must have launched, the Buzen forward 201 times and its backward 200
      (the sweep's Adam steps);
@@ -248,6 +250,19 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
      (c) the device ms per lock-step event of the lane kernel's three rate
      forms (scale, H2, lognormal) at E = 1 and 8 (6 lanes x m*, two
      ``torch.profiler`` traces, the larger).
+ 14. the key streams (the key-chain kernel, ``csrc/threefry.cu``, counted
+     on the main path of phase 4, and in phases 7, 12 and 13): (a)
+     ``jax.random``'s answers for four seeds, written here as integers
+     (split, the key after 1,024 chain steps from the kernel, fold_in,
+     randint, the uniform's bits), exact on the card; (b) the kernel
+     bitwise its plain version on the host at phase 13's size (6 lanes x
+     the events of 15,000 updates after 400, hyperexponential paths, drawn
+     block by block as the stream does); (c) ``simulate_stats`` with one
+     seed on the card (``kernel`` route) against the host CPU's plain
+     route under three laws: discrete leaves exact, floats within ``rtol
+     1e-12``; (d) the kernel's device ms per block of 1,024 events x 6
+     lanes, the chain alone, the whole stream block beside the
+     ``torch.Generator`` draws it replaces, its bound.
 
 Phase 3 also holds the fused-update kernel against its plain version
 (bitwise on the new parameters, ``rtol 1e-5`` on the squared norm) at
@@ -317,6 +332,56 @@ PAIR_UPDATES = 300
 # sheet): the bound of the attention kernel's operations
 PEAK_BF16_FLOPS = 989e12
 
+# phase 14's known answers: jax.random on jax 0.9.0 (x64, threefry
+# partitionable) for these seeds, computed where JAX is installed:
+# split(k, 6), the key after 1,024 steps of the chain split(k, 6)[0],
+# fold_in(k, 1) and fold_in(k, 2), randint(k, (3,), 0, 1000003) and the
+# float64 bits of uniform(k, (2,))
+JAX_ANSWERS = {
+    0: dict(
+        split6=[1797259609, 2579123966, 928981903, 3453687069, 4146024105,
+            2718843009, 2467461003, 3840466878, 2285895361, 433833334,
+            1524306142, 1887795613],
+        chain1024=[2708596157, 547718659],
+        fold12=[928981903, 3453687069, 4146024105, 2718843009],
+        randint=[333962, 466642, 300875],
+        uniform_bits=[4601209873087491728, 4596960885320641928],
+    ),
+    1: dict(
+        split6=[507451445, 1853169794, 1948878966, 4237131848, 2441914641,
+            3819641963, 3568232559, 2761185182, 869452973, 3597360905,
+            3243370355, 1313272271],
+        chain1024=[3242012521, 2967396320],
+        fold12=[1948878966, 4237131848, 2441914641, 3819641963],
+        randint=[295633, 633437, 147554],
+        uniform_bits=[4593178043172680992, 4601845810764653408],
+    ),
+    42: dict(
+        split6=[1832780943, 270669613, 64467757, 2916123636, 2465931498,
+            255383827, 3134548294, 894150801, 2954079971, 3276725750,
+            2765691542, 824333390],
+        chain1024=[1462872883, 2291380616],
+        fold12=[64467757, 2916123636, 2465931498, 255383827],
+        randint=[887067, 284202, 871285],
+        uniform_bits=[4601358860358518916, 4579806337745978368],
+    ),
+    4294967303: dict(
+        split6=[3751178690, 325998405, 1741727090, 2326748124, 1591882673,
+            3522270390, 2836227758, 3199787836, 3575481439, 1729507223,
+            2152786599, 114884099],
+        chain1024=[642391304, 1820099952],
+        fold12=[1741727090, 2326748124, 1591882673, 3522270390],
+        randint=[176036, 269114, 483935],
+        uniform_bits=[4606042011437526474, 4600976952820673492],
+    ),
+}
+# the 32-bit integer issue rate of one H100 SXM at 700 W: the guide's
+# float32 rate counts an FMA as two operations on an SM's 128 float32
+# lanes; an SM has 64 INT32 lanes, so a quarter of that rate
+PEAK_INT32_OPS = 67e12 / 4
+# integer operations of one threefry2x32: 20 rounds of add, rotate and
+# xor, 5 key injections of three adds, the key schedule's two xors
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 2
 
 # the five tables, the event times and the descriptors a transition returns
 TABLE_OUT = ("finish", "phase", "client", "seq", "disp_round", "t", "desc")
@@ -377,6 +442,7 @@ def lane_inputs(dev, net, n, rng, K, m_max, law, with_cs, power):
     import torch
 
     from repro_torch.core.energy import PowerProfile
+    from repro_torch.core import prng
     from repro_torch.core.events import init_state, stack_lanes
     from repro_torch.scenario.laws import H2_FAST, H2_SLOW
 
@@ -389,9 +455,9 @@ def lane_inputs(dev, net, n, rng, K, m_max, law, with_cs, power):
                                   for _ in range(3)],
                                 P_cs=t(np.float64(2.5)) if power == "pcs"
                                 else None))
-        gen = torch.Generator(device=dev).manual_seed(500 + k)
+        key = prng.PRNGKey(500 + k, device=dev)
         states.append(init_state(prms[-1], max(1, m_max * (k + 1) // K),
-                                 gen, m_max=m_max, distribution=law,
+                                 key, m_max=m_max, distribution=law,
                                  warmup=4, cap=24))
 
     def events(count):
@@ -614,6 +680,7 @@ def train_phase(dev, net, n, p_star, m_star, lam_star) -> dict:
     from repro_torch.kernels import buzen as kb
     from repro_torch.kernels import events as ke
     from repro_torch.kernels import fused_update as kf
+    from repro_torch.kernels import threefry as ktf
     from repro_torch.scenario.spec import DEFAULT_ETA
 
     t0 = time.perf_counter()
@@ -661,10 +728,11 @@ def train_phase(dev, net, n, p_star, m_star, lam_star) -> dict:
           "the CNN is not at full width")
     for counted in (kb.buzen_batched, ke.event_step_lanes, ke.megastep_lanes,
                     ke.event_step_tables, ke.megastep_tables,
-                    kf.fused_async_update_flat):
+                    kf.fused_async_update_flat, ktf.chain_words):
         counted.launches = 0
     main = grid(tr)
     launches = {"fused_update": kf.fused_async_update_flat.launches,
+                "threefry": ktf.chain_words.launches,
                 "megastep": ke.megastep_lanes.launches,
                 "event_step": ke.event_step_lanes.launches,
                 "transition_only": ke.event_step_tables.launches
@@ -690,6 +758,10 @@ def train_phase(dev, net, n, p_star, m_star, lam_star) -> dict:
     check(launches["megastep"] >= rounds and launches["event_step"] == 0
           and launches["transition_only"] == 0,
           f"megastep lane kernel not on every next_update: {launches}")
+    # the key chain: the events' blocks and a block of minibatch draws
+    # every DRAW_BATCHES rounds
+    check(launches["threefry"] >= 1 + -(-rounds // fl_engine.DRAW_BATCHES),
+          f"the key-chain kernel did not draw the run's keys: {launches}")
     check(all(np.isfinite(lg.losses).all() for lg in logs),
           "a training loss is not finite")
     check(all(lg.losses[-1] < lg.losses[0] for lg in res.logs["time_opt"]),
@@ -1033,6 +1105,7 @@ def scenario_phase(dev, card: str, net, res_k, lam_star, big_spec, big_res,
     from repro_torch.kernels import buzen as kb
     from repro_torch.kernels import events as ke
     from repro_torch.kernels import fused_update as kf
+    from repro_torch.kernels import threefry as ktf
     from repro_torch.scenario import (PAPER_CLUSTERS_TABLE1, STRATEGIES,
                                       DataSpec, EnergySpec, LearningSpec,
                                       NetworkSpec, Scenario, SimSpec,
@@ -1045,7 +1118,8 @@ def scenario_phase(dev, card: str, net, res_k, lam_star, big_spec, big_res,
                "buzen_classes_backward": kb.buzen_classes_log_Z_backward,
                "event_step": ke.event_step_lanes,
                "megastep": ke.megastep_lanes,
-               "fused_update": kf.fused_async_update_flat}
+               "fused_update": kf.fused_async_update_flat,
+               "threefry": ktf.chain_words}
     for c in counted.values():
         c.launches = 0
 
@@ -1228,7 +1302,7 @@ def scenario_phase(dev, card: str, net, res_k, lam_star, big_spec, big_res,
     check(all(total[k] > 0 for k in ("buzen", "buzen_backward",
                                      "buzen_classes",
                                      "buzen_classes_backward", "megastep",
-                                     "fused_update")),
+                                     "fused_update", "threefry")),
           f"a kernel of the Scenario path never launched: {total}")
 
     # -- 11f. the example, in a process of its own ----------------------------
@@ -1278,6 +1352,7 @@ def suite_phase(dev, card: str, res_k, lam_star, strategies, big_spec,
     from repro_torch.kernels import buzen as kb
     from repro_torch.kernels import events as ke
     from repro_torch.kernels import fused_update as kf
+    from repro_torch.kernels import threefry as ktf
     from repro_torch.scenario import (PAPER_CLUSTERS_TABLE1, DataSpec,
                                       EnergySpec, NetworkSpec, Scenario,
                                       ScenarioSuite, SimSpec, StrategySpec)
@@ -1291,7 +1366,8 @@ def suite_phase(dev, card: str, res_k, lam_star, strategies, big_spec,
                "buzen_classes_backward": kb.buzen_classes_log_Z_backward,
                "event_step": ke.event_step_lanes,
                "megastep": ke.megastep_lanes,
-               "fused_update": kf.fused_async_update_flat}
+               "fused_update": kf.fused_async_update_flat,
+               "threefry": ktf.chain_words}
     for c in counted.values():
         c.launches = 0
 
@@ -1385,8 +1461,10 @@ def suite_phase(dev, card: str, res_k, lam_star, strategies, big_spec,
             mode="simulate", num_updates=U, warmup=W))
         check(sim.programs == 1 and sim.lanes == 8,
               f"simulate: {sim.programs} programs, {sim.lanes} lanes")
-        check(launched.get("megastep", 0) > 0,
-              f"simulate: kernel 3 did not launch: {launched}")
+        check(launched.get("megastep", 0) > 0
+              and launched.get("threefry", 0) > 0,
+              f"simulate: kernel 3 or the key chain did not launch: "
+              f"{launched}")
         m_top = max(resolved[k][1] for k in four)
         t0 = time.perf_counter()
         gaps = {}
@@ -1611,10 +1689,13 @@ def laws_phase(dev, card: str, net, n: int, p_star, m_star: int,
     import numpy as np
     import torch
 
-    from repro_torch.core.events import (EventState, EventStream, init_state,
+    from repro_torch.core import prng
+    from repro_torch.core.events import (DRAW_EVENTS, EventState,
+                                         EventStream, event_key, init_state,
                                          stack_lanes)
     from repro_torch.core.simulator import AsyncNetworkSim
     from repro_torch.kernels import events as ke
+    from repro_torch.kernels import threefry as ktf
     from repro_torch.scenario import (NetworkSpec, Scenario, ScenarioSuite,
                                       SimSpec, StrategySpec)
     from repro_torch.sim import simulate_stats_lanes
@@ -1622,13 +1703,14 @@ def laws_phase(dev, card: str, net, n: int, p_star, m_star: int,
     t_phase = time.perf_counter()
     counted = (ke.event_step_lanes, ke.megastep_lanes, ke.event_step_tables,
                ke.megastep_tables)
-    for c in counted:
+    for c in counted + (ktf.chain_words,):
         c.launches = 0
     U, W = LAW_UPDATES, 400
     events = 3 * (U + W) + 3 * m_star + 8
     for law in ("hyperexponential", "lognormal"):
         # -- 13a. 6 lanes at (p*, m*) on the kernel route, E = 8 ------------
         before = [c.launches for c in counted]
+        chains = ktf.chain_words.launches
         t0 = time.perf_counter()
         st = simulate_stats_lanes([p_star] * 6, [m_star] * 6, U, warmup=W,
                                   seeds=range(6), distribution=law,
@@ -1639,6 +1721,10 @@ def laws_phase(dev, card: str, net, n: int, p_star, m_star: int,
         check(got == [0, -(-events // 8), 0, 0],
               f"simulate[{law}, kernel, E=8]: launches (event lanes, "
               f"megastep lanes, event, megastep) {got}")
+        chains = ktf.chain_words.launches - chains
+        check(chains == -(-events // DRAW_EVENTS),
+              f"simulate[{law}]: {chains} key-chain launches for "
+              f"{events} events of 6 lanes")
         check(bool(torch.isfinite(st.mean_delay).all()
                    and (st.updates == U).all()),
               f"simulate[{law}]: updates {st.updates.tolist()}")
@@ -1709,12 +1795,11 @@ def laws_phase(dev, card: str, net, n: int, p_star, m_star: int,
     for chunk, reps in ((1, 200), (8, 50)):
         calls = []
         for law in forms:
-            gens = [torch.Generator(device=dev).manual_seed(900 + i)
-                    for i in range(6)]
-            st = stack_lanes([init_state(p_star, m_star, g, m_max=m_star,
-                                         distribution=law) for g in gens])
+            keys = prng.seed_keys(range(900, 906), device=dev)
+            st = stack_lanes([init_state(p_star, m_star, k, m_max=m_star,
+                                         distribution=law) for k in keys])
             own = EventState(*[x.clone() for x in st])
-            fs, cn, _ = EventStream([p_star] * 6, gens,
+            fs, cn, _ = EventStream([p_star] * 6, event_key(keys),
                                     distribution=law).window(chunk)
             if chunk == 1:
                 calls.append(lambda s=own, f=fs[:, 0], c=cn[:, 0], lw=law:
@@ -1747,6 +1832,152 @@ def laws_phase(dev, card: str, net, n: int, p_star, m_star: int,
         + ", ".join(f"{law} E={e} {v:.6f}"
                     for (law, e), v in per_event.items()))
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
+def keys_phase(dev, card: str, p_star, m_star: int, main_launches: int,
+               sm_clock_mhz: float) -> dict:
+    """Phase 14 (see the module docstring): the key streams.  Returns the
+    key-chain kernel's record."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.events import (DRAW_EVENTS, _unit_scalars,
+                                         block_paths, blocks_from_words,
+                                         event_key, simulate_stats)
+    from repro_torch.core.numerics import seqcumsum
+    from repro_torch.kernels import threefry as ktf
+
+    t_phase = time.perf_counter()
+    # -- 14a. jax.random's known answers on the card ----------------------
+    for seed, want in JAX_ANSWERS.items():
+        key = prng.PRNGKey(seed, device=dev)
+        chain, _ = ktf.chain_words(key[None], 1024,
+                                   ktf.paths_tensor([(1, 0)], dev))
+        folds = torch.stack([prng.fold_in(key, 1), prng.fold_in(key, 2)])
+        got = dict(
+            split6=prng.split(key, 6).reshape(-1).tolist(),
+            chain1024=chain[0, -1].tolist(),
+            fold12=folds.reshape(-1).tolist(),
+            randint=prng.randint(key, (3,), 0, 1000003).tolist(),
+            uniform_bits=prng.uniform(key, (2,)).view(torch.int64).tolist())
+        check(got == want, f"jax.random known answers, seed {seed}: {got}")
+    log(f"phase 14: jax.random's known answers for seeds "
+        f"{list(JAX_ANSWERS)} exact on the card (split, the 1,024-step "
+        f"chain from the kernel, fold_in, randint, uniform)")
+
+    # -- 14b. the kernel == its plain version at phase 13's size ----------
+    events = 3 * (LAW_UPDATES + 400) + 3 * m_star + 8
+    paths_h2 = ktf.paths_tensor(block_paths("hyperexponential", False)[0],
+                                dev)
+    keys = event_key(prng.seed_keys(range(6), device=dev))
+    t0 = time.perf_counter()
+    start, chains, words = keys, [], []
+    for lo in range(0, events, DRAW_EVENTS):  # as the stream draws them
+        c, w = ktf.chain_words(start, min(DRAW_EVENTS, events - lo),
+                               paths_h2)
+        chains.append(c)
+        words.append(w)
+        start = c[:, -1]
+    chain_k, words_k = torch.cat(chains, 1).cpu(), torch.cat(words, 1).cpu()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chain_p, words_p = ktf.chain_words_plain(keys.cpu(), events,
+                                             paths_h2.cpu())
+    plain_s = time.perf_counter() - t0
+    check(torch.equal(chain_k, chain_p) and torch.equal(words_k, words_p),
+          "the key-chain kernel != its plain version at phase 13's size")
+    log(f"phase 14: key-chain kernel == plain bitwise: 6 lanes x {events} "
+        f"events ({len(chains)} blocks of {DRAW_EVENTS}, "
+        f"{paths_h2.shape[0]} hyperexponential paths an event): card "
+        f"{card_s:.2f} s with the copies, plain on the host {plain_s:.2f} s")
+
+    # -- 14c. same seed: simulate_stats on the card == on the host CPU ----
+    U, W = 300, 50
+    cpu_net = type(p_star)(*[None if x is None else x.cpu()
+                             for x in p_star])
+    for law in ("exponential", "hyperexponential", "lognormal"):
+        kw = dict(warmup=W, seed=11, distribution=law, backend="kernel",
+                  chunk=8)
+        card_stats = simulate_stats(p_star, m_star, U, **kw)
+        host = simulate_stats(cpu_net, m_star, U, **kw)
+        for name, a, b in zip(host._fields, card_stats, host):
+            a = a.cpu()
+            if b.dtype.is_floating_point:
+                ok = bool(torch.isclose(a, b, rtol=1e-12, atol=1e-12).all())
+            else:
+                ok = torch.equal(a, b)
+            check(ok, f"simulate_stats[{law}] card != host CPU: {name}")
+        log(f"phase 14: simulate_stats[{law}, seed 11] at (p*, "
+            f"m*={m_star}), {U} updates after {W}: card (kernel route) == "
+            f"host CPU (plain route): discrete leaves exact, floats within "
+            f"rtol 1e-12 (throughput {float(card_stats.throughput):.10g})")
+
+    # -- 14d. times at the main path's block: 6 lanes x DRAW_EVENTS -------
+    paths_e = ktf.paths_tensor(block_paths("exponential", False)[0], dev)
+    n_ev = DRAW_EVENTS
+    ms = time_ms(lambda: ktf.chain_words(keys, n_ev, paths_e), 50)
+    ms_h2 = time_ms(lambda: ktf.chain_words(keys, n_ev, paths_h2), 50)
+    no_paths = ktf.paths_tensor([], dev)
+    chain_ms = time_ms(lambda: ktf.chain_words(keys, n_ev, no_paths), 50)
+    host_keys, host_paths = keys.cpu(), paths_e.cpu()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ktf.chain_words_plain(host_keys, n_ev, host_paths)
+    plain_ms = 1e3 * (time.perf_counter() - t0) / 3
+
+    # the whole block draw of the stream on the card (the kernel, the
+    # uniforms and the law's variates, the routing), per law, beside the
+    # generator draws it replaces (one generator a lane: the routing
+    # uniforms, then the downlink, uplink and computation exponentials)
+    prefixes = [seqcumsum(p_star.p)] * 6
+
+    def stream_block(law, paths):
+        _, words = ktf.chain_words(keys, n_ev, paths)
+        _unit_scalars(blocks_from_words([p_star] * 6, words,
+                                        distribution=law,
+                                        route_prefixes=prefixes), law)
+
+    gens = [torch.Generator(device=dev).manual_seed(i) for i in range(6)]
+
+    def generator_block():
+        for g in gens:
+            torch.rand(n_ev, generator=g, dtype=torch.float64, device=dev)
+            for _ in range(3):
+                torch.empty(n_ev, dtype=torch.float64,
+                            device=dev).exponential_(generator=g)
+
+    stream_ms = {law: time_ms(lambda: stream_block(law, ktf.paths_tensor(
+        block_paths(law, False)[0], dev)), 20)
+        for law in ("exponential", "hyperexponential", "lognormal")}
+    gen_ms = time_ms(generator_block, 20)
+    P = paths_e.shape[0]
+    hashes = 6 * n_ev * (1 + sum(1 + int((row[1:] >= 0).sum())
+                                 for row in paths_e.cpu()))
+    bound_ops = hashes * THREEFRY_OPS / PEAK_INT32_OPS
+    bound_bytes = (6 * 2 * 8 + P * 4 * 4 + 6 * n_ev * 2 * 8
+                   + 6 * n_ev * P * 2 * 8) / PEAK_BYTES
+    floor_ms = 1e3 * n_ev * THREEFRY_OPS * 4 / (1e6 * sm_clock_mhz)
+    log(f"phase 14: key-chain kernel, 6 lanes x {n_ev} events: "
+        f"{ms:.4f} ms a block (exponential, {P} paths), {ms_h2:.4f} ms "
+        f"(hyperexponential, {paths_h2.shape[0]} paths), {chain_ms:.4f} ms "
+        f"the chain alone; plain on the host {plain_ms:.2f} ms; bound "
+        f"{1e3 * max(bound_ops, bound_bytes):.6f} ms "
+        f"({'operations' if bound_ops >= bound_bytes else 'bytes'}); the "
+        f"chain's latency floor at 4 cycles an operation {floor_ms:.4f} ms; "
+        f"a whole stream block (kernel + conversions + routing) "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in stream_ms.items())
+        + f" beside {gen_ms:.3f} ms for the torch.Generator draws it "
+        f"replaces; {card}")
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "name": "threefry_chain", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/threefry.cu",
+        "replaces": "src/repro/core/events.py:236 (XLA's threefry2x32 "
+                    "through jax.random.split; no Pallas kernel)",
+        "launches": main_launches, "max_abs_err": 0.0, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": 1e3 * max(bound_ops, bound_bytes),
+        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "library_ms": None}
 
 
 def lm_phase(dev, card: str, seed: int) -> dict:
@@ -2284,18 +2515,20 @@ def main() -> int:
     from repro_torch.core.buzen import aggregate_log_Z
     from repro_torch.core.complexity import wallclock_time
     from repro_torch.core.energy import PowerProfile
-    from repro_torch.core.events import (EventState, EventStream,
-                                         draw_event_blocks,
-                                         event_step_lanes_plain, init_state,
-                                         megastep_lanes_plain, next_update,
-                                         run_event_blocks, stack_blocks,
-                                         stack_lanes)
+    from repro_torch.core import prng
+    from repro_torch.core.events import (DRAW_EVENTS, EventState,
+                                         EventStream, draw_event_blocks,
+                                         event_key, event_step_lanes_plain,
+                                         init_state, megastep_lanes_plain,
+                                         next_update, run_event_blocks,
+                                         stack_blocks, stack_lanes)
     from repro_torch.core.jackson import expected_relative_delay, throughput
     from repro_torch.core.optimize import time_optimal, time_optimal_classes
     from repro_torch.kernels import build
     from repro_torch.kernels import buzen as kb
     from repro_torch.kernels import events as ke
     from repro_torch.kernels import fused_update as kf
+    from repro_torch.kernels import threefry as ktf
     from repro_torch.scenario.spec import (PAPER_CLUSTERS_TABLE1, ClassSpec,
                                            LearningSpec, NetworkSpec)
     from repro_torch.sim import simulate_stats_lanes
@@ -2399,14 +2632,14 @@ def main() -> int:
                 prm = net._replace(p=torch.as_tensor(
                     rng.dirichlet(np.full(n, 5.0)), device=dev))
                 lanes.append(prm if mu_cs is None else prm.with_cs(mu_cs))
-            gens = [torch.Generator(device=dev).manual_seed(100 + i)
-                    for i in range(K)]
-            st0 = stack_lanes([init_state(prm, M, g, m_max=M,
+            keys = prng.seed_keys(range(100, 100 + K), device=dev)
+            st0 = stack_lanes([init_state(prm, M, k, m_max=M,
                                           distribution=law)
-                               for prm, g in zip(lanes, gens)])
-            blocks = stack_blocks([draw_event_blocks(prm, g, EV,
-                                                     distribution=law)
-                                   for prm, g in zip(lanes, gens)])
+                               for prm, k in zip(lanes, keys)])
+            blocks = stack_blocks([draw_event_blocks(prm, k, EV,
+                                                     distribution=law)[1]
+                                   for prm, k in zip(lanes,
+                                                     event_key(keys))])
             lane_params = stack_lanes(lanes)
             outs = [run_event_blocks(lane_params, st0, blocks,
                                      distribution=law, backend=be)
@@ -2520,7 +2753,7 @@ def main() -> int:
     # -- 4. the main path at the paper's size ------------------------------
     counted = (kb.buzen_batched, kb.buzen_log_Z_backward,
                ke.event_step_lanes, ke.megastep_lanes, ke.event_step_tables,
-               ke.megastep_tables)
+               ke.megastep_tables, ktf.chain_words)
     for c in counted:
         c.launches = 0
     t_main = time.perf_counter()
@@ -2573,13 +2806,19 @@ def main() -> int:
         sim_ms[(m, be, chunk, "power" in kw)] = 1e3 * wall / events
         # the kernel route: one lane-kernel launch per chunk of events, no
         # transition-only launch; the plain route launches nothing
-        got = [c.launches - b for c, b in zip(counted, before)][2:]
+        got = [c.launches - b for c, b in zip(counted, before)]
+        chains, got = got[6], got[2:6]
         lane = -(-events // chunk)
         want = ([0] * 4 if be != "kernel" else
                 [lane, 0, 0, 0] if chunk == 1 else [0, lane, 0, 0])
         check(got == want, f"simulate[{be}, m={m}, E={chunk}]: launches "
               f"(event lanes, megastep lanes, event, megastep) {got}, "
               f"expected {want} for {events} events")
+        # every route draws on the card: one key-chain launch a block of
+        # events for all lanes (a lane at a time on "reference")
+        blocks = -(-events // DRAW_EVENTS) * (6 if be == "reference" else 1)
+        check(chains == blocks, f"simulate[{be}, m={m}, E={chunk}]: "
+              f"{chains} key-chain launches, expected {blocks}")
         log(f"phase 4: simulate_stats_lanes[{be}, m={m}, E={chunk}"
             f"{', power' if kw else ''}] {wall:.2f} s, "
             f"{1e3 * wall / events:.4f} ms per lock-step event, "
@@ -2589,10 +2828,6 @@ def main() -> int:
     lam_star = float(throughput(p_star, m_star))
     for m in (m_star, M):
         base = simulate(m, "kernel", 1)
-        if m == m_star:
-            plain = simulate(m, "batched", 1)
-            check(all(torch.equal(a, b) for a, b in zip(base, plain)),
-                  "simulate kernel vs batched not bitwise")
         for chunk in (8, 32):
             got = simulate(m, "kernel", chunk)
             for name, a, b in zip(base._fields, base, got):
@@ -2622,15 +2857,18 @@ def main() -> int:
         check(torch.equal(got.throughput, pw1.throughput)
               and torch.equal(got.mean_queue_counts, pw1.mean_queue_counts),
               f"power changed the simulated trajectory (E={chunk})")
+        if chunk == 1:  # the plain route, at this depth
+            plain = simulate(m_star, "batched", 1, updates=POWER_UPDATES)
+            check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+                  "simulate kernel vs batched not bitwise")
     check(bool(torch.isfinite(pw1.energy).all() and (pw1.energy > 0).all()),
           f"simulated energy {pw1.energy.tolist()}")
 
     def updates_run(chunk, count=200):
-        gens = [torch.Generator(device=dev).manual_seed(300 + i)
-                for i in range(6)]
-        st = stack_lanes([init_state(p_star, m_star, g, m_max=m_star)
-                          for g in gens])
-        stream = EventStream([p_star] * 6, gens)
+        keys = prng.seed_keys(range(300, 306), device=dev)
+        st = stack_lanes([init_state(p_star, m_star, k, m_max=m_star)
+                          for k in keys])
+        stream = EventStream([p_star] * 6, event_key(keys))
         lanes = stack_lanes([p_star] * 6)
         t0 = time.perf_counter()
         outs = []
@@ -2657,7 +2895,8 @@ def main() -> int:
     launches = {"buzen": kb.buzen_batched.launches,
                 "buzen_backward": kb.buzen_log_Z_backward.launches,
                 "event_step": ke.event_step_lanes.launches,
-                "megastep": ke.megastep_lanes.launches}
+                "megastep": ke.megastep_lanes.launches,
+                "threefry": ktf.chain_words.launches}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     check(ke.event_step_tables.launches == 0
@@ -2666,6 +2905,7 @@ def main() -> int:
     # the sweep: 200 Adam steps and the final evaluation
     check(launches["buzen"] == 201 and launches["buzen_backward"] == 200,
           f"the sweep's Buzen launches: {launches}")
+    threefry_main = launches["threefry"]
     log(f"phase 4: throughput at (p*, m*={m_star}): Prop. 4 "
         f"{lam_star:.6g}; main path {main_s:.1f} s; launches {launches}")
     log("phase 4: ms per lock-step event (6 lanes; m, backend, E, power): "
@@ -2680,9 +2920,8 @@ def main() -> int:
     lane_params = stack_lanes([p_star] * 6)
 
     def lane_tables(m, seed):
-        gens = [torch.Generator(device=dev).manual_seed(seed + i)
-                for i in range(6)]
-        st = stack_lanes([init_state(p_star, m, g, m_max=m) for g in gens])
+        keys = prng.seed_keys(range(seed, seed + 6), device=dev)
+        st = stack_lanes([init_state(p_star, m, k, m_max=m) for k in keys])
         return st, (st.finish, st.phase, st.client, st.seq, st.disp_round,
                     lane_params.mu_c, lane_params.mu_u)
 
@@ -3048,17 +3287,21 @@ def main() -> int:
     # -- 13. the lognormal and hyperexponential laws ----------------------
     laws_phase(dev, card, net, n, p_star, m_star, lam_star)
 
+    # -- 14. the key streams ----------------------------------------------
+    threefry_rec = keys_phase(dev, card, p_star, m_star, threefry_main,
+                              sm_clock_mhz)
+
     # -- 9. the dense LM's prefill: Qwen3-8B, kernel 6 ---------------------
     flash_rec = lm_phase(dev, card, seed)
 
     # -- 10. the dense LM's decode and the serve loop, kernel 7 -----------
     decode_rec = decode_phase(dev, card, seed)
-    log(f"chip_smoke: phases 1-13 passed in "
+    log(f"chip_smoke: phases 1-14 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [buzen_rec, bwd_rec, event_rec, mega_rec,
                                   fused_rec, class_rec, class_bwd_rec,
-                                  flash_rec, decode_rec]}),
+                                  flash_rec, decode_rec, threefry_rec]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

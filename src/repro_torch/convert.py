@@ -5,9 +5,11 @@ Each function takes a mapping of field name to numpy array (what
 side; ``None`` for an absent optional field) and returns the port's
 ``NamedTuple`` on ``device``, floats as ``dtype``; :func:`model_params`
 carries a model's weights across, :func:`lm_params_from_jax` and
-:func:`lm_cache_from_jax` an LM's weights and decode cache.  The PRNG
-``key`` of an event state, which the port does not carry, is ignored.
-Nothing here imports ``jax`` or ``repro``.
+:func:`lm_cache_from_jax` an LM's weights and decode cache.  The port's
+event states carry no PRNG key: :func:`state_key` takes a JAX event
+state's ``key`` as the key the port's ``EventStream`` draws from, so a
+JAX run resumes in the port mid-way on the same draws.  Nothing here
+imports ``jax`` or ``repro``.
 """
 from __future__ import annotations
 
@@ -70,7 +72,8 @@ _STATE_INT = ("round", "seq_ctr", "client", "cls", "member", "phase", "seq",
 
 def event_state(leaves: Mapping, *, device="cuda",
                 dtype=DTYPE) -> EventState:
-    """``EventState`` without its key; integer leaves become int32."""
+    """``EventState`` without its key (:func:`state_key`); integer leaves
+    become int32."""
     return _state(EventState, leaves, device, dtype)
 
 
@@ -79,6 +82,14 @@ def class_event_state(leaves: Mapping, *, device="cuda",
     """``ClassEventState`` without its key; integer leaves (``cls`` and
     ``member`` among them) become int32."""
     return _state(ClassEventState, leaves, device, dtype)
+
+
+def state_key(leaves: Mapping, *, device="cuda") -> torch.Tensor:
+    """A JAX event state's (or a lane-stacked one's) PRNG ``key``, two
+    ``uint32`` words, as the port's ``int64`` key ``[..., 2]``: the key its
+    ``EventStream`` continues the JAX state's events from."""
+    return torch.as_tensor(np.asarray(leaves["key"]).astype(np.int64),
+                           device=device)
 
 
 def _state(kind, leaves: Mapping, device, dtype):

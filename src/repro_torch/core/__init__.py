@@ -21,8 +21,9 @@ from .energy import (PowerProfile, energy_complexity, energy_per_round,
                      energy_per_round_classes, per_task_energy)
 from .events import (ClassEventState, EventBlocks, EventState, EventStats,
                      EventStream, UpdateOut, draw_class_event_blocks,
-                     draw_event_blocks, expand_class_stats, init_class_state,
-                     init_state, next_update, simulate_stats,
+                     draw_event_blocks, event_key, expand_class_stats,
+                     init_class_state, init_state, next_update,
+                     simulate_stats,
                      simulate_stats_classes, step_class_event,
                      step_class_event_block, step_event, step_event_block)
 from .jackson import (analyze, delay_jacobian, expected_relative_delay,

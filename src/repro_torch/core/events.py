@@ -21,14 +21,19 @@ update.
 
 Randomness is separated from the state: every per-event draw is
 state-independent and is drawn up front, for many events at once, as
-:class:`EventBlocks` from one ``torch.Generator`` per lane
-(:func:`draw_event_blocks`), and an :class:`EventStream` hands each lane
-its events in order.  The generator path and an injected-blocks path
-(e.g. blocks drawn by the JAX package) feed the same cursor, which is how
-the port is held bitwise to the JAX engine.  Same-seed parity with
-``jax.random`` is not ported.  The uplink and computation services are
-stored as the timing law's rate-free parts and every route applies the
-completing client's rate in the law's form
+:class:`EventBlocks` from each lane's key (:mod:`repro_torch.core.prng`,
+bitwise ``jax.random``): the serial key chain and every hash word of a
+block come from one launch of the key-chain kernel for all lanes
+(:mod:`repro_torch.kernels.threefry`), and an :class:`EventStream` hands
+each lane its events in order.  The same key gives the JAX package's
+draws: its chain, routing draws and integers exactly, its services within
+1–3 ulps (XLA's expansions of ``log1p`` and ``erf_inv``, rounded step by
+step, :mod:`repro_torch.core.prng`).  An
+injected-blocks path (blocks drawn by the JAX package) feeds the same
+cursor.  The state carries no key: :func:`init_state` draws from a seed
+key and the events from :func:`event_key` of it.  The uplink and
+computation services are stored as the timing law's rate-free parts and
+every route applies the completing client's rate in the law's form
 (:func:`repro_torch.scenario.laws.apply_rate`): ``x / mu`` for the
 exponential and deterministic laws, ``x / (f mu)`` for the
 hyperexponential, ``exp((z - log mu) - 0.5)`` for the lognormal.
@@ -52,7 +57,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..kernels import threefry
 from ..scenario.laws import form_width, get_law, law_form
+from . import prng
 from .buzen import ClassParams, NetworkParams
 from .numerics import DTYPE, fma, seqcumsum, seqsum
 
@@ -187,68 +194,118 @@ def _route_client(p: torch.Tensor, u: torch.Tensor, n_act,
     return torch.clamp(idx, max=n_act - 1)
 
 
-def draw_event_blocks(params: NetworkParams, generator: torch.Generator,
-                      chunk: int, *, distribution: str = "exponential",
-                      route_prefix: Optional[torch.Tensor] = None
-                      ) -> EventBlocks:
-    """Draw the randomness of ``chunk`` consecutive events of one lane."""
+# the subkeys of an event's 6-way split (the JAX step's order): the next
+# key, then the uplink, routing, downlink, computation and CS draws
+_UP, _ROUTE, _SVC, _COMP, _CS = 1, 2, 3, 4, 5
+
+
+def block_paths(distribution: str, has_cs: bool, classes: bool = False):
+    """The hash paths (:mod:`repro_torch.kernels.threefry`) of one event's
+    draws, and the slices of them that each draw reads: routing (one
+    uniform; the class engine's 2-way split into the class uniform and the
+    member's two ``randint`` words), then the law's paths from the
+    downlink, uplink, computation and (with CS) CS subkeys."""
     law = get_law(distribution)
-    dev = params.device
-    u = torch.rand(chunk, generator=generator, dtype=DTYPE, device=dev)
-    c_new = _route_client(params.p, u, params.active_count, route_prefix)
-    svc_down = law.device_draw(generator, params.mu_d[c_new])
-    up = law.unit_draw(generator, (chunk,), DTYPE, dev)
-    comp = law.unit_draw(generator, (chunk,), DTYPE, dev)
-    svc_cs = (law.device_draw(generator, params.mu_cs.expand(chunk))
-              if params.mu_cs is not None else None)
-    return EventBlocks(c_new=c_new, svc_down=svc_down, up=up, comp=comp,
-                       svc_cs=svc_cs)
+    route = ([(_ROUTE, 0, 0), (_ROUTE, 1, 0, 0), (_ROUTE, 1, 1, 0)]
+             if classes else [(_ROUTE, 0)])
+    paths, groups = list(route), {"route": slice(0, len(route))}
+    for name, s in (("svc", _SVC), ("up", _UP), ("comp", _COMP)) + (
+            (("cs", _CS),) if has_cs else ()):
+        groups[name] = slice(len(paths), len(paths) + len(law.paths))
+        paths += [(s,) + p for p in law.paths]
+    return paths, groups
+
+
+def blocks_from_words(lane_params, words: torch.Tensor, *,
+                      distribution: str = "exponential",
+                      route_prefixes=None) -> EventBlocks:
+    """The lanes' :class:`EventBlocks` (``[L, events]`` leaves) from the
+    hash words ``[L, events, P, 2]`` of :func:`block_paths`: what the JAX
+    package's ``draw_event_blocks`` (``draw_class_event_blocks`` for
+    :class:`ClassParams`) resolves from the same keys.  ``lane_params`` is
+    a list of one lane's parameters per lane; the law's conversions run
+    once for every lane and draw (elementwise, so a lane's values do not
+    depend on the others), the routing lane by lane."""
+    law = get_law(distribution)
+    first = lane_params[0]
+    classes = isinstance(first, ClassParams)
+    has_cs = first.mu_cs is not None
+    _, g = block_paths(distribution, has_cs, classes)
+    names = ["svc", "up", "comp"] + (["cs"] if has_cs else [])
+    unit = dict(zip(names, law.unit_words(
+        torch.stack([words[:, :, g[k]] for k in names], 2)).unbind(2)))
+    rw = words[:, :, g["route"]]
+    u = prng.uniform_words(rw[:, :, 0])
+    if route_prefixes is None:
+        route_prefixes = [None] * len(lane_params)
+    routed = [_route_class(prm.mass, prm.count, u[i], rw[i, :, 1],
+                           rw[i, :, 2], pre) if classes
+              else (_route_client(prm.p, u[i], prm.active_count, pre), None)
+              for i, (prm, pre) in enumerate(zip(lane_params,
+                                                 route_prefixes))]
+    c_new = torch.stack([r[0] for r in routed])
+    member = torch.stack([r[1] for r in routed]) if classes else None
+    mu_d = torch.stack([prm.mu_d for prm in lane_params])
+    svc_cs = None
+    if has_cs:
+        mu_cs = torch.stack([prm.mu_cs for prm in lane_params])
+        svc_cs = law.unit_apply(unit["cs"],
+                                mu_cs[:, None].expand(c_new.shape))
+    return EventBlocks(c_new=c_new,
+                       svc_down=law.unit_apply(unit["svc"],
+                                               mu_d.gather(1, c_new)),
+                       up=unit["up"], comp=unit["comp"], svc_cs=svc_cs,
+                       member=member)
+
+
+def draw_event_blocks(params: NetworkParams, key: torch.Tensor, chunk: int,
+                      *, distribution: str = "exponential",
+                      route_prefix: Optional[torch.Tensor] = None
+                      ) -> tuple[torch.Tensor, EventBlocks]:
+    """Draw the randomness of ``chunk`` consecutive events of one lane from
+    its key ``[2]``, as the JAX package's ``draw_event_blocks`` does:
+    ``(chain [chunk, 2], blocks)``, ``chain[i]`` the key after ``i + 1``
+    events.  The key chain and the hash words come from one launch of the
+    key-chain kernel (its plain version for CPU keys)."""
+    paths, _ = block_paths(distribution, params.mu_cs is not None,
+                           isinstance(params, ClassParams))
+    chain, words = threefry.chain_words(
+        key.reshape(1, 2), chunk, threefry.paths_tensor(paths, key.device))
+    blk = blocks_from_words([params], words, distribution=distribution,
+                            route_prefixes=[route_prefix])
+    return chain[0], lane(blk, 0)
 
 
 def _route_class(mass: torch.Tensor, count: torch.Tensor, u: torch.Tensor,
-                 u_member: torch.Tensor,
+                 high: torch.Tensor, low: torch.Tensor,
                  prefix: Optional[torch.Tensor] = None):
-    """Dispatch routing of the class engine: ``(class, member)`` per pair
-    of uniforms.  The class by inverse CDF on the sequential prefix of the
-    class masses (as :func:`_route_client`; count-0 classes repeat the
-    total and are never hit), clipped to the last class with a nonzero
-    count; the member uniform over ``[0, count[class])``, as ``floor(u
-    count)`` in float64 (uniform to 2^-53 for any count an int64 holds).
-    Bitwise invariant to trailing class padding."""
+    """Dispatch routing of the class engine: ``(class, member)`` per event.
+    The class by inverse CDF of one uniform ``u`` on the sequential prefix
+    of the class masses (as :func:`_route_client`; count-0 classes repeat
+    the total and are never hit), clipped to the last class with a nonzero
+    count; the member by ``randint(0, max(count[class], 1))`` on its two
+    hash words ``high``, ``low`` (:func:`prng.randint_words`).  Bitwise
+    invariant to trailing class padding."""
     if prefix is None:
         prefix = seqcumsum(mass)
     idx = torch.searchsorted(prefix, u * prefix[-1], right=True)
     cum = seqcumsum(count)
     c_last = torch.searchsorted(cum, cum[-1:] - 1, right=True)
     c = torch.minimum(idx, c_last)
-    cnt = count[c]
-    mb = torch.minimum(torch.floor(u_member * cnt.to(u_member.dtype)).long(),
-                       cnt - 1)
+    mb = prng.randint_words(high, low, 0, torch.clamp_min(count[c], 1))
     return c, mb
 
 
-def draw_class_event_blocks(classes: ClassParams,
-                            generator: torch.Generator, chunk: int, *,
+def draw_class_event_blocks(classes: ClassParams, key: torch.Tensor,
+                            chunk: int, *,
                             distribution: str = "exponential",
                             route_prefix: Optional[torch.Tensor] = None
-                            ) -> EventBlocks:
+                            ) -> tuple[torch.Tensor, EventBlocks]:
     """The class engine's :func:`draw_event_blocks`: the routing draw
     resolves a ``(class, member)`` pair per event (``c_new``, ``member``),
     the downlink service comes from the routed class's rate."""
-    law = get_law(distribution)
-    dev = classes.device
-    u = torch.rand(chunk, generator=generator, dtype=DTYPE, device=dev)
-    u_member = torch.rand(chunk, generator=generator, dtype=DTYPE,
-                          device=dev)
-    c_new, member = _route_class(classes.mass, classes.count, u, u_member,
-                                 route_prefix)
-    svc_down = law.device_draw(generator, classes.mu_d[c_new])
-    up = law.unit_draw(generator, (chunk,), DTYPE, dev)
-    comp = law.unit_draw(generator, (chunk,), DTYPE, dev)
-    svc_cs = (law.device_draw(generator, classes.mu_cs.expand(chunk))
-              if classes.mu_cs is not None else None)
-    return EventBlocks(c_new=c_new, svc_down=svc_down, up=up, comp=comp,
-                       svc_cs=svc_cs, member=member)
+    return draw_event_blocks(classes, key, chunk, distribution=distribution,
+                             route_prefix=route_prefix)
 
 
 def _station_counts(phase, client, n):
@@ -279,24 +336,34 @@ def _station_index(phase, client, n):
                     torch.where(phase == UP, 2 * n + client, 3 * n)))
 
 
-def init_state(params: NetworkParams, m, generator: torch.Generator, *,
+def event_key(key: torch.Tensor) -> torch.Tensor:
+    """The key a lane's events draw from after :func:`init_state` (or
+    :func:`init_class_state`) drew its initial tasks from ``key`` (``[...,
+    2]``): the first key of their 3-way split, the key the JAX package's
+    state carries (``state.key``)."""
+    return prng.split(key, 3)[..., 0, :]
+
+
+def init_state(params: NetworkParams, m, key: torch.Tensor, *,
                m_max: Optional[int] = None,
                distribution: str = "exponential", warmup=0, cap=_NO_CAP,
                t_cap=math.inf) -> EventState:
     """One lane's initial state: ``m`` tasks dispatched uniformly at random
     into the downlink servers at ``t = 0`` (Section 5.3.3); slots ``>= m``
     of the ``m_max`` table are inactive.  Under the padded-``n`` convention
-    only real clients are drawn."""
+    only real clients are drawn.  The draws are the JAX package's from the
+    same ``key`` (a 3-way split, ``randint`` and the law's draw); the
+    events then draw from :func:`event_key` of it."""
     law = get_law(distribution)
     m_max = int(m) if m_max is None else m_max
-    clients = torch.randint(0, int(params.active_count), (m_max,),
-                            generator=generator, device=params.device)
-    svc = law.device_draw(generator, params.mu_d[clients])
+    ks = prng.split(key, 3)
+    clients = prng.randint(ks[1], (m_max,), 0, int(params.active_count))
+    svc = law.device_draw(ks[2], params.mu_d[clients], (m_max,))
     return EventState(client=clients.to(torch.int32), **_init_leaves(
         clients, svc, m, params.n, warmup, cap, t_cap))
 
 
-def init_class_state(classes: ClassParams, m, generator: torch.Generator, *,
+def init_class_state(classes: ClassParams, m, key: torch.Tensor, *,
                      m_max: Optional[int] = None,
                      distribution: str = "exponential", warmup=0,
                      cap=_NO_CAP, t_cap=math.inf) -> ClassEventState:
@@ -305,15 +372,16 @@ def init_class_state(classes: ClassParams, m, generator: torch.Generator, *,
     flat index in ``[0, n_total)`` and split into ``(class, member)``
     against the sequential count prefix: the distribution of
     :func:`init_state` on the expanded network, bitwise invariant to
-    trailing class padding."""
+    trailing class padding.  The draws are the JAX package's from
+    ``key``."""
     law = get_law(distribution)
     m_max = int(m) if m_max is None else m_max
+    ks = prng.split(key, 3)
     cum = seqcumsum(classes.count)
-    idx = torch.randint(0, int(cum[-1]), (m_max,), generator=generator,
-                        device=classes.device)
+    idx = prng.randint(ks[1], (m_max,), 0, int(cum[-1]))
     cls = torch.searchsorted(cum, idx, right=True)
     member = idx - torch.where(cls > 0, cum[(cls - 1).clamp_min(0)], 0)
-    svc = law.device_draw(generator, classes.mu_d[cls])
+    svc = law.device_draw(ks[2], classes.mu_d[cls], (m_max,))
     return ClassEventState(
         cls=cls.to(torch.int32), member=member.to(torch.int32),
         **_init_leaves(cls, svc, m, classes.C, warmup, cap, t_cap))
@@ -397,26 +465,31 @@ def _unit_scalars(blk: EventBlocks, distribution: str):
 class EventStream:
     """Per-lane draw cursor over the events' pre-drawn randomness.
 
-    Each lane draws from its own ``torch.Generator`` in blocks of ``block``
-    events (the last block cut so that no more than ``total`` events are
-    drawn), and a lane's stream depends on ``block`` and ``total`` only:
-    a step that consumes one event and a megastep that consumes ``chunk``
-    read the same numbers, a megastep may straddle two blocks, and each
-    lane moves on by exactly the events it retired (:meth:`advance`).
-    :meth:`from_blocks` feeds the cursor blocks drawn elsewhere (e.g. by
-    the JAX package, converted by :mod:`repro_torch.convert`) instead.
-    Lanes of :class:`ClassParams` draw ``(class, member)`` pairs
-    (:func:`draw_class_event_blocks`).
+    Each lane draws from its own key chain (``keys [L, 2]``, the key each
+    lane's next event draws from: :func:`event_key` of its seed key) in
+    blocks of ``block`` events (the last block cut so that no more than
+    ``total`` events are drawn), one launch of the key-chain kernel for
+    every lane a block.  A lane's events are the JAX package's for the same
+    key, whatever ``block`` and ``total``: a step that consumes one event
+    and a megastep that consumes ``chunk`` read the same numbers, a
+    megastep may straddle two blocks, and each lane moves on by exactly the
+    events it retired (:meth:`advance`); :meth:`keys` is each lane's key
+    after them, JAX's carried ``state.key``.  :meth:`from_blocks` feeds the
+    cursor blocks drawn elsewhere (e.g. by the JAX package, converted by
+    :mod:`repro_torch.convert`) instead.  Lanes of :class:`ClassParams`
+    draw ``(class, member)`` pairs.
     """
 
-    def __init__(self, lane_params, generators, *,
+    def __init__(self, lane_params, keys, *,
                  distribution: str = "exponential",
                  block: int = DRAW_EVENTS, total: Optional[int] = None):
         self._params = list(lane_params)
-        self._gens = list(generators)
-        if len(self._params) != len(self._gens):
-            raise ValueError(f"got {len(self._gens)} generators for "
-                             f"{len(self._params)} lanes")
+        if keys is not None and not torch.is_tensor(keys):
+            keys = torch.stack(list(keys))
+        n_keys = 0 if keys is None else keys.shape[0]
+        if n_keys != len(self._params):
+            raise ValueError(f"got {n_keys} keys for {len(self._params)} "
+                             "lanes")
         if block < 1:
             raise ValueError(f"block must be >= 1, got {block}")
         self._prefix = [seqcumsum(prm.mass if isinstance(prm, ClassParams)
@@ -427,13 +500,24 @@ class EventStream:
         self._total = total
         self._drawn = 0  # events drawn so far, the same for every lane
         self._fs = self._cn = self._mb = None
-        self._off = [0] * len(self._gens)
+        self._off = [0] * len(self._params)
+        # the key before the buffer's first event, and after each of its
+        # events; None for injected blocks
+        self._key0 = keys
+        self._chain = None
+        self._paths = None
+        if self._params:
+            first = self._params[0]
+            self._paths = threefry.paths_tensor(
+                block_paths(distribution, first.mu_cs is not None,
+                            isinstance(first, ClassParams))[0],
+                keys.device)
 
     @classmethod
     def from_blocks(cls, blocks: EventBlocks, *,
                     distribution: str = "exponential") -> "EventStream":
         """A cursor over the ``[events, K]`` leaves of ``blocks`` alone."""
-        self = cls([], [], distribution=distribution)
+        self = cls([], None, distribution=distribution)
         fs, cn, mb = _unit_scalars(blocks, distribution)
         self._fs, self._cn = fs.transpose(0, 1), cn.transpose(0, 1)
         self._mb = None if mb is None else mb.transpose(0, 1)
@@ -449,30 +533,41 @@ class EventStream:
         size = self._block
         if self._total is not None:
             size = min(size, self._total - self._drawn)
-        if size <= 0 or not self._gens:
+        if size <= 0 or not self._params:
             return False
-        blk = EventBlocks(*[None if x[0] is None else torch.stack(x)
-                            for x in zip(*[
-                                (draw_class_event_blocks
-                                 if isinstance(prm, ClassParams)
-                                 else draw_event_blocks)(
-                                    prm, g, size, distribution=self._dist,
-                                    route_prefix=pre)
-                                for prm, g, pre in zip(self._params,
-                                                       self._gens,
-                                                       self._prefix)])])
-        fs, cn, mb = _unit_scalars(blk, self._dist)
+        start = (self._key0 if self._chain is None or not self._width()
+                 else self._chain[:, -1])
+        chain, words = threefry.chain_words(start, size, self._paths)
+        fs, cn, mb = _unit_scalars(
+            blocks_from_words(self._params, words, distribution=self._dist,
+                              route_prefixes=self._prefix), self._dist)
         if self._cn is not None:
             # drop what every lane has consumed
             lo = min(self._off)
             self._off = [o - lo for o in self._off]
+            if lo:
+                self._key0 = self._chain[:, lo - 1]
             fs = torch.cat([self._fs[:, lo:], fs], dim=1)
             cn = torch.cat([self._cn[:, lo:], cn], dim=1)
+            chain = torch.cat([self._chain[:, lo:], chain], dim=1)
             if mb is not None:
                 mb = torch.cat([self._mb[:, lo:], mb], dim=1)
-        self._fs, self._cn, self._mb = fs, cn, mb
+        self._fs, self._cn, self._mb, self._chain = fs, cn, mb, chain
         self._drawn += size
         return True
+
+    def keys(self) -> torch.Tensor:
+        """``[L, 2]``: each lane's key after the events it has consumed
+        (the JAX state's ``key``)."""
+        if self._key0 is None:
+            raise ValueError("a stream over injected blocks has no keys")
+        if self._chain is None:
+            return self._key0
+        off = torch.as_tensor(self._off, device=self._chain.device)
+        at = self._chain[torch.arange(len(self._off),
+                                      device=off.device),
+                         (off - 1).clamp_min(0)]
+        return torch.where((off > 0)[:, None], at, self._key0)
 
     def window(self, chunk: int):
         """The next ``chunk`` events of every lane from its cursor:
@@ -815,29 +910,37 @@ def run_event_blocks(params: NetworkParams, state: EventState,
                       chunk=chunk, power=power, backend=backend)
 
 
-def step_class_event(classes, state: ClassEventState, generators, *,
-                     distribution: str = "exponential", power=None
-                     ) -> tuple[ClassEventState, EventOut]:
-    """Advance every lane of the class engine by exactly one event."""
-    blk = stack_blocks([draw_class_event_blocks(lane(classes, i), g, 1,
-                                                distribution=distribution)
-                        for i, g in enumerate(generators)])
-    blk = EventBlocks(*[None if x is None else x[0] for x in blk])
-    return step_class_event_block(classes, state, blk,
-                                  distribution=distribution, power=power)
+def step_class_event(classes, state: ClassEventState, keys, *,
+                     distribution: str = "exponential", power=None):
+    """Advance every lane of the class engine by exactly one event drawn
+    from its key (``keys [K, 2]``); returns ``(state, out, next keys)``."""
+    nxt, blk = zip(*[draw_class_event_blocks(lane(classes, i), k, 1,
+                                             distribution=distribution)
+                     for i, k in enumerate(keys)])
+    blk = EventBlocks(*[None if x is None else x[0]
+                        for x in stack_blocks(blk)])
+    state, out = step_class_event_block(classes, state, blk,
+                                        distribution=distribution,
+                                        power=power)
+    return state, out, torch.stack([c[0] for c in nxt])
 
 
-def step_event(params: NetworkParams, state: EventState, generators, *,
+def step_event(params: NetworkParams, state: EventState, keys, *,
                distribution: str = "exponential", power=None,
-               backend: str = "batched") -> tuple[EventState, EventOut]:
-    """Advance every lane by exactly one event: a one-event block draw from
-    each lane's generator followed by :func:`step_event_block`."""
-    blk = stack_blocks([draw_event_blocks(lane(params, i), g, 1,
-                                          distribution=distribution)
-                        for i, g in enumerate(generators)])
-    blk = EventBlocks(*[None if x is None else x[0] for x in blk])
-    return step_event_block(params, state, blk, distribution=distribution,
-                            power=power, backend=backend)
+               backend: str = "batched"):
+    """Advance every lane by exactly one event: a one-event block drawn
+    from each lane's key (``keys [K, 2]``, as the JAX step splits its
+    state's key) followed by :func:`step_event_block`; returns ``(state,
+    out, next keys)``."""
+    nxt, blk = zip(*[draw_event_blocks(lane(params, i), k, 1,
+                                       distribution=distribution)
+                     for i, k in enumerate(keys)])
+    blk = EventBlocks(*[None if x is None else x[0]
+                        for x in stack_blocks(blk)])
+    state, out = step_event_block(params, state, blk,
+                                  distribution=distribution, power=power,
+                                  backend=backend)
+    return state, out, torch.stack([c[0] for c in nxt])
 
 
 def next_update(params: NetworkParams, state: EventState,
@@ -954,8 +1057,7 @@ def unpad_stats(stats: EventStats, n: int) -> EventStats:
 
 
 def simulate_stats(params: NetworkParams, m, num_updates: int, *,
-                   warmup: int = 0,
-                   generator: Optional[torch.Generator] = None,
+                   warmup: int = 0, key: Optional[torch.Tensor] = None,
                    seed: int = 0, distribution: str = "exponential",
                    power=None, m_max: Optional[int] = None,
                    backend: Optional[str] = None, chunk: int = 1,
@@ -964,22 +1066,22 @@ def simulate_stats(params: NetworkParams, m, num_updates: int, *,
 
     Mirrors :meth:`AsyncNetworkSim.run`: statistics over the update-count
     window ``[warmup, warmup + num_updates)``.  The randomness comes from
-    ``generator`` (default: a fresh one on the params' device seeded with
-    ``seed``), drawn in blocks of ``draw_events``.  ``backend`` picks the
-    table transition (:mod:`repro_torch.sim.backend`); ``chunk`` events
-    retire per transition call (megasteps), bitwise the same statistics
-    for every ``chunk``.
+    ``key`` (default ``PRNGKey(seed)`` on the params' device), the JAX
+    package's draws for the same key, drawn in blocks of ``draw_events``.
+    ``backend`` picks the table transition (:mod:`repro_torch.sim.backend`);
+    ``chunk`` events retire per transition call (megasteps), bitwise the
+    same statistics for every ``chunk``.
     """
     from ..sim.batched_events import run_lanes
     from ..sim.backend import resolve_backend
 
     get_law(distribution)  # eager: unknown laws fail listing the options
-    if generator is None:
-        generator = torch.Generator(device=params.device).manual_seed(seed)
+    if key is None:
+        key = prng.PRNGKey(seed, device=params.device)
     m_max = int(m) if m_max is None else m_max
     lanes = stack_lanes([params])
     pw = None if power is None else stack_lanes([power])
-    stats = run_lanes(lanes, [int(m)], [generator], int(num_updates),
+    stats = run_lanes(lanes, [int(m)], key.reshape(1, 2), int(num_updates),
                       warmup=int(warmup), distribution=distribution,
                       m_max=m_max, power=pw,
                       backend=resolve_backend(backend), chunk=int(chunk),
@@ -989,7 +1091,7 @@ def simulate_stats(params: NetworkParams, m, num_updates: int, *,
 
 def simulate_stats_classes(classes: ClassParams, m, num_updates: int, *,
                            warmup: int = 0,
-                           generator: Optional[torch.Generator] = None,
+                           key: Optional[torch.Tensor] = None,
                            seed: int = 0, distribution: str = "exponential",
                            power=None, m_max: Optional[int] = None,
                            backend: Optional[str] = None, chunk: int = 1,
@@ -1002,14 +1104,16 @@ def simulate_stats_classes(classes: ClassParams, m, num_updates: int, *,
     :func:`expand_class_stats` gives the per-member view.  ``power`` holds
     per-class ``[C]`` arrays.  ``backend`` is ``"batched"`` or
     ``"reference"`` (the class transition has no kernel; ``"kernel"``
-    raises), and every ``chunk`` gives bitwise the same statistics.
+    raises), and every ``chunk`` gives bitwise the same statistics.  The
+    randomness is ``key``'s (default ``PRNGKey(seed)``), as in the JAX
+    package.
     """
     from ..sim.batched_events import simulate_stats_classes_lanes
 
-    if generator is None:
-        generator = torch.Generator(device=classes.device).manual_seed(seed)
+    if key is None:
+        key = prng.PRNGKey(seed, device=classes.device)
     stats = simulate_stats_classes_lanes(
-        [classes], [m], num_updates, warmup=warmup, generators=[generator],
+        [classes], [m], num_updates, warmup=warmup, keys=key.reshape(1, 2),
         distribution=distribution,
         power=None if power is None else [power],
         m_max=int(m) if m_max is None else m_max, backend=backend,

@@ -44,15 +44,16 @@ max_updates)``, and the outputs cannot tell the two apart, because the
 masked rounds past a lane's first non-live update change nothing (its
 energy integral is capped at the horizon).
 
-Randomness.  Each lane draws its events from its own sim
-``torch.Generator`` through an :class:`repro_torch.core.events.EventStream`
-and its minibatch indices from its own data generator through a
-:class:`BatchStream`; the initial parameters come from an init generator.
-:meth:`DeviceTrainer.run_streams` takes the initial state, both streams
-and the initial parameters as inputs, so a test can feed in what the JAX
-package drew (``EventStream.from_blocks``, ``BatchStream.from_table``) and
-hold the port's trainer to JAX's.  Same-seed parity with ``jax.random`` is
-not ported.
+Randomness.  The keys are the JAX package's (:mod:`repro_torch.core.prng`,
+bitwise ``jax.random``): lane seed ``s`` initialises the model from
+``PRNGKey(s)``, draws its events through an
+:class:`repro_torch.core.events.EventStream` from ``fold_in(PRNGKey(s),
+1)`` and its minibatch indices through a :class:`BatchStream` from
+``fold_in(PRNGKey(s), 2)``, so the same seeds give the JAX trainer's
+events and minibatches.  :meth:`DeviceTrainer.run_streams` takes the
+initial state, both streams and the initial parameters as inputs, so a
+test can also feed in what the JAX package drew
+(``EventStream.from_blocks``, ``BatchStream.from_table``).
 
 Host-reference contract: :class:`repro_torch.fl.trainer.AsyncFLTrainer`
 with ``backend="host"`` drives the exact per-task-identity host simulator
@@ -75,11 +76,13 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..core import jackson
+from ..core import jackson, prng
 from ..core.buzen import NetworkParams
-from ..core.events import EventStream, init_state, next_update, stack_lanes
+from ..core.events import (EventStream, event_key, init_state, next_update,
+                           stack_lanes)
 from ..core.numerics import DTYPE, seqsum
 from ..kernels.fused_update import fused_async_update_flat
+from ..kernels.threefry import chain_words, paths_tensor
 from ..sim.backend import resolve_backend
 from .models import accuracy, cross_entropy_loss
 
@@ -164,25 +167,29 @@ class BatchStream:
     """Per-lane minibatch draws, one per update round and lane.
 
     :meth:`take` returns each lane's *within-client* sample indices for the
-    round's completing client ``c``: ``floor(u * sizes[c])`` on ``batch``
-    uniforms, drawn with replacement (the reference's ``randint(0,
-    sizes[c])``).  A lane draws its uniforms from its own generator in
-    blocks of ``DRAW_BATCHES`` rounds, so its draws do not depend on the
-    other lanes.  :meth:`from_table` replays a table ``[L, rounds, n, batch]`` of
-    within-client indices drawn elsewhere (e.g. by the JAX package for
-    every client of every round) instead.
+    round's completing client ``c``: JAX's per-round ``dkey, kb =
+    split(dkey)`` then ``randint(kb, (batch,), 0, sizes[c])``, drawn with
+    replacement, from each lane's data key (``keys [L, 2]``).  The key
+    chain and the words of ``DRAW_BATCHES`` rounds come from one launch of
+    the key-chain kernel for every lane; the indices are resolved from them
+    once ``c`` is known.  :meth:`from_table` replays a table ``[L, rounds,
+    n, batch]`` of within-client indices drawn elsewhere (e.g. by the JAX
+    package for every client of every round) instead.
     """
 
-    def __init__(self, generators, batch: int):
-        self._gens = list(generators)
+    def __init__(self, keys, batch: int):
+        self._keys = keys
         self._batch = int(batch)
-        self._u = None
+        self._words = None
         self._table = None
         self._pos = 0
+        self._paths = None if keys is None else paths_tensor(
+            [(1, 0, j) for j in range(self._batch)]
+            + [(1, 1, j) for j in range(self._batch)], keys.device)
 
     @classmethod
     def from_table(cls, table: torch.Tensor) -> "BatchStream":
-        self = cls([], table.shape[-1])
+        self = cls(None, table.shape[-1])
         self._table = table.long()
         return self
 
@@ -195,14 +202,15 @@ class BatchStream:
                 raise RuntimeError("the minibatch table ran out")
             out = self._table[lanes, self._pos, c]
         else:
-            if self._u is None or self._pos == DRAW_BATCHES:
-                self._u = torch.stack([
-                    torch.rand((DRAW_BATCHES, self._batch), generator=g,
-                               dtype=DTYPE, device=c.device)
-                    for g in self._gens])
+            if self._words is None or self._pos == DRAW_BATCHES:
+                chain, self._words = chain_words(self._keys, DRAW_BATCHES,
+                                                 self._paths)
+                self._keys = chain[:, -1]
                 self._pos = 0
-            hi = sizes[lanes, c][:, None]
-            out = torch.minimum((self._u[:, self._pos] * hi).long(), hi - 1)
+            w = self._words[:, self._pos]
+            b = self._batch
+            out = prng.randint_words(w[:, :b], w[:, b:], 0,
+                                     sizes[lanes, c][:, None])
         self._pos += 1
         return out
 
@@ -242,14 +250,6 @@ def max_throughput_bound(net: NetworkParams, m) -> float:
     if net.mu_cs is not None:
         cycle += 1.0 / float(net.mu_cs)
     return min(station, float(m) / cycle)
-
-
-def _lane_generator(seed: int, stream: int, device) -> torch.Generator:
-    """Lane ``seed``'s generator for one of its streams (0 init, 1 sim,
-    2 data), as the reference folds the seed key with 1 and 2."""
-    state = np.random.SeedSequence([int(seed), stream]).generate_state(
-        1, dtype=np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state) >> 1)
 
 
 class DeviceTrainer:
@@ -324,14 +324,17 @@ class DeviceTrainer:
 
     # -- parameters ---------------------------------------------------------
 
-    def init_params(self, seeds) -> torch.Tensor:
+    def init_params(self, seeds=None, *, keys=None) -> torch.Tensor:
         """``[L, N]`` initial parameters, lane ``l`` drawn by the model's
-        ``init_parameters`` from lane ``seeds[l]``'s init generator (on a
-        copy: the model's own parameters stay as they are)."""
+        ``init_parameters`` from ``keys[l]`` (default ``PRNGKey(seeds[l])``,
+        as the JAX trainer's ``model.init``), on a copy: the model's own
+        parameters stay as they are."""
+        if keys is None:
+            keys = prng.seed_keys(seeds, device=self.device)
         scratch = copy.deepcopy(self.model)
         rows = []
-        for s in seeds:
-            scratch.init_parameters(_lane_generator(s, 0, self.device))
+        for k in keys:
+            scratch.init_parameters(k)
             rows.append(self.layout.flatten(scratch))
         return torch.stack(rows)
 
@@ -582,13 +585,16 @@ class DeviceTrainer:
     def run_lanes(self, ps, ms, etas, seeds, horizon_time: float, *,
                   max_updates: Optional[int] = None,
                   init_params: Optional[torch.Tensor] = None,
-                  nets=None, lane_clients=None, lane_powers=None):
+                  init_keys=None, nets=None, lane_clients=None,
+                  lane_powers=None):
         """Run ``L`` lanes (routing ``ps[L, n]``, concurrency ``ms[L]``,
         step size ``etas[L]``, seed ``seeds[L]``) in lock-step.
 
-        Lane ``l`` draws its events and minibatches from generators seeded
-        off ``seeds[l]``; ``init_params [L, N]`` overrides the initial
-        parameters (default: drawn from each seed's init generator).
+        Lane ``l`` draws its events from ``fold_in(PRNGKey(seeds[l]), 1)``
+        and its minibatches from ``fold_in(PRNGKey(seeds[l]), 2)``, the JAX
+        trainer's keys; ``init_keys [L, 2]`` overrides the model's
+        initialisation keys (default ``PRNGKey(seeds[l])``) and
+        ``init_params [L, N]`` the initial parameters themselves.
         Returns ``(list[TrainLog], final params [L, N])`` in lane order.
 
         Mixed-``n`` lanes: ``nets`` gives each lane its own network, padded
@@ -623,22 +629,31 @@ class DeviceTrainer:
                                                     device=net.device))
                      for net, p in zip(base, ps)]
         seeds = [int(s) for s in seeds]
+        seed_keys = prng.seed_keys(seeds, device=self.device)
+        if init_keys is not None:
+            init_keys = torch.as_tensor(init_keys, dtype=torch.int64,
+                                        device=self.device)
+            if init_keys.shape != (L, 2):
+                raise ValueError(f"init_keys has shape "
+                                 f"{tuple(init_keys.shape)} for {L} lanes")
         if init_params is None:
-            init_params = self.init_params(seeds)
+            init_params = self.init_params(
+                keys=seed_keys if init_keys is None else init_keys)
         if init_params.shape != (L, self.layout.size):
             raise ValueError(f"init_params has shape "
                              f"{tuple(init_params.shape)}, expected "
                              f"{(L, self.layout.size)}")
-        sim_gens = [_lane_generator(s, 1, self.device) for s in seeds]
+        sim_keys = prng.fold_in(seed_keys, 1)
         m_max = int(max(ms))  # shared by every lane
         dist = self.cfg.distribution
         state = stack_lanes([
-            init_state(net, int(m), g, m_max=m_max, distribution=dist,
+            init_state(net, int(m), k, m_max=m_max, distribution=dist,
                        t_cap=horizon)
-            for net, m, g in zip(lane_nets, ms, sim_gens)])
-        events = EventStream(lane_nets, sim_gens, distribution=dist)
-        batches = BatchStream([_lane_generator(s, 2, self.device)
-                               for s in seeds], self.cfg.batch_size)
+            for net, m, k in zip(lane_nets, ms, sim_keys)])
+        events = EventStream(lane_nets, event_key(sim_keys),
+                             distribution=dist)
+        batches = BatchStream(prng.fold_in(seed_keys, 2),
+                              self.cfg.batch_size)
         dlog, final = self.run_streams(
             init_params, state, events, batches, lane_nets, etas, horizon,
             max_updates=max_updates, lane_clients=lane_clients,

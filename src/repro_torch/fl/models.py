@@ -14,9 +14,14 @@ activations back to NHWC before flattening, so the head's rows are in the
 reference's (H, W, C) order and converted weights need no row permutation
 (:func:`repro_torch.convert.model_params`).
 
-Initialisation (:meth:`init_parameters`) draws from an explicit
-``torch.Generator``: He-normal weights (``N(0, 2 / fan_in)``) and zero
-biases, as the reference's ``_dense_init`` and ``cnn_classifier.init`` do.
+Initialisation (:meth:`init_parameters`) draws from a key
+(:mod:`repro_torch.core.prng`) with the reference's split structure:
+He-normal weights (``N(0, 2 / fan_in)``, a float32 ``normal`` scaled in
+float64, as the reference's ``normal(...) * np.sqrt(...)`` promotes) and
+zero biases, as ``_dense_init`` and ``cnn_classifier.init`` do.  The
+draws are JAX's for the same key; the normal is held to JAX's within a few
+ulps (PyTorch's ``erfinv`` is not XLA's), and the weights are rounded to
+the parameters' float32.
 """
 from __future__ import annotations
 
@@ -26,11 +31,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import prng
 
-def _he_normal(p: torch.Tensor, fan_in: int, generator) -> None:
-    with torch.no_grad():
-        p.copy_(torch.randn(p.shape, generator=generator, dtype=p.dtype,
-                            device=p.device) * math.sqrt(2.0 / fan_in))
+
+def _he_normal(key: torch.Tensor, shape, fan_in: int) -> torch.Tensor:
+    """``normal(key, shape, float32) * sqrt(2 / fan_in)`` in float64."""
+    z = prng.normal(key, shape, torch.float32)
+    return z.double() * math.sqrt(2.0 / fan_in)
 
 
 class Dense(nn.Module):
@@ -41,9 +48,13 @@ class Dense(nn.Module):
         self.w = nn.Parameter(torch.zeros(fan_in, fan_out, device=device))
         self.b = nn.Parameter(torch.zeros(fan_out, device=device))
 
-    def init_parameters(self, generator) -> None:
-        _he_normal(self.w, self.w.shape[0], generator)
+    def init_parameters(self, key: torch.Tensor) -> None:
+        """The reference's ``_dense_init``: ``w`` from the first key of a
+        2-way split."""
+        fan_in, fan_out = self.w.shape
+        k1 = prng.split(key.to(self.w.device))[0]
         with torch.no_grad():
+            self.w.copy_(_he_normal(k1, (fan_in, fan_out), fan_in))
             self.b.zero_()
 
     def forward(self, h):
@@ -59,10 +70,13 @@ class Conv(nn.Module):
                                           device=device))
         self.b = nn.Parameter(torch.zeros(c_out, device=device))
 
-    def init_parameters(self, generator) -> None:
-        _, c_in, kh, kw = self.w.shape
-        _he_normal(self.w, kh * kw * c_in, generator)
+    def init_parameters(self, key: torch.Tensor) -> None:
+        """``w`` drawn in the reference's HWIO shape from ``key``."""
+        c_out, c_in, kh, kw = self.w.shape
+        w = _he_normal(key.to(self.w.device), (kh, kw, c_in, c_out),
+                       kh * kw * c_in)
         with torch.no_grad():
+            self.w.copy_(w.permute(3, 2, 0, 1))
             self.b.zero_()
 
     def forward(self, h):  # NCHW
@@ -81,9 +95,10 @@ class MLPClassifier(nn.Module):
         self.layers = nn.ModuleList(
             Dense(a, b, device=device) for a, b in zip(sizes[:-1], sizes[1:]))
 
-    def init_parameters(self, generator) -> None:
-        for layer in self.layers:
-            layer.init_parameters(generator)
+    def init_parameters(self, key: torch.Tensor) -> None:
+        """One key a layer, from a split of ``key``."""
+        for layer, k in zip(self.layers, prng.split(key, len(self.layers))):
+            layer.init_parameters(k)
 
     def forward(self, x):
         h = x.reshape(x.shape[0], -1).to(self.layers[0].w.dtype)
@@ -106,9 +121,12 @@ class CNNClassifier(nn.Module):
         flat = (image_size // 2) * (image_size // 2) * c2
         self.head = Dense(flat, num_classes, device=device)
 
-    def init_parameters(self, generator) -> None:
-        for layer in (self.conv1, self.conv2, self.head):
-            layer.init_parameters(generator)
+    def init_parameters(self, key: torch.Tensor) -> None:
+        """``conv1``, ``conv2`` and the head from a 3-way split of
+        ``key``."""
+        for layer, k in zip((self.conv1, self.conv2, self.head),
+                            prng.split(key, 3)):
+            layer.init_parameters(k)
 
     def forward(self, x):
         h = x.to(self.conv1.w.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW

@@ -174,8 +174,8 @@ class AsyncFLTrainer:
 
         ``init_params`` (flat ``[N]``, the model's ``named_parameters``
         order) overrides the initial parameters, which are otherwise drawn
-        from ``cfg.seed``'s init generator; :attr:`final_params` holds the
-        flat parameters at the end.
+        from ``PRNGKey(cfg.seed)``, as the JAX trainer draws them;
+        :attr:`final_params` holds the flat parameters at the end.
         """
         if self.cfg.backend == "device":
             cap = None if max_updates >= 10**9 else max_updates

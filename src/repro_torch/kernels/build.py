@@ -30,7 +30,7 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # division (no --use_fast_math)
 FLAGS = {"buzen": [], "events": ["-fmad=false"],
          "fused_update": ["-fmad=false"], "flash_attention": [],
-         "decode_attention": []}
+         "decode_attention": [], "threefry": []}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

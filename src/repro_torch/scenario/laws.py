@@ -8,16 +8,20 @@ A :class:`TimingLaw` packages:
     ``numpy.random.Generator`` (the host simulator
     :class:`repro_torch.core.simulator.AsyncNetworkSim`), the JAX law's
     numpy calls exactly, so bitwise its draws for the same generator;
-  * ``device_draw(generator, rate)`` — draws of mean ``1/rate`` on
-    ``rate``'s device and shape from a ``torch.Generator``;
-  * ``unit_draw(generator, shape, dtype, device)`` and
-    ``unit_apply(u, rate)`` — the unit factorization the event engine's
-    pre-drawn blocks use: the rate-free part is drawn up front and the
-    completing client's rate applied in the step, with
-
-        unit_apply(unit_draw(g, rate.shape, ...), rate) == device_draw(g, rate)
-
-    bitwise (``device_draw`` is that composition);
+  * ``device_draw(key, rate, shape=())`` — draws of mean ``1/rate`` from
+    keys (:mod:`repro_torch.core.prng`, ``[..., 2]``; a draw of ``shape``
+    from each), the JAX law's ``jax.random`` calls on the same keys;
+  * ``unit_draw(key, shape=())`` and ``unit_apply(u, rate)`` — the unit
+    factorization the event engine's pre-drawn blocks use: the rate-free
+    part is drawn up front and the completing client's rate applied in
+    the step, with ``device_draw(key, rate, shape) ==
+    unit_apply(unit_draw(key, shape), rate)`` bitwise (``device_draw`` is
+    that composition);
+  * ``paths`` and ``unit_words(words)`` — the same unit part of a scalar
+    draw from the hash words of ``paths`` (each a path of counters from
+    the law's key, :mod:`repro_torch.kernels.threefry`), which the key
+    chain kernel draws for a block of events at once:
+    ``unit_words(words of paths from key) == unit_draw(key)``;
   * ``form`` and ``unit_split(u)`` — how the event kernels apply the rate
     (:func:`apply_rate`): ``unit_split`` turns a unit part into the
     per-event scalars the kernels read, ``(x, f)`` with ``f`` ``None``
@@ -58,10 +62,12 @@ class TimingLaw(NamedTuple):
     """Host and device implementations of one service-time distribution."""
 
     host_sample: Callable  # (mu: float, rng: np.random.Generator) -> float
-    device_draw: Callable  # (generator, rate: Tensor) -> Tensor
-    unit_draw: Callable    # (generator, shape, dtype, device) -> unit part
+    device_draw: Callable  # (key, rate: Tensor, shape=()) -> Tensor
+    unit_draw: Callable    # (key, shape=()) -> unit part
     unit_apply: Callable   # (u, rate) -> sample
     unit_split: Callable   # u -> (x, f or None), the kernels' scalars
+    paths: tuple           # hash paths of one scalar draw from its key
+    unit_words: Callable   # words [..., len(paths), 2] -> unit part
     form: str = "scale"    # how the rate is applied (see apply_rate)
 
 
@@ -113,56 +119,64 @@ def law_names() -> tuple[str, ...]:
     return TIMING_LAWS.names()
 
 
-def _law(form: str, host_sample, unit_draw, unit_split) -> TimingLaw:
+def _prng():
+    """:mod:`repro_torch.core.prng`, imported when a law is first built:
+    ``repro_torch.core`` imports this module."""
+    from ..core import prng
+    return prng
+
+
+def _law(form: str, host_sample, unit_draw, unit_split, paths,
+         unit_words) -> TimingLaw:
     """A law whose ``device_draw`` is its unit draw with the rate applied
     (so the factorization holds bitwise by construction)."""
     def unit_apply(u, rate):
         x, f = unit_split(u)
         return apply_rate(form, x, f, rate)
 
-    def device_draw(g, rate):
-        return unit_apply(unit_draw(g, rate.shape, rate.dtype, rate.device),
-                          rate)
+    def device_draw(key, rate, shape=()):
+        return unit_apply(unit_draw(key, shape), rate)
 
     return TimingLaw(host_sample=host_sample, device_draw=device_draw,
                      unit_draw=unit_draw, unit_apply=unit_apply,
-                     unit_split=unit_split, form=form)
-
-
-def _exp_unit(generator, shape, dtype, device):
-    return torch.empty(shape, dtype=dtype, device=device).exponential_(
-        generator=generator)
+                     unit_split=unit_split, paths=tuple(paths),
+                     unit_words=unit_words, form=form)
 
 
 @timing_law("exponential")
 def _exponential() -> TimingLaw:
+    prng = _prng()
     return _law("scale",
                 lambda mu, rng: rng.exponential(1.0 / _check(mu)),
-                _exp_unit, lambda u: (u, None))
+                prng.exponential, lambda u: (u, None), [(0,)],
+                lambda w: prng.exponential_words(w[..., 0, :]))
 
 
 @timing_law("deterministic")
 def _deterministic() -> TimingLaw:
-    # generator-free: the unit part only carries the shape, and every
-    # service at unit rate is 1
+    prng = _prng()
+    # key-free: the unit part only carries the shape, and every service at
+    # unit rate is 1
     return _law("scale",
                 lambda mu, rng: 1.0 / _check(mu),
-                lambda g, shape, dtype, device:
-                    torch.zeros(shape, dtype=dtype, device=device),
-                lambda u: (torch.ones_like(u), None))
+                lambda key, shape=(): torch.zeros(
+                    key.shape[:-1] + prng._shape(shape), dtype=torch.float64,
+                    device=key.device),
+                lambda u: (torch.ones_like(u), None), [],
+                lambda w: torch.zeros(w.shape[:-2], dtype=torch.float64,
+                                      device=w.device))
 
 
 @timing_law("lognormal")
 def _lognormal() -> TimingLaw:
+    prng = _prng()
     # underlying normal variance 1, mean of the law 1/mu:
     # exp(mu_N + 1/2) = 1/mu  ->  mu_N = -log(mu) - 1/2
-    def unit_draw(g, shape, dtype, device):
-        return torch.randn(shape, generator=g, dtype=dtype, device=device)
-
     return _law("lognormal",
                 lambda mu, rng: rng.lognormal(-math.log(_check(mu)) - 0.5,
                                               1.0),
-                unit_draw, lambda u: (u, None))
+                prng.normal, lambda u: (u, None), [(0,)],
+                lambda w: prng.normal_words(w[..., 0, :]))
 
 
 # H2 balanced-means parameters for SCV = 4: q (1 - q) = 1 / (2 (SCV + 1));
@@ -176,21 +190,28 @@ H2_SLOW = 2.0 * (1.0 - _H2_Q)  # JAX law computes them
 
 @timing_law("hyperexponential")
 def _hyperexponential() -> TimingLaw:
+    prng = _prng()
     q = _H2_Q
 
     def host_sample(mu, rng):
         rate = (2.0 * q if rng.random() < q else 2.0 * (1.0 - q)) * _check(mu)
         return rng.exponential(1.0 / rate)
 
-    def unit_draw(g, shape, dtype, device):
-        """``[..., 2]``: the branch uniform, then the unit exponential,
-        drawn in that order."""
-        branch = torch.rand(shape, generator=g, dtype=dtype, device=device)
-        return torch.stack([branch, _exp_unit(g, shape, dtype, device)], -1)
+    def unit_draw(key, shape=()):
+        """``[..., 2]``: the branch uniform from the first key of a 2-way
+        split, the unit exponential from the second."""
+        k = prng.split(key)
+        return torch.stack([prng.uniform(k[..., 0, :], shape),
+                            prng.exponential(k[..., 1, :], shape)], -1)
+
+    def unit_words(w):
+        return torch.stack([prng.uniform_words(w[..., 0, :]),
+                            prng.exponential_words(w[..., 1, :])], -1)
 
     def unit_split(u):
         f = torch.full_like(u[..., 0], H2_SLOW).masked_fill_(u[..., 0] < q,
                                                              H2_FAST)
         return u[..., 1], f
 
-    return _law("h2", host_sample, unit_draw, unit_split)
+    return _law("h2", host_sample, unit_draw, unit_split, [(0, 0), (1, 0)],
+                unit_words)

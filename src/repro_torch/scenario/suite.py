@@ -44,6 +44,7 @@ from ..core.batched import (energy_complexity_classes,
 from ..core.buzen import (NetworkParams, class_log_normalizing_constants,
                           get_backend, log_normalizing_constants,
                           pad_classes, pad_network)
+from ..core import prng
 from ..core.complexity import LearningConstants, wallclock_time
 from ..core.energy import (PowerProfile, energy_optimal_routing,
                            minimal_energy)
@@ -617,8 +618,9 @@ class ScenarioSuite:
         invariant to that padding, so each lane's statistics — unpadded
         before they are returned and cached — equal
         :func:`repro_torch.sim.simulate_stats_lanes` of its scenario alone
-        at the same seed, table size and chunk, bitwise.  Seed ``s`` is a
-        fresh ``torch.Generator(device).manual_seed(s)``.
+        at the same seed, table size and chunk, bitwise.  Seed ``s`` is
+        ``PRNGKey(s)``, the JAX package's key, so each lane draws what the
+        JAX suite's lane draws.
         """
         from ..sim.backend import resolve_backend
         from ..sim.batched_events import build_class_lanes_fn, build_lanes_fn
@@ -680,8 +682,8 @@ class ScenarioSuite:
                            axis_max) for n_, _ in todo for _ in self.seeds])
                      if has_power else None)
             m_vec = [strategies[n_][1] for n_, _ in todo for _ in self.seeds]
-            generators = [torch.Generator(device=self.device).manual_seed(s)
-                          for _ in todo for s in self.seeds]
+            keys = prng.seed_keys([s for _ in todo for s in self.seeds],
+                                  device=self.device)
             sig = ("simulate", is_classes, axis_max, law, has_cs, power_sig,
                    mx, nu, wu, bk, ck)
             fn = self._jit_cache.get(sig)
@@ -691,7 +693,7 @@ class ScenarioSuite:
                                                   has_power, chunk=ck)
                 programs += 1
             with self.metrics.timed("suite.dispatch", mode="simulate"):
-                stats = fn(lane_params, m_vec, generators, power)
+                stats = fn(lane_params, m_vec, keys, power)
             self.metrics.observe("suite.lanes_per_dispatch", len(todo) * S,
                                  mode="simulate")
             for i, (name, ckey) in enumerate(todo):

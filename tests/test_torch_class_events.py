@@ -28,6 +28,7 @@ from repro.core import events as JE
 from repro_torch import convert
 from repro_torch.core import buzen as tbz
 from repro_torch.core import events as TE
+from repro_torch.core import prng
 from repro_torch.core.energy import PowerProfile
 from repro_torch.core.jackson import throughput
 from repro_torch.scenario.spec import PAPER_CLUSTERS_TABLE1, ClassSpec
@@ -267,8 +268,8 @@ def test_class_route_draws_members_uniformly_and_skips_padding():
                                    mu_u=[1.0, 1.0], count=[3, 400_000],
                                    p=[0.1, 0.7 / 400_000]).class_params(
                                        device="cpu"), 3)
-    g = torch.Generator().manual_seed(0)
-    blk = TE.draw_class_event_blocks(cp, g, 20_000)
+    _, blk = TE.draw_class_event_blocks(cp, prng.PRNGKey(0, device="cpu"),
+                                        20_000)
     assert blk.member.dtype == torch.int64
     assert bool((blk.c_new < 2).all())
     frac = float((blk.c_new == 0).double().mean())

@@ -37,13 +37,16 @@ rounded to bfloat16, in one part or with the cache split into several; a
 cache holding NaN past the lengths gives bitwise the clean cache's
 output), and the reduced LM's decode (``kernel`` route, the ring buffer,
 the serve loop) within ``1e-4`` of the ``ref`` route and of the
-full-sequence forward in float32.
+full-sequence forward in float32.  The key-chain kernel is an integer
+function: its chain and words bitwise its plain version's and the JAX
+package's known answers.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import events as E
+from repro_torch.core import prng
 from repro_torch.core.buzen import NetworkParams
 from repro_torch.core.energy import PowerProfile
 from repro_torch.kernels import buzen as kb
@@ -51,6 +54,7 @@ from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import events as ke
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import fused_update as kf
+from repro_torch.kernels import threefry as ktf
 from repro_torch.core.buzen import pad_classes
 from repro_torch.core.optimize import time_optimal, time_optimal_classes
 from repro_torch.scenario.laws import H2_FAST, H2_SLOW
@@ -544,8 +548,8 @@ def _lane_inputs(seed, K, n, m_max, with_cs, power, law, device,
                                   for _ in range(3)],
                                 P_cs=t(np.float64(2.5)) if power == "pcs"
                                 else None))
-        gen = torch.Generator(device=device).manual_seed(seed + k)
-        states.append(E.init_state(prms[-1], 3 + k % (m_max - 2), gen,
+        key = prng.PRNGKey(seed + k, device=device)
+        states.append(E.init_state(prms[-1], 3 + k % (m_max - 2), key,
                                    m_max=m_max, distribution=law,
                                    warmup=warmup, cap=cap))
     params = E.stack_lanes(prms)
@@ -728,13 +732,12 @@ def test_law_lane_backends_and_next_update_on_the_card(cuda, law):
     params = E.stack_lanes([prms[0], prms[2], prms[3]])
     outs = {}
     for be, chunk in (("batched", 1), ("kernel", 1), ("kernel", 8)):
-        gens = [torch.Generator(device=cuda).manual_seed(30 + i)
-                for i in range(3)]
-        st = E.stack_lanes([E.init_state(E.lane(params, i), 9, g, m_max=9,
+        keys = prng.seed_keys(range(30, 33), device=cuda)
+        st = E.stack_lanes([E.init_state(E.lane(params, i), 9, k, m_max=9,
                                          distribution=law)
-                            for i, g in enumerate(gens)])
-        stream = E.EventStream([E.lane(params, i) for i in range(3)], gens,
-                               distribution=law)
+                            for i, k in enumerate(keys)])
+        stream = E.EventStream([E.lane(params, i) for i in range(3)],
+                               E.event_key(keys), distribution=law)
         ups = []
         for _ in range(40):
             st, up = E.next_update(params, st, stream, backend=be,
@@ -809,8 +812,9 @@ def test_lane_kernels_donated_buffers_and_untouched_callers(cuda):
                              ptrs):
         assert torch.equal(x, y), name
         assert x.data_ptr() == p, name  # written into the donated buffer
-    gens = [torch.Generator(device=cuda).manual_seed(s) for s in range(4)]
-    stream = E.EventStream([E.lane(params, i) for i in range(4)], gens)
+    stream = E.EventStream([E.lane(params, i) for i in range(4)],
+                           E.event_key(prng.seed_keys(range(4),
+                                                      device=cuda)))
     for chunk in (1, 8):
         out = E.run_events(params, st, stream, 50, chunk=chunk, power=pw,
                            backend="kernel")
@@ -1440,3 +1444,125 @@ def test_suite_simulate_kernel_equals_batched(cuda):
                         out["kernel"].entries[name]):
             for f in a._fields:
                 assert torch.equal(getattr(a, f), getattr(b, f)), (name, f)
+
+
+# jax.random's answers on jax 0.9.0 (x64, threefry partitionable) for
+# these seeds: split(k, 6), the key after 1,024 steps of the chain
+# split(k, 6)[0], fold_in(k, 1) and fold_in(k, 2), randint(k, (3,), 0,
+# 1000003) and the float64 bits of uniform(k, (2,))
+JAX_ANSWERS = {
+    0: dict(
+        split6=[1797259609, 2579123966, 928981903, 3453687069, 4146024105,
+            2718843009, 2467461003, 3840466878, 2285895361, 433833334,
+            1524306142, 1887795613],
+        chain1024=[2708596157, 547718659],
+        fold12=[928981903, 3453687069, 4146024105, 2718843009],
+        randint=[333962, 466642, 300875],
+        uniform_bits=[4601209873087491728, 4596960885320641928],
+    ),
+    1: dict(
+        split6=[507451445, 1853169794, 1948878966, 4237131848, 2441914641,
+            3819641963, 3568232559, 2761185182, 869452973, 3597360905,
+            3243370355, 1313272271],
+        chain1024=[3242012521, 2967396320],
+        fold12=[1948878966, 4237131848, 2441914641, 3819641963],
+        randint=[295633, 633437, 147554],
+        uniform_bits=[4593178043172680992, 4601845810764653408],
+    ),
+    42: dict(
+        split6=[1832780943, 270669613, 64467757, 2916123636, 2465931498,
+            255383827, 3134548294, 894150801, 2954079971, 3276725750,
+            2765691542, 824333390],
+        chain1024=[1462872883, 2291380616],
+        fold12=[64467757, 2916123636, 2465931498, 255383827],
+        randint=[887067, 284202, 871285],
+        uniform_bits=[4601358860358518916, 4579806337745978368],
+    ),
+    4294967303: dict(
+        split6=[3751178690, 325998405, 1741727090, 2326748124, 1591882673,
+            3522270390, 2836227758, 3199787836, 3575481439, 1729507223,
+            2152786599, 114884099],
+        chain1024=[642391304, 1820099952],
+        fold12=[1741727090, 2326748124, 1591882673, 3522270390],
+        randint=[176036, 269114, 483935],
+        uniform_bits=[4606042011437526474, 4600976952820673492],
+    ),
+}
+
+
+def test_prng_known_answers_on_the_card(cuda):
+    for seed, want in JAX_ANSWERS.items():
+        key = prng.PRNGKey(seed, device=cuda)
+        assert prng.split(key, 6).reshape(-1).tolist() == want["split6"]
+        chain, _ = ktf.chain_words(key[None], 1024,
+                                   ktf.paths_tensor([(1, 0)], cuda))
+        assert chain[0, -1].tolist() == want["chain1024"]
+        folds = torch.stack([prng.fold_in(key, 1), prng.fold_in(key, 2)])
+        assert folds.reshape(-1).tolist() == want["fold12"]
+        assert prng.randint(key, (3,), 0, 1000003).tolist() == want["randint"]
+        u = prng.uniform(key, (2,))
+        assert u.view(torch.int64).tolist() == want["uniform_bits"]
+
+
+def _chain_vs_plain(cuda, keys, n, paths):
+    pt = ktf.paths_tensor(paths, cuda)
+    before = ktf.chain_words.launches
+    chain, words = ktf.chain_words(keys, n, pt)
+    torch.cuda.synchronize()
+    assert ktf.chain_words.launches == before + 1
+    want_c, want_w = ktf.chain_words_plain(keys.cpu(), n, pt.cpu())
+    assert torch.equal(chain.cpu(), want_c)
+    assert torch.equal(words.cpu(), want_w)
+
+
+@pytest.mark.parametrize("lanes,n", [(1, 1), (7, 257), (64, 1024)])
+@pytest.mark.parametrize("engine", ["client", "class"])
+@pytest.mark.parametrize("law", ["exponential", "deterministic",
+                                 "lognormal", "hyperexponential"])
+def test_threefry_chain_kernel_bitwise_plain(cuda, lanes, n, engine, law):
+    """Every word of a block of events, both engines, all four laws, with
+    the CS draws: the kernel's chain and words are its plain version's."""
+    paths, _ = E.block_paths(law, True, engine == "class")
+    keys = E.event_key(prng.seed_keys(range(lanes), device=cuda))
+    _chain_vs_plain(cuda, keys, n, paths)
+
+
+@pytest.mark.parametrize("lanes,batch", [(1, 32), (4, 64)])
+def test_threefry_data_chain_bitwise_plain(cuda, lanes, batch):
+    """The trainer's data chain: a 2-way split a round and ``randint``'s
+    two words of every minibatch element."""
+    paths = ([(1, 0, j) for j in range(batch)]
+             + [(1, 1, j) for j in range(batch)])
+    keys = prng.fold_in(prng.seed_keys(range(lanes), device=cuda), 2)
+    _chain_vs_plain(cuda, keys, 256, paths)
+
+
+@pytest.mark.parametrize("law", ["exponential", "hyperexponential"])
+def test_event_stream_draws_one_launch_a_block(cuda, law):
+    """A kernel-route run launches the key chain once a block of events
+    for all lanes, and gives the plain CPU route's statistics: discrete
+    leaves exact, float leaves within ``rtol 1e-12`` (PyTorch's CUDA and
+    CPU ``log1p`` may round apart)."""
+    rng = np.random.default_rng(3)
+    lanes = [NetworkParams(p=torch.as_tensor(rng.dirichlet(np.ones(6))),
+                           mu_c=torch.as_tensor(rng.uniform(0.5, 3, 6)),
+                           mu_d=torch.as_tensor(rng.uniform(0.5, 3, 6)),
+                           mu_u=torch.as_tensor(rng.uniform(0.5, 3, 6)))
+             for _ in range(3)]
+    kw = dict(warmup=40, seeds=(5, 6, 7), distribution=law, draw_events=100)
+    want = simulate_stats_lanes(lanes, [4, 5, 6], 400, backend="batched",
+                                **kw)
+    on_card = [NetworkParams(*[None if x is None else x.to(cuda)
+                               for x in prm]) for prm in lanes]
+    ktf.chain_words.launches = 0
+    got = simulate_stats_lanes(on_card, [4, 5, 6], 400, backend="kernel",
+                               chunk=8, **kw)
+    events = 3 * (400 + 40) + 3 * 6 + 8
+    assert ktf.chain_words.launches == -(-events // 100)
+    for name, g, w in zip(want._fields, got, want):
+        g = g.cpu()
+        if w.dtype.is_floating_point:
+            torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12,
+                                       msg=name)
+        else:
+            assert torch.equal(g, w), name

@@ -32,6 +32,7 @@ from repro.core import events as JE
 from repro_torch import convert
 from repro_torch.core import buzen as tbz
 from repro_torch.core import events as TE
+from repro_torch.core import prng
 from repro_torch.core.energy import PowerProfile
 from repro_torch.kernels import events as ke
 
@@ -390,10 +391,10 @@ def test_run_events_and_next_update_leave_the_state_untouched(backend):
     params, pw = _lanes(rng, 3, 4, True, "pcs")
     state = _state(rng, params, [3, 4, 5], 6, "exponential", 1, 50)
     kept = [x.clone() for x in state]
-    gens = [torch.Generator().manual_seed(s) for s in range(3)]
+    keys = TE.event_key(prng.seed_keys(range(3), device="cpu"))
     singles = [TE.lane(params, i) for i in range(3)]
     for chunk in (1, 7):
-        stream = TE.EventStream(singles, gens, block=16)
+        stream = TE.EventStream(singles, keys, block=16)
         out = TE.run_events(params, state, stream, 40, chunk=chunk,
                             power=pw, backend=backend)
         assert not torch.equal(out.finish, state.finish)

@@ -29,6 +29,7 @@ from repro.core import events as JE
 from repro_torch import convert
 from repro_torch.core import buzen as tbz
 from repro_torch.core import events as TE
+from repro_torch.core import prng
 from repro_torch.core.energy import PowerProfile
 from repro_torch.core.jackson import throughput
 from repro_torch.core.simulator import AsyncNetworkSim
@@ -214,8 +215,7 @@ def test_throughput_matches_prop4_and_host():
 
 def test_generator_seeding_and_validation():
     prm = _net(10, 3)
-    g = torch.Generator().manual_seed(7)
-    a = TE.simulate_stats(prm, 4, 50, generator=g)
+    a = TE.simulate_stats(prm, 4, 50, key=prng.PRNGKey(7, device="cpu"))
     b = TE.simulate_stats(prm, 4, 50, seed=7)
     assert _equal(a, b)
     for law in ("lognormal", "hyperexponential"):

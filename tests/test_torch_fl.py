@@ -23,6 +23,7 @@ from repro.fl import models as jmodels
 from repro.fl import strategies as jstrat
 from repro_torch import convert
 from repro_torch import data as tdata
+from repro_torch.core import prng
 from repro_torch.data import emnist as tem
 from repro_torch.fl import models as tmodels
 from repro_torch.fl import strategies as tstrat
@@ -148,9 +149,9 @@ def test_paper_cnn_width_and_init():
     assert sum(np.asarray(a).size for a in jax.tree_util.tree_leaves(
         jmodels.cnn_classifier(28, 47).init(jax.random.PRNGKey(0)))) \
         == 408_767
-    tm.init_parameters(torch.Generator().manual_seed(5))
+    tm.init_parameters(prng.PRNGKey(5, device="cpu"))
     first = {k: v.clone() for k, v in tm.state_dict().items()}
-    tm.init_parameters(torch.Generator().manual_seed(5))
+    tm.init_parameters(prng.PRNGKey(5, device="cpu"))
     for k, v in tm.state_dict().items():
         assert torch.equal(v, first[k])
         if k.endswith(".b"):

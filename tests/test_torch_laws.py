@@ -29,6 +29,7 @@ import repro.core.numerics  # noqa: F401  (the JAX package's float64 mode)
 from repro.scenario import laws as JL
 from repro_torch.core import buzen as tbz
 from repro_torch.core import events as TE
+from repro_torch.core import prng
 from repro_torch.core.energy import PowerProfile
 from repro_torch.core.simulator import AsyncNetworkSim, make_sampler
 from repro_torch.kernels import events as ke
@@ -72,9 +73,9 @@ def test_moments_host_and_device(law):
     mu, N = 2.5, 60_000
     sampler = make_sampler(law, np.random.default_rng(0))
     host = np.array([sampler(mu) for _ in range(N)])
-    g = torch.Generator().manual_seed(1)
-    dev = TL.get_law(law).device_draw(g, torch.full((N,), mu,
-                                                    dtype=torch.float64))
+    dev = TL.get_law(law).device_draw(
+        prng.PRNGKey(1, device="cpu"),
+        torch.full((N,), mu, dtype=torch.float64), (N,))
     for xs in (host, dev.numpy()):
         assert xs.mean() == pytest.approx(1.0 / mu, rel=0.05)
         if law == "hyperexponential":
@@ -86,9 +87,9 @@ def test_unit_factorization_bitwise(law):
     tl = TL.get_law(law)
     for shape in ((7,), (3, 5), (1024,)):
         rate = _t(np.random.default_rng(2).uniform(0.1, 9.0, shape))
-        u = tl.unit_draw(torch.Generator().manual_seed(3), rate.shape,
-                         torch.float64, "cpu")
-        want = tl.device_draw(torch.Generator().manual_seed(3), rate)
+        key = prng.PRNGKey(3, device="cpu")
+        u = tl.unit_draw(key, rate.shape)
+        want = tl.device_draw(key, rate, rate.shape)
         got = tl.unit_apply(u, rate)
         assert got.shape == rate.shape and torch.equal(got, want)
         x, f = tl.unit_split(u)
@@ -168,7 +169,7 @@ def test_laws_bitwise_inside_the_port(law, with_cs):
 def test_lane_wrappers_check_the_law_width():
     prm = TE.stack_lanes([_net(1, 3)])
     st = TE.stack_lanes([TE.init_state(TE.lane(prm, 0), 3,
-                                       torch.Generator().manual_seed(0))])
+                                       prng.PRNGKey(0, device="cpu"))])
     fs4 = torch.ones(1, 2, 4, dtype=torch.float64)
     cn = torch.zeros(1, 2, dtype=torch.int32)
     with pytest.raises(ValueError, match="fs"):

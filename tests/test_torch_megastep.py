@@ -29,6 +29,7 @@ from repro.core import events as JE
 from repro_torch import convert
 from repro_torch.core import buzen as tbz
 from repro_torch.core import events as TE
+from repro_torch.core import prng
 from repro_torch.core.energy import PowerProfile
 from repro_torch.sim import simulate_stats_lanes
 
@@ -220,17 +221,17 @@ def test_next_update_lognormal_fed_jax_stream(jax_backend, with_cs):
 
 
 def test_next_update_generator_stream_chunks_and_lanes():
-    """Own generators with a draw block of 13 events: megasteps straddle
+    """Own keys with a draw block of 13 events: megasteps straddle
     blocks and lanes move their cursors apart; every chunk and each lane
     run alone give the same updates."""
     prms = [_net(s, 5) for s in (1, 2, 3)]
 
     def run(idx, chunk):
-        gens = [torch.Generator().manual_seed(s) for s in (1, 2, 3)]
+        keys = prng.seed_keys((1, 2, 3), device="cpu")
         ps = [prms[i] for i in idx]
-        st = TE.stack_lanes([TE.init_state(prms[i], 4, gens[i], m_max=6)
+        st = TE.stack_lanes([TE.init_state(prms[i], 4, keys[i], m_max=6)
                              for i in idx])
-        stream = TE.EventStream(ps, [gens[i] for i in idx], block=13)
+        stream = TE.EventStream(ps, TE.event_key(keys[idx]), block=13)
         outs = []
         for _ in range(20):
             st, upd = TE.next_update(TE.stack_lanes(ps), st, stream,
@@ -251,9 +252,9 @@ def test_next_update_generator_stream_chunks_and_lanes():
 
 def test_stream_and_chunk_validation():
     prm = _net(1, 3)
-    g = torch.Generator().manual_seed(0)
-    st = TE.stack_lanes([TE.init_state(prm, 3, g, m_max=3)])
-    blk = TE.draw_event_blocks(prm, g, 2)
+    key = prng.PRNGKey(0, device="cpu")
+    st = TE.stack_lanes([TE.init_state(prm, 3, key, m_max=3)])
+    _, blk = TE.draw_event_blocks(prm, TE.event_key(key), 2)
     stream = TE.EventStream.from_blocks(
         TE.EventBlocks(*[None if x is None else x[:, None] for x in blk]))
     with pytest.raises(RuntimeError, match="ran out"):
@@ -262,4 +263,4 @@ def test_stream_and_chunk_validation():
     with pytest.raises(ValueError):
         TE.simulate_stats(prm, 3, 10, chunk=0)
     with pytest.raises(ValueError):
-        TE.EventStream([prm], [g], block=0)
+        TE.EventStream([prm], key[None], block=0)
