@@ -263,6 +263,38 @@ every seed is a ``jax.random`` key, :mod:`repro_torch.core.prng`):
      1e-12``; (d) the kernel's device ms per block of 1,024 events x 6
      lanes, the chain alone, the whole stream block beside the
      ``torch.Generator`` draws it replaces, its bound.
+ 15. the remaining concurrency searches and the paper's optimisation claims
+     (run after phase 14, the Buzen backend set per check and restored
+     after; the Buzen and lane kernels' counts zeroed just before and read
+     just after: kernels 1, 1b, 2, 3, 5 and 5b must each have launched):
+     (a) ``pruned_concurrency_sweep`` against the full sweep on Table 1 (n
+     = 100, m = 2..132, 200 steps, ``kernel``): the full sweep bitwise
+     phase 4's, the pruned tau* within rtol 1e-3 of it in fewer than 131
+     rows, exactly 201 forward and 200 backward launches a pass, both wall
+     times; (b) Fig. 8 and Fig. 4 at the JAX benches' smoke configurations
+     (Table 1 at scale 10, 150 steps) rebuilt with the port's
+     ``Scenario`` on ``kernel`` and ``torch``: the benches' claims
+     (``interior``, ``beats_serial``, ``beats_full``; ``m_monotone_down``,
+     ``m(rho=1) = 1``, ``energy_down``, ``typeE_down``), m*, the pruned m
+     and m(rho) equal to the JAX package's (``JAX_SEARCH_ANSWERS``) and
+     across the routes, the sweep values within rtol 1e-4 across the
+     routes; then Fig. 4's ``pareto_sweep`` at n = 100 (636 rows), logged;
+     (c) Fig. 2 (``tau_surface``), Table 2 (``ScenarioSuite.strategy_grid``
+     analysed in one program) and Table 7 (``round_opt`` at m = n) on both
+     routes: the claims (``interior_opt``, ``fast_client_favored``,
+     ``max>=uni>=roundopt``, ``pD>pE``, ``improved``) and the discrete
+     optima equal to the JAX package's; (d) ``sequential_concurrency_search``
+     on JAX's n = 8 network (m from 2 to 16, 400 steps, ``kernel``: the
+     static objectives reach kernels 1 and 1b through the process-wide
+     backend) at the batched sweep's m* and within rtol 1e-4 of its value,
+     and ``joint_optimal(search="sequential", patience=100)`` on JAX's n =
+     4 network at its batched m*; (e) ``time_optimal_classes(search=
+     "pruned")`` at n = 1e6 within rtol 1e-3 of phase 8's full class sweep;
+     (f) ``jump_chain_throughput`` at phase 4's (p*, m*) with 30,000 events,
+     without a CS station at E = 1 and with one at E = 8: bitwise the
+     ``simulate_stats`` call it wraps, lambda within 10% of Prop. 4, the
+     tasks in flight summing to m; (g) ``examples/joint_energy_opt_torch.
+     main()`` in process: m falls as rho rises and m(rho=1) = 1.
 
 Phase 3 also holds the fused-update kernel against its plain version
 (bitwise on the new parameters, ``rtol 1e-5`` on the squared norm) at
@@ -374,6 +406,36 @@ JAX_ANSWERS = {
         randint=[176036, 269114, 483935],
         uniform_bits=[4606042011437526474, 4600976952820673492],
     ),
+}
+# phase 15's Pareto weights (benchmarks/bench_pareto.py) and its known
+# answers: the JAX package (jax 0.9.0, x64, on the CPU) at the JAX benches'
+# configurations, from tools/jax_search_answers.py: bench_concurrency_sweep
+# .run(scale=10, steps=150) (Fig. 8: Table 1 at scale 10, m = 1..n + 5),
+# bench_pareto.run(scale=10, steps=150) (Fig. 4: m = 1..n + 6, tau* from
+# m = 2..n + 6), bench_tau_surface (Fig. 2: m = 1..24 x p1 = 0.1..0.9 in
+# 17 steps, the index of p1* in that grid), bench_routing_table.run(
+# scale=5, steps=250) (Table 2: m_max = n + 8) and bench_round_optimization
+# .run(scale=5, steps=300) (Table 7: Table 6 at scale 5, m = n)
+RHOS = (0.0, 0.1, 0.3, 0.5, 0.8, 1.0)
+JAX_SEARCH_ANSWERS = {
+    "fig8": dict(n=9, m_max=14, m_star=8, pruned_m=8, pruned_rows=11,
+                 tau_star=5169.94807944877),
+    "fig4": dict(n=9, m_max=15, tau_m=8, m_rho=[8, 5, 3, 2, 1, 1],
+                 tau_rho=[5169.948079448752, 5581.121121297899,
+                          6517.51087740929, 7763.49842707969,
+                          11602.962223429597, 12103.239961441992],
+                 energy_rho=[975082.2027762465, 420512.10115607275,
+                             294451.1747884082, 235650.54309415212,
+                             177441.55018082095, 175694.56936539162]),
+    "fig2": {1.0: dict(m_star=7, p1_index=8),
+             3.0: dict(m_star=6, p1_index=4)},
+    "table2": dict(n=20, m={"asyncsgd": 20, "max_throughput": 20,
+                            "round_opt": 20, "time_opt": 13},
+                   lambda_={"asyncsgd": 1.5039282152066935,
+                            "max_throughput": 32.77518293579189,
+                            "round_opt": 0.9363298274435574,
+                            "time_opt": 2.499143565211953}),
+    "table7": dict(n=20, K_uni=7087.438174539341, K_opt=3913.806250388029),
 }
 # the 32-bit integer issue rate of one H100 SXM at 700 W: the guide's
 # float32 rate counts an FMA as two operations on an SM's 128 float32
@@ -1980,6 +2042,460 @@ def keys_phase(dev, card: str, p_star, m_star: int, main_launches: int,
         "library_ms": None}
 
 
+def search_phase(dev, card: str, net, consts, res_k, big_spec, big_res,
+                 M: int) -> None:
+    """Phase 15 (see the module docstring): the pruned, Pareto and
+    sequential searches and ``jump_chain_throughput`` on the card, and the
+    paper's Figs. 2, 4 and 8 and Tables 2 and 7 as the JAX benches define
+    their claims.  The Buzen backend is set per check and restored after
+    the phase; kernels 1, 1b, 2, 3, 5 and 5b must each launch in it."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import buzen as cbz
+    from repro_torch.core import (LearningConstants, NetworkParams,
+                                  PowerProfile, batched_concurrency_sweep,
+                                  expected_relative_delay, joint_optimal,
+                                  make_energy_objective_padded,
+                                  make_time_objective,
+                                  make_time_objective_padded, minimal_energy,
+                                  objective_surface, pareto_sweep,
+                                  pruned_concurrency_sweep,
+                                  sequential_concurrency_search, tau_surface,
+                                  throughput, time_optimal_classes)
+    from repro_torch.core import events as events_mod
+    from repro_torch.core.simulator import jump_chain_throughput
+    from repro_torch.kernels import buzen as kb
+    from repro_torch.kernels import events as ke
+    from repro_torch.scenario import (PAPER_CLUSTERS_TABLE1,
+                                      PAPER_CLUSTERS_TABLE6, EnergySpec,
+                                      LearningSpec, NetworkSpec,
+                                      ObjectiveSpec, Scenario, ScenarioSuite,
+                                      StrategySpec, get_objective)
+
+    t_phase = time.perf_counter()
+    counted = {"buzen": kb.buzen_batched,
+               "buzen_backward": kb.buzen_log_Z_backward,
+               "buzen_classes": kb.buzen_classes_batched,
+               "buzen_classes_backward": kb.buzen_classes_log_Z_backward,
+               "event_step": ke.event_step_lanes,
+               "megastep": ke.megastep_lanes}
+    for c in counted.values():
+        c.launches = 0
+
+    def snap():
+        return {k: c.launches for k, c in counted.items()}
+
+    def since(before):
+        got = {k: c.launches - before[k] for k, c in counted.items()}
+        return {k: v for k, v in got.items() if v}
+
+    def timed(fn):
+        """``fn()``'s result, its wall seconds and its launches."""
+        before = snap()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, since(before)
+
+    def rel_diff(a, b) -> float:
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float((np.abs(a - b) / np.abs(b)).max())
+
+    # the JAX benches' scenarios (benchmarks/scenarios.py): their constants
+    # are LearningSpec's defaults
+    def table1_scn(scale, strategy, *, with_power=False, steps=200):
+        return Scenario(
+            network=NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1, scale),
+            learning=LearningSpec(grad_clip=5.0),
+            energy=(EnergySpec.from_clusters(PAPER_CLUSTERS_TABLE1, scale)
+                    if with_power else None),
+            strategy=StrategySpec(strategy, steps=steps),
+            objective=ObjectiveSpec("joint" if with_power else "time"),
+            name=f"table1_s{scale}_{strategy}")
+
+    saved = cbz.get_backend()
+    try:
+        # -- 15a. pruned against full at the paper's size ------------------
+        obj = make_time_objective_padded(net, consts, M)
+        grid = np.arange(2, M + 1)
+        kw = dict(m_grid=grid, m_max=M, steps=200, backend="kernel")
+        full, full_s, full_l = timed(
+            lambda: batched_concurrency_sweep(obj, net, **kw))
+        pruned, pruned_s, pruned_l = timed(
+            lambda: pruned_concurrency_sweep(obj, net, **kw))
+        check(full.best.m == res_k.m and full.best.value == res_k.value,
+              "15a: the full sweep != phase 4's time_optimal")
+        gap = abs(pruned.best.value - full.best.value) / full.best.value
+        rows = len(pruned.values)
+        stride = max(2, int(round(np.sqrt(grid.size))))
+        coarse = np.unique(np.append(np.arange(0, grid.size, stride),
+                                     grid.size - 1)).size
+        passes = 2 if rows > coarse else 1  # a refine pass ran
+        check(gap <= 1e-3 and rows < grid.size,
+              f"15a: pruned tau* {pruned.best.value} vs full "
+              f"{full.best.value} (rel {gap}), {rows} rows")
+        check(pruned_l == {"buzen": passes * 201,
+                           "buzen_backward": passes * 200},
+              f"15a: the pruned search's launches {pruned_l}")
+        log(f"phase 15: pruned vs full at n={net.n}, m = 2..{M}, 200 steps "
+            f"(kernel): full m*={full.best.m} tau*={full.best.value:.10g} "
+            f"in {full_s:.2f} s ({grid.size} rows, launches {full_l}); "
+            f"pruned m*={pruned.best.m} tau*={pruned.best.value:.10g} in "
+            f"{pruned_s:.2f} s ({rows} rows in {passes} sweeps, launches "
+            f"{pruned_l}); rel gap {gap:.3g} (bound 1e-3); pruned / full "
+            f"wall {pruned_s / full_s:.3f} ({card})")
+
+        # -- 15b. Fig. 8 and Fig. 4 at the JAX benches' smoke size --------
+        ans8, ans4 = JAX_SEARCH_ANSWERS["fig8"], JAX_SEARCH_ANSWERS["fig4"]
+        fig8, fig4 = {}, {}
+        for be in ("kernel", "torch"):
+            cbz.set_backend(be)
+            scn = table1_scn(10, "time_opt", steps=150)
+            prm, n8 = scn.params(device=dev), scn.n
+            m8 = n8 + 5
+            obj8 = get_objective(scn.objective.name).padded(
+                prm, scn.consts, scn.power(device=dev), None, m8)
+            kw8 = dict(m_grid=np.arange(1, m8 + 1), m_max=m8, steps=150)
+            (f8, p8), s8, l8 = timed(lambda: (
+                batched_concurrency_sweep(obj8, prm, **kw8),
+                pruned_concurrency_sweep(obj8, prm, **kw8)))
+            vals = dict(f8.best.history)
+            v_star = f8.best.value
+            claims = {"interior": 1 < f8.best.m,
+                      "beats_serial": v_star < vals[1],
+                      "beats_full": v_star <= vals[n8] + 1e-9}
+            fig8[be] = (f8, p8)
+            check(all(claims.values()), f"15b: Fig. 8 claims on {be}: "
+                  f"{claims}")
+            check((n8, m8, f8.best.m, p8.best.m)
+                  == (ans8["n"], ans8["m_max"], ans8["m_star"],
+                      ans8["pruned_m"]),
+                  f"15b: Fig. 8 on {be}: n={n8}, m*={f8.best.m}, pruned "
+                  f"m={p8.best.m}; the JAX package's {ans8}")
+            log(f"phase 15: Fig. 8 [{be}] n={n8}, m = 1..{m8}, 150 steps: "
+                f"m*={f8.best.m} tau*={v_star:.10g} (JAX rel "
+                f"{abs(v_star / ans8['tau_star'] - 1):.3g}), "
+                f"tau(m=1)={vals[1]:.6g}, tau(m=n)={vals[n8]:.6g}; pruned "
+                f"m={p8.best.m} in {len(p8.values)} rows (JAX "
+                f"{ans8['pruned_rows']}); claims {claims}; {s8:.2f} s, "
+                f"launches {l8} ({card})")
+
+            scn = table1_scn(10, "joint", with_power=True, steps=150)
+            prm, pw = scn.params(device=dev), scn.power(device=dev)
+            labels = np.array(scn.network.labels)
+            m4 = scn.n + 6
+            t_obj = make_time_objective_padded(prm, scn.consts, m4)
+
+            def frontier():
+                tau_res = batched_concurrency_sweep(
+                    t_obj, prm, m_grid=np.arange(2, m4 + 1), steps=150)
+                e_star = float(minimal_energy(prm, scn.consts, pw))
+                raw, per_rho = pareto_sweep(prm, scn.consts, pw, RHOS,
+                                            tau_res.best.value, e_star,
+                                            m_max=m4, steps=150)
+                p_rows = torch.stack([r.p for r in per_rho])
+                m_rows = torch.as_tensor([r.m for r in per_rho], device=dev)
+                taus = objective_surface(t_obj, prm, p_rows, m_rows,
+                                         m_max=m4)
+                ens = objective_surface(make_energy_objective_padded(
+                    prm, scn.consts, pw, m4), prm, p_rows, m_rows, m_max=m4)
+                pE = [float(r.p.cpu().numpy()[labels == "E"].mean())
+                      for r in per_rho]
+                return tau_res, raw, per_rho, taus.cpu().numpy(), \
+                    ens.cpu().numpy(), pE
+
+            out, s4, l4 = timed(frontier)
+            tau_res, raw, per_rho, taus, ens, pE = out
+            ms = [r.m for r in per_rho]
+            claims = {"m_monotone_down": all(a >= b for a, b in
+                                             zip(ms, ms[1:])),
+                      "m(rho=1)=1": ms[-1] == 1,
+                      "energy_down": ens[-1] <= ens[0] + 1e-6,
+                      "typeE_down": pE[-1] <= pE[0] + 1e-9}
+            fig4[be] = (tau_res, raw, ms)
+            check(all(claims.values()), f"15b: Fig. 4 claims on {be}: "
+                  f"{claims}")
+            check((scn.n, m4, tau_res.best.m, ms)
+                  == (ans4["n"], ans4["m_max"], ans4["tau_m"],
+                      ans4["m_rho"]),
+                  f"15b: Fig. 4 on {be}: m*={tau_res.best.m}, m(rho)={ms};"
+                  f" the JAX package's {ans4['tau_m']}, {ans4['m_rho']}")
+            log(f"phase 15: Fig. 4 [{be}] n={scn.n}, rhos {list(RHOS)}, m = "
+                f"1..{m4} ({raw.values.size} rows), 150 steps: m(rho)={ms}, "
+                f"tau {np.round(taus, 1).tolist()} (JAX rel "
+                f"{rel_diff(taus, ans4['tau_rho']):.3g}), energy "
+                f"{np.round(ens, 0).tolist()} (JAX rel "
+                f"{rel_diff(ens, ans4['energy_rho']):.3g}), type-E weight "
+                f"{[round(x, 4) for x in pE]}; claims {claims}; {s4:.2f} s, "
+                f"launches {l4} ({card})")
+        (fk, pk), (ft, pt) = fig8["kernel"], fig8["torch"]
+        r8 = max(rel_diff(fk.values, ft.values), rel_diff(pk.values,
+                                                          pt.values))
+        check(r8 <= 1e-4 and np.array_equal(pk.m_grid, pt.m_grid),
+              f"15b: Fig. 8 kernel vs torch: rel {r8}, rows "
+              f"{pk.m_grid.tolist()} vs {pt.m_grid.tolist()}")
+        r4 = max(rel_diff(fig4["kernel"][0].values, fig4["torch"][0].values),
+                 rel_diff(fig4["kernel"][1].values, fig4["torch"][1].values))
+        check(r4 <= 1e-4, f"15b: Fig. 4 kernel vs torch: rel {r4}")
+        log(f"phase 15: Figs. 8 and 4: kernel == torch on every discrete "
+            f"result, sweep values max rel diff {r8:.3g} and {r4:.3g} "
+            f"(bound 1e-4)")
+
+        # Fig. 4's frontier at the paper's size, logged, not gated: tau*
+        # is phase 4's optimum (the same constants)
+        cbz.set_backend("kernel")
+        scn = table1_scn(1, "joint", with_power=True, steps=150)
+        prm, pw = scn.params(device=dev), scn.power(device=dev)
+        labels = np.array(scn.network.labels)
+        m_big = scn.n + 6
+        e_star = float(minimal_energy(prm, scn.consts, pw))
+        (raw, per_rho), s_big, l_big = timed(lambda: pareto_sweep(
+            prm, scn.consts, pw, RHOS, float(res_k.value), e_star,
+            m_max=m_big, steps=150))
+        ms = [r.m for r in per_rho]
+        pE = [float(r.p.cpu().numpy()[labels == "E"].mean())
+              for r in per_rho]
+        log(f"phase 15: Fig. 4 at n={scn.n} (kernel, {raw.values.size} rows, "
+            f"m = 1..{m_big}, 150 steps): m(rho)={ms}, type-E weight "
+            f"{[round(x, 4) for x in pE]}, m_monotone_down="
+            f"{all(a >= b for a, b in zip(ms, ms[1:]))}, m(rho=1)="
+            f"{ms[-1]}; {s_big:.2f} s, launches {l_big} ({card})")
+
+        # -- 15c. Fig. 2, Table 2 and Table 7 -----------------------------
+        p1s = np.linspace(0.1, 0.9, 17)
+        ms2 = np.arange(1, 25)
+        grids = {}
+        for be in ("kernel", "torch"):
+            for mu2 in (1.0, 3.0):
+                scn = Scenario(
+                    network=NetworkSpec(mu_c=[1.0, mu2], mu_d=[1.0, mu2],
+                                        mu_u=[1.0, mu2]),
+                    learning=LearningSpec(consts=LearningConstants(
+                        L=1.0, delta=1.0, sigma=1.0, M=5.0, G=14.0,
+                        eps=1.0)),
+                    name=f"fig2_mu2_{mu2:g}")
+                g = tau_surface(scn.params(p=[0.5, 0.5], device=dev),
+                                scn.consts, ms2,
+                                np.stack([p1s, 1.0 - p1s], -1),
+                                backend=be).cpu().numpy()
+                mi, pj = np.unravel_index(int(np.argmin(g)), g.shape)
+                grids[be, mu2] = (g, int(ms2[mi]), int(pj))
+                want = JAX_SEARCH_ANSWERS["fig2"][mu2]
+                check((int(ms2[mi]), int(pj)) == (want["m_star"],
+                                                  want["p1_index"]),
+                      f"15c: Fig. 2 mu2={mu2} on {be}: m*={ms2[mi]}, "
+                      f"p1*={p1s[pj]:.2f}; the JAX package's {want}")
+            claims = {"interior_opt": grids[be, 1.0][1] > 1
+                      and grids[be, 3.0][1] > 1,
+                      "fast_client_favored": p1s[grids[be, 3.0][2]] < 0.5}
+            check(all(claims.values()), f"15c: Fig. 2 claims on {be}: "
+                  f"{claims}")
+        r2 = max(rel_diff(grids["kernel", mu2][0], grids["torch", mu2][0])
+                 for mu2 in (1.0, 3.0))
+        check(r2 <= 1e-4, f"15c: Fig. 2 kernel vs torch: rel {r2}")
+        log(f"phase 15: Fig. 2 (24 x 17 surface): homogeneous m*="
+            f"{grids['kernel', 1.0][1]} p1*={p1s[grids['kernel', 1.0][2]]:.2f}"
+            f", heterogeneous m*={grids['kernel', 3.0][1]} p1*="
+            f"{p1s[grids['kernel', 3.0][2]]:.2f} on both routes (== JAX); "
+            f"claims {claims}; kernel vs torch max rel {r2:.3g}")
+
+        ans2, ans7 = JAX_SEARCH_ANSWERS["table2"], JAX_SEARCH_ANSWERS["table7"]
+        four = ("asyncsgd", "max_throughput", "round_opt", "time_opt")
+        tab2, tab7 = {}, {}
+        for be in ("kernel", "torch"):
+            cbz.set_backend(be)
+            base = table1_scn(5, "time_opt", steps=250)
+            suite = ScenarioSuite.strategy_grid(base, four, device=dev,
+                                                m_max=base.n + 8)
+            res, s_t2, l_t2 = timed(lambda: suite.run(mode="analyze"))
+            lam = {k: res.entries[k]["throughput"] for k in four}
+            m_of = {k: int(res.entries[k]["m"]) for k in four}
+            tab2[be] = (lam, m_of)
+            ok = lam["max_throughput"] >= lam["asyncsgd"] >= lam["round_opt"]
+            check(ok and res.programs == 1,
+                  f"15c: Table 2 on {be}: lambda {lam}, {res.programs} "
+                  f"programs")
+            check(base.n == ans2["n"] and m_of == ans2["m"],
+                  f"15c: Table 2 on {be}: m {m_of}; the JAX package's "
+                  f"{ans2['m']}")
+            log(f"phase 15: Table 2 [{be}] n={base.n}, 4 strategies in "
+                f"{res.programs} program: m {m_of}, lambda "
+                f"{ {k: round(v, 4) for k, v in lam.items()} } (JAX rel "
+                f"{rel_diff(list(lam.values()), list(ans2['lambda_'].values())):.3g}); "
+                f"max>=uni>=roundopt:{ok}; {s_t2:.2f} s, launches "
+                f"{l_t2} ({card})")
+
+            base = Scenario(
+                network=NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE6, 5),
+                strategy=StrategySpec("round_opt", steps=300),
+                objective=ObjectiveSpec("round"),
+                name="table6_s5_round_opt")
+            n7 = base.n
+            prm = base.params(device=dev)
+            labels = np.array(base.network.labels)
+            suite = ScenarioSuite.strategy_grid(
+                base, ("asyncsgd", "round_opt"), device=dev, m=n7)
+            res, s_t7, l_t7 = timed(lambda: suite.run(mode="analyze"))
+            p = np.asarray(res.entries["round_opt"]["p"])
+
+            def max_impact(pv):
+                d = expected_relative_delay(prm._replace(
+                    p=torch.as_tensor(pv, device=dev)), n7).cpu().numpy()
+                return float((d / np.maximum(pv, 1e-12) ** 2).max())
+
+            k_uni = res.entries["asyncsgd"]["K_eps"]
+            k_opt = res.entries["round_opt"]["K_eps"]
+            pD = float(p[labels == "D"].mean())
+            pE = float(p[labels == "E"].mean())
+            i_uni = max_impact(np.asarray(res.entries["asyncsgd"]["p"]))
+            i_opt = max_impact(p)
+            claims = {"pD>pE": pD > pE, "improved": i_opt < i_uni,
+                      "K_down": k_opt < k_uni}
+            tab7[be] = np.array([k_uni, k_opt, pD, pE, i_uni, i_opt])
+            check(all(claims.values()) and n7 == ans7["n"],
+                  f"15c: Table 7 claims on {be}: {claims}")
+            log(f"phase 15: Table 7 [{be}] n={n7}, m=n: K_uni={k_uni:.6g} "
+                f"K_opt={k_opt:.6g} ({100 * (1 - k_opt / k_uni):.1f}% "
+                f"fewer rounds; JAX rel {abs(k_opt / ans7['K_opt'] - 1):.3g}"
+                f"), pD={100 * pD:.3f}% pE={100 * pE:.3f}%, max impact "
+                f"{i_uni:.1f} -> {i_opt:.1f}; claims {claims}; {s_t7:.2f} s,"
+                f" launches {l_t7} ({card})")
+        r_t2 = rel_diff(list(tab2["kernel"][0].values()),
+                        list(tab2["torch"][0].values()))
+        r_t7 = rel_diff(tab7["kernel"], tab7["torch"])
+        check(tab2["kernel"][1] == tab2["torch"][1] and r_t2 <= 1e-4,
+              f"15c: Table 2 kernel vs torch: m {tab2['kernel'][1]} vs "
+              f"{tab2['torch'][1]}, lambda rel {r_t2}")
+        log(f"phase 15: Tables 2 and 7: kernel vs torch max rel "
+            f"{r_t2:.3g} and {r_t7:.3g}")
+
+        # -- 15d. the sequential search -----------------------------------
+        cbz.set_backend("kernel")
+        rng = np.random.default_rng(42)  # reference_params(rng, 8)
+        p8 = NetworkParams(
+            p=torch.as_tensor(rng.dirichlet(np.ones(8)), device=dev),
+            mu_c=torch.as_tensor(rng.uniform(0.3, 8.0, 8), device=dev),
+            mu_d=torch.as_tensor(rng.uniform(0.3, 8.0, 8), device=dev),
+            mu_u=torch.as_tensor(rng.uniform(0.3, 8.0, 8), device=dev))
+        seq, seq_s, seq_l = timed(lambda: sequential_concurrency_search(
+            make_time_objective(p8, consts), 8, m_start=2, m_max=16,
+            steps=400, device=dev))
+        bat, bat_s, _ = timed(lambda: batched_concurrency_sweep(
+            make_time_objective_padded(p8, consts, 16), p8,
+            m_grid=np.arange(2, 17), steps=400, backend="kernel").best)
+        gap = abs(seq.value - bat.value) / bat.value
+        check(seq.m == bat.m and gap <= 1e-4 and seq_l.get("buzen", 0) > 0
+              and seq_l.get("buzen_backward", 0) > 0,
+              f"15d: sequential m={seq.m} tau={seq.value} vs batched "
+              f"m={bat.m} tau={bat.value}; launches {seq_l}")
+        log(f"phase 15: sequential search n=8, m from 2, 400 steps "
+            f"(kernel): m*={seq.m} == batched m*={bat.m}, tau rel gap "
+            f"{gap:.3g} (bound 1e-4); visited {len(seq.history)} m in "
+            f"{seq_s:.2f} s ({seq_s / len(seq.history):.2f} s an m; the "
+            f"batched sweep {bat_s:.2f} s); launches {seq_l} ({card})")
+        rng = np.random.default_rng(13)  # test_batched_optimizer.py:147
+        p4 = NetworkParams(
+            p=torch.as_tensor(rng.dirichlet(np.ones(4)), device=dev),
+            mu_c=torch.as_tensor(rng.uniform(0.3, 8.0, 4), device=dev),
+            mu_d=torch.as_tensor(rng.uniform(0.3, 8.0, 4), device=dev),
+            mu_u=torch.as_tensor(rng.uniform(0.3, 8.0, 4), device=dev))
+        pw4 = PowerProfile.from_dvfs(
+            torch.as_tensor(rng.uniform(0.1, 2.0, 4), device=dev), p4.mu_c,
+            torch.as_tensor(rng.uniform(1.0, 5.0, 4), device=dev),
+            torch.as_tensor(rng.uniform(1.0, 5.0, 4), device=dev))
+        kw4 = dict(m_max=8, steps=250)
+        jseq, jseq_s, jseq_l = timed(lambda: joint_optimal(
+            p4, consts, pw4, 0.3, 10.0, 100.0, search="sequential",
+            patience=100, **kw4))
+        jbat = joint_optimal(p4, consts, pw4, 0.3, 10.0, 100.0, **kw4)
+        check(jseq.m == jbat.m and len(jseq.history) == 8,
+              f"15d: joint sequential m={jseq.m} vs batched m={jbat.m}")
+        log(f"phase 15: joint_optimal(search='sequential', patience=100) "
+            f"n=4, rho 0.3: m*={jseq.m} == batched, tau rel gap "
+            f"{abs(jseq.value / jbat.value - 1):.3g}; {jseq_s:.2f} s, "
+            f"launches {jseq_l}")
+
+        # -- 15e. the class search, pruned, at n = 1e6 --------------------
+        cls = big_spec.class_params(device=dev)
+        cres, cls_s, cls_l = timed(lambda: time_optimal_classes(
+            cls, consts, M, search="pruned", steps=200, backend="kernel"))
+        gap = abs(cres.value - big_res.value) / big_res.value
+        check(gap <= 1e-3 and cls_l.get("buzen_classes", 0) > 0
+              and cls_l.get("buzen_classes_backward", 0) > 0,
+              f"15e: class pruned tau*={cres.value} vs phase 8's "
+              f"{big_res.value}; launches {cls_l}")
+        log(f"phase 15: time_optimal_classes(search='pruned') n=1e6: m*="
+            f"{cres.m} (phase 8's full sweep m*={big_res.m}), rel gap "
+            f"{gap:.3g} (bound 1e-3), {len(cres.history)} rows in "
+            f"{cls_s:.2f} s, launches {cls_l} ({card})")
+
+        # -- 15f. jump_chain_throughput at phase 4's optimum --------------
+        # the simulate_stats call it makes is recorded, not repeated
+        p_star = net._replace(p=res_k.p.detach())
+        calls = []
+
+        def recorded(*a, **kw):
+            calls.append((a, kw, simulate_stats(*a, **kw)))
+            return calls[-1][2]
+
+        simulate_stats = events_mod.simulate_stats
+        for mu_cs, chunk in ((None, 1), (5.0, 8)):
+            prm = p_star if mu_cs is None else p_star.with_cs(mu_cs)
+            calls.clear()
+            with mock.patch.object(events_mod, "simulate_stats", recorded):
+                (lam, counts), jc_s, jc_l = timed(
+                    lambda: jump_chain_throughput(
+                        prm, res_k.m, 30_000, seed=7, backend="kernel",
+                        chunk=chunk))
+            total = 30_000 // (4 if mu_cs is not None else 3)
+            (_, m_arg, updates), kw_arg, st = calls[0]
+            occ = st.mean_queue_counts.cpu().numpy()
+            check(len(calls) == 1 and m_arg == res_k.m
+                  and updates == total - total // 3
+                  and kw_arg["warmup"] == total // 3
+                  and lam == float(st.throughput)
+                  and np.array_equal(counts, occ[:-1]),
+                  f"15f: jump_chain_throughput (cs={mu_cs}) != its "
+                  f"simulate_stats call")
+            lam4 = float(throughput(prm, res_k.m))
+            in_flight = counts.sum() + (occ[-1] if mu_cs else 0.0)
+            check(abs(lam - lam4) <= 0.10 * lam4
+                  and abs(in_flight - res_k.m) <= 1e-9 * res_k.m,
+                  f"15f: lambda {lam} vs Prop. 4 {lam4}, tasks in flight "
+                  f"{in_flight}")
+            kern = "event_step" if chunk == 1 else "megastep"
+            check(jc_l.get(kern, 0) > 0, f"15f: launches {jc_l}")
+            log(f"phase 15: jump_chain_throughput (m*={res_k.m}, 30,000 "
+                f"events, mu_cs={mu_cs}, E={chunk}): lambda {lam:.6g} vs "
+                f"Prop. 4 {lam4:.6g} ({lam / lam4 - 1:+.3%}); bitwise its "
+                f"simulate_stats call ({updates} updates after "
+                f"{total // 3}); {jc_s:.2f} s, launches {jc_l}")
+
+        # -- 15g. examples/joint_energy_opt_torch.py in process -----------
+        spec = importlib.util.spec_from_file_location(
+            "joint_energy_opt_torch",
+            ROOT / "examples" / "joint_energy_opt_torch.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        got, ex_s, ex_l = timed(lambda: mod.main(device=dev))
+        ms = [row["m"] for row in got["frontier"]]
+        check(ms[-1] == 1 and all(a >= b for a, b in zip(ms, ms[1:])),
+              f"15g: the example's frontier m(rho) = {ms}")
+        log(f"phase 15: joint_energy_opt_torch.main() (n={got['n']}): "
+            f"m*={got['m_star']}, m(rho)={ms}, in {ex_s:.2f} s, launches "
+            f"{ex_l} ({got['device']})")
+    finally:
+        cbz.set_backend(saved)
+    launches = {k: c.launches for k, c in counted.items()}
+    check(all(v > 0 for v in launches.values()),
+          f"phase 15: a kernel of the path never launched: {launches}")
+    log(f"phase 15: launches {launches}; {time.perf_counter() - t_phase:.1f}"
+        f" s")
+
+
 def lm_phase(dev, card: str, seed: int) -> dict:
     """Phase 9 (see the module docstring); returns kernel 6's record with
     its launches on one full-depth prefill."""
@@ -3291,12 +3807,15 @@ def main() -> int:
     threefry_rec = keys_phase(dev, card, p_star, m_star, threefry_main,
                               sm_clock_mhz)
 
+    # -- 15. the searches and the paper's optimisation claims ------------
+    search_phase(dev, card, net, consts, res_k, big_spec, big_res, M)
+
     # -- 9. the dense LM's prefill: Qwen3-8B, kernel 6 ---------------------
     flash_rec = lm_phase(dev, card, seed)
 
     # -- 10. the dense LM's decode and the serve loop, kernel 7 -----------
     decode_rec = decode_phase(dev, card, seed)
-    log(f"chip_smoke: phases 1-14 passed in "
+    log(f"chip_smoke: phases 1-15 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [buzen_rec, bwd_rec, event_rec, mega_rec,

@@ -1,5 +1,5 @@
 """Gradient-based optimization of routing and concurrency (port of
-``repro.core.optimize``, per-client half).
+``repro.core.optimize``).
 
 The routing vector lives on the simplex via ``p = softmax(theta)``
 (Appendix B.2) and objectives are minimized with Adam; gradients come from
@@ -12,10 +12,21 @@ The routing vector lives on the simplex via ``p = softmax(theta)``
     the batched Buzen DP once for the whole ``[B, n]`` routing batch
     (``"torch"`` or ``"kernel"`` backend) and the summed loss decouples
     row-wise, so the step is exactly ``B`` independent Adam runs;
-  * :func:`time_optimal` and :func:`joint_optimal` (``search="batched"``),
-    :func:`round_optimal`, :func:`max_throughput`;
-  * :func:`time_optimal_classes` — the same sweep over a class-aggregated
-    population (:class:`ClassParams`), with logits on the class masses.
+  * :func:`pruned_concurrency_sweep` — coarse-to-fine over the batched
+    sweep: a strided coarse pass, then a warm-started refinement between
+    the coarse neighbours of its winner (about ``2 sqrt(B)`` rows);
+  * :func:`pareto_sweep` — the Eq. 18 time-energy frontier over the whole
+    ``rhos x m`` grid in one batched sweep;
+  * :func:`sequential_concurrency_search` — the paper's warm-started loop
+    of Section 5.3.2, one :func:`optimize_routing` per ``m`` on the static
+    objectives (their Buzen DP takes the process-wide backend,
+    :func:`repro_torch.core.buzen.set_backend`);
+  * :func:`time_optimal` and :func:`joint_optimal` (``search="batched" |
+    "pruned" | "sequential"``), :func:`round_optimal`,
+    :func:`max_throughput`;
+  * :func:`time_optimal_classes` — the same sweeps over a class-aggregated
+    population (:class:`ClassParams`), with logits on the class masses
+    (``search="batched" | "pruned"``).
 """
 from __future__ import annotations
 
@@ -183,6 +194,150 @@ def batched_concurrency_sweep(objective: Callable, params, *,
     return SweepResult(p=ps, m_grid=m_np, values=vals_np, best=best)
 
 
+def _host(x) -> np.ndarray:
+    """A tensor (any device) or array-like as a numpy array."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def pruned_concurrency_sweep(objective: Callable, params, *, m_grid,
+                             ctx=None, coarse_stride: Optional[int] = None,
+                             min_full: int = 8, **kw) -> SweepResult:
+    """Coarse-to-fine batched sweep: a strided subsample of the ``m`` grid
+    first, then only the grid points between the coarse neighbours of its
+    winner, warm-started from the winner's routing.
+
+    The stride is ``max(2, round(sqrt(B)))`` (or ``coarse_stride``), so the
+    two passes evaluate about ``2 sqrt(B)`` rows instead of ``B``.  It
+    assumes the optimized objective is unimodal in ``m`` up to the stride,
+    the regime of the wall-clock and joint objectives (Figs. 2/8).  Grids
+    of at most ``min_full`` points run the full sweep.  ``ctx`` is subset
+    with the grid, which is treated as one monotone ``m`` axis (product
+    grids such as :func:`pareto_sweep`'s want the full sweep).  ``**kw``
+    goes to :func:`batched_concurrency_sweep` (``steps``, ``lr``,
+    ``m_max``, ``backend``); ``m_max`` is pinned for both passes from the
+    objective's, else the grid's last value.  ``p`` stays on the
+    network's device.
+    """
+    m_np = np.asarray(_host(m_grid), dtype=np.int64)
+    if m_np.ndim != 1 or m_np.size == 0:
+        raise ValueError(f"m_grid must be a non-empty 1-D grid, got shape "
+                         f"{m_np.shape}")
+    if not (np.diff(m_np) > 0).all():
+        raise ValueError("pruned search needs a strictly increasing m_grid")
+    B = int(m_np.size)
+    # the refine window's largest m is below the grid's: pin the padding
+    # for both passes, or an objective built for the grid trips the
+    # sweep's padding guard
+    if kw.get("m_max") is None:
+        kw["m_max"] = getattr(objective, "m_max", None) or int(m_np[-1])
+    if B <= max(int(min_full), 1):
+        return batched_concurrency_sweep(objective, params, m_grid=m_np,
+                                         ctx=ctx, **kw)
+
+    ctx_np = None if ctx is None else _host(ctx)
+    stride = (max(2, int(round(np.sqrt(B)))) if coarse_stride is None
+              else max(2, int(coarse_stride)))
+    coarse = np.unique(np.append(np.arange(0, B, stride), B - 1))
+
+    def sub(idx):
+        return m_np[idx], None if ctx_np is None else ctx_np[idx]
+
+    mg, cx = sub(coarse)
+    first = batched_concurrency_sweep(objective, params, m_grid=mg, ctx=cx,
+                                      **kw)
+    k = int(np.argmin(first.values))
+    lo = int(coarse[max(k - 1, 0)])
+    hi = int(coarse[min(k + 1, len(coarse) - 1)])
+    refine = np.setdiff1d(np.arange(lo, hi + 1), coarse)
+
+    ms, vals, ps = [first.m_grid], [first.values], [first.p]
+    if refine.size:
+        mg2, cx2 = sub(refine)
+        second = batched_concurrency_sweep(
+            objective, params, m_grid=mg2, ctx=cx2,
+            **{**kw, "p_init": first.p[k]})  # warm start from the winner
+        ms.append(second.m_grid)
+        vals.append(second.values)
+        ps.append(second.p)
+
+    m_all = np.concatenate(ms)
+    order = np.argsort(m_all)
+    m_all = m_all[order]
+    v_all = np.concatenate(vals)[order]
+    p_all = torch.cat(ps, dim=0)[torch.as_tensor(order,
+                                                 device=first.p.device)]
+    b = int(np.argmin(v_all))
+    best = OptResult(p=p_all[b], m=int(m_all[b]), value=float(v_all[b]),
+                     history=[(int(m), float(v))
+                              for m, v in zip(m_all, v_all)])
+    return SweepResult(p=p_all, m_grid=m_all, values=v_all, best=best)
+
+
+def pareto_sweep(params: NetworkParams, consts, power, rhos, tau_star,
+                 e_star, *, m_max: int, **kw
+                 ) -> tuple[SweepResult, list[OptResult]]:
+    """The Eq. 18 time-energy frontier in one batched sweep.
+
+    Optimizes the joint objective over the ``rhos x (1..m_max)`` product
+    grid (``rho`` as the row context) and argmins per rho.  Returns the
+    raw :class:`SweepResult` (rows rho-major, ``np.tile(m_cands,
+    len(rhos))``) and one :class:`OptResult` per rho whose ``history`` is
+    that rho's ``(m, value)`` slice.
+    """
+    from .batched import make_joint_objective_padded
+
+    m_cands = np.arange(1, m_max + 1)
+    mm = np.tile(m_cands, len(rhos))
+    rr = np.repeat(np.asarray(rhos, dtype=np.float64), len(m_cands))
+    sweep = batched_concurrency_sweep(
+        make_joint_objective_padded(params, consts, power, tau_star, e_star,
+                                    m_max), params,
+        m_grid=mm, ctx=rr, m_max=m_max, **kw)
+    vals = sweep.values.reshape(len(rhos), len(m_cands))
+    per_rho = []
+    for r_i in range(len(rhos)):
+        b = r_i * len(m_cands) + int(np.argmin(vals[r_i]))
+        per_rho.append(OptResult(
+            p=sweep.p[b], m=int(sweep.m_grid[b]),
+            value=float(sweep.values[b]),
+            history=[(int(m), float(v)) for m, v in zip(m_cands, vals[r_i])]))
+    return sweep, per_rho
+
+
+def sequential_concurrency_search(objective: Callable, n: int, *,
+                                  m_start: int = 1, m_max: int = 256,
+                                  steps: int = 400, lr: float = 0.05,
+                                  patience: int = 2,
+                                  p_init: Optional[torch.Tensor] = None,
+                                  device=None) -> OptResult:
+    """Sequential ``(m, p)`` optimization with warm starts (Section 5.3.2):
+    one :func:`optimize_routing` per ``m = max(m_start, 1) ..  m_max``,
+    each started from the previous ``m``'s routing, stopping after
+    ``patience`` results in a row that do not improve on the best.  The
+    best result's ``history`` is the ``(m, value)`` trace.  It runs on
+    ``device``, else ``p_init``'s device, else the card."""
+    if device is None:
+        device = "cuda" if p_init is None else p_init.device
+    best: Optional[OptResult] = None
+    stale = 0
+    p_warm = p_init
+    trace = []
+    for m in range(max(m_start, 1), m_max + 1):
+        res = optimize_routing(objective, n, m, steps=steps, lr=lr,
+                               p_init=p_warm, device=device)
+        trace.append((m, res.value))
+        p_warm = res.p
+        if best is None or res.value < best.value:
+            best = res
+            stale = 0
+        else:
+            stale += 1
+            if stale >= patience:
+                break
+    best.history = trace
+    return best
+
+
 # ---------------------------------------------------------------------------
 # canned objectives / strategies of Section 5.3 (static-m protocol)
 # ---------------------------------------------------------------------------
@@ -232,35 +387,50 @@ def make_joint_objective(params: NetworkParams, consts: LearningConstants,
 def time_optimal(params: NetworkParams, consts: LearningConstants,
                  m_max: Optional[int] = None, *, search: str = "batched",
                  **kw) -> OptResult:
-    """``(p*_tau, m*_tau)``: jointly time-optimal routing and concurrency,
-    by one batched sweep over ``m = 2..m_max`` (``search="batched"``; the
-    pruned and sequential searches are not ported yet)."""
-    from .batched import make_time_objective_padded
+    """``(p*_tau, m*_tau)``: jointly time-optimal routing and concurrency
+    over ``m = 2..m_max``.
 
-    if search != "batched":
-        raise ValueError(f"unknown search mode: {search!r}; the port "
-                         "implements 'batched'")
+    ``search``: ``"batched"`` (one sweep over the whole grid, the
+    default), ``"pruned"`` (the coarse-to-fine sweep) or ``"sequential"``
+    (the paper's warm-started loop on the static objective, on
+    ``params``' device unless ``device=`` says otherwise).
+    """
     m_max = m_max or params.n + 32
-    res = batched_concurrency_sweep(
-        make_time_objective_padded(params, consts, m_max), params,
-        m_grid=np.arange(2, m_max + 1), m_max=m_max, **kw)
-    return res.best
+    if search in ("batched", "pruned"):
+        from .batched import make_time_objective_padded
+
+        kw.pop("patience", None)  # full grid: no early stop to tune
+        engine = (batched_concurrency_sweep if search == "batched"
+                  else pruned_concurrency_sweep)
+        res = engine(
+            make_time_objective_padded(params, consts, m_max), params,
+            m_grid=np.arange(2, m_max + 1), m_max=m_max, **kw)
+        return res.best
+    if search != "sequential":
+        raise ValueError(f"unknown search mode: {search!r}; expected "
+                         "'batched', 'pruned' or 'sequential'")
+    kw.setdefault("device", params.device)
+    return sequential_concurrency_search(
+        make_time_objective(params, consts), params.n, m_start=2,
+        m_max=m_max, **kw)
 
 
 def time_optimal_classes(classes: ClassParams, consts: LearningConstants,
                          m_max: int, *, search: str = "batched",
                          **kw) -> OptResult:
     """Class-space :func:`time_optimal`: O(C) per Adam step instead of
-    O(n), one batched sweep over ``m = 2..m_max``.  ``m_max`` is explicit
-    (a concurrency budget; ``n + 32`` would be absurd at ``n = 10^6``).
-    Returns per-member routing ``p`` (length ``C``) with ``sum_c count_c
-    p_c = 1``.  ``search="pruned"`` is not ported yet."""
+    O(n), over ``m = 2..m_max`` (``search="batched"`` or ``"pruned"``).
+    ``m_max`` is explicit (a concurrency budget; ``n + 32`` would be absurd
+    at ``n = 10^6``).  Returns per-member routing ``p`` (length ``C``)
+    with ``sum_c count_c p_c = 1``."""
     from .batched import make_time_objective_classes
 
-    if search != "batched":
-        raise ValueError(f"unknown search mode: {search!r}; the port "
-                         "implements 'batched'")
-    res = batched_concurrency_sweep(
+    if search not in ("batched", "pruned"):
+        raise ValueError(f"unknown search mode: {search!r}; expected "
+                         "'batched' or 'pruned'")
+    engine = (batched_concurrency_sweep if search == "batched"
+              else pruned_concurrency_sweep)
+    res = engine(
         make_time_objective_classes(classes, consts, m_max), classes,
         m_grid=np.arange(2, m_max + 1), m_max=m_max, **kw)
     return res.best
@@ -282,18 +452,27 @@ def joint_optimal(params: NetworkParams, consts: LearningConstants,
                   e_star: float, m_max: Optional[int] = None, *,
                   search: str = "batched", **kw) -> OptResult:
     """``(p*_rho, m*_rho)``: the Eq. 18 scalarization at Pareto weight
-    ``rho``, by one batched sweep over ``m = 1..m_max`` with ``rho`` as
-    every row's context (``search="batched"``; the pruned and sequential
-    searches are not ported yet)."""
-    from .batched import make_joint_objective_padded
-
-    if search != "batched":
-        raise ValueError(f"unknown search mode: {search!r}; the port "
-                         "implements 'batched'")
+    ``rho`` over ``m = 1..m_max``; ``search`` as in :func:`time_optimal`
+    (the batched and pruned sweeps carry ``rho`` as every row's
+    context)."""
     m_max = m_max or params.n + 32
-    m_grid = np.arange(1, m_max + 1)
-    res = batched_concurrency_sweep(
-        make_joint_objective_padded(params, consts, power, tau_star, e_star,
-                                    m_max), params,
-        m_grid=m_grid, ctx=np.full(m_grid.shape, rho), m_max=m_max, **kw)
-    return res.best
+    if search in ("batched", "pruned"):
+        from .batched import make_joint_objective_padded
+
+        kw.pop("patience", None)
+        engine = (batched_concurrency_sweep if search == "batched"
+                  else pruned_concurrency_sweep)
+        m_grid = np.arange(1, m_max + 1)
+        res = engine(
+            make_joint_objective_padded(params, consts, power, tau_star,
+                                        e_star, m_max), params,
+            m_grid=m_grid, ctx=np.full(m_grid.shape, rho), m_max=m_max,
+            **kw)
+        return res.best
+    if search != "sequential":
+        raise ValueError(f"unknown search mode: {search!r}; expected "
+                         "'batched', 'pruned' or 'sequential'")
+    kw.setdefault("device", params.device)
+    return sequential_concurrency_search(
+        make_joint_objective(params, consts, power, rho, tau_star, e_star),
+        params.n, m_start=1, m_max=m_max, **kw)

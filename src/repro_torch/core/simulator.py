@@ -1,6 +1,7 @@
 """Host discrete-event simulator of the Generalized AsyncSGD network (port of
 ``repro.core.simulator``: :class:`AsyncNetworkSim`, the exact
-per-task-identity reference).
+per-task-identity reference, and :func:`jump_chain_throughput`, a thin
+entry point to the device event engine).
 
 A heap-based host simulation in numpy, with per-task identity, every
 registered timing law (through the laws' ``host_sample``), the optional
@@ -261,3 +262,31 @@ class AsyncNetworkSim:
             energy=self.energy,
             mean_queue_counts=self._occ_int / max(horizon, 1e-12),
         )
+
+
+# ---------------------------------------------------------------------------
+# the device event engine's sampler entry point
+# ---------------------------------------------------------------------------
+
+def jump_chain_throughput(params: NetworkParams, m: int, steps: int,
+                          seed: int = 0, *, backend: Optional[str] = None,
+                          chunk: int = 1) -> tuple[float, np.ndarray]:
+    """Monte-Carlo estimate of ``lambda`` and the mean station counts on
+    the device event engine (:func:`repro_torch.core.events.simulate_stats`
+    on ``params``' device, ``backend`` and ``chunk`` as there).
+
+    ``steps`` is an event budget: ``steps // 3`` updates (``// 4`` with a
+    CS station), the first third of them warm-up.  The same ``seed`` gives
+    the JAX package's run.  Returns ``(lambda, mean_counts)`` with
+    ``mean_counts`` of shape ``[3n]`` (downlink / computation / uplink per
+    client), summing to ``m`` less the CS station's mean occupancy.
+    """
+    from .events import simulate_stats
+
+    mult = 4 if params.mu_cs is not None else 3
+    total_updates = max(steps // mult, 1)
+    warmup = total_updates // 3
+    stats = simulate_stats(params, m, total_updates - warmup, warmup=warmup,
+                           seed=seed, backend=backend, chunk=chunk)
+    return (float(stats.throughput),
+            stats.mean_queue_counts[:-1].cpu().numpy())

@@ -67,7 +67,9 @@ def make_strategies(
 ) -> dict[str, tuple[np.ndarray, int]]:
     """``{name: (p, m)}`` for the requested strategies, each resolved on
     ``params``'s device through the strategy registry with one shared
-    cache, so ``joint`` reuses ``time_opt``'s tau*."""
+    cache, so ``joint`` reuses ``time_opt``'s tau*.  ``search`` is their
+    concurrency search (``"batched"``, ``"pruned"`` or
+    ``"sequential"``)."""
     from ..scenario.registry import STRATEGIES
     from ..scenario.suite import ResolveContext, default_m_max
 

@@ -486,9 +486,10 @@ class EnergySpec:
 class StrategySpec:
     """Routing/concurrency strategy: a registered name (resolved by the
     strategy registry, ``repro_torch.scenario.suite``) or ``"explicit"``
-    with ``(p, m)``.  ``search`` accepts the JAX package's three modes so
-    its dicts load; resolution runs ``"batched"`` only and raises for the
-    others."""
+    with ``(p, m)``.  ``search`` is the concurrency search of the
+    ``time_opt`` and ``joint`` resolvers: ``"batched"``, ``"pruned"`` or
+    ``"sequential"`` (class networks: the first two), as in the JAX
+    package."""
 
     name: str = "asyncsgd"
     p: Optional[np.ndarray] = None    # explicit routing (name="explicit")

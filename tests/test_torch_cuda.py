@@ -1566,3 +1566,122 @@ def test_event_stream_draws_one_launch_a_block(cuda, law):
                                        msg=name)
         else:
             assert torch.equal(g, w), name
+
+
+# ---------------------------------------------------------------------------
+# the pruned, Pareto and sequential searches and jump_chain_throughput
+# ---------------------------------------------------------------------------
+
+def _table1_on(dev, scale):
+    spec = NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1, scale)
+    return spec, spec.params(device=dev), LearningSpec().consts
+
+
+def test_pruned_sweep_kernel_matches_torch_on_the_card(cuda):
+    """The pruned search on ``kernel`` against ``torch`` on the card (Table
+    1 at scale 5, m = 2..40, 100 steps): the same rows and optimum, values
+    within ``rtol 1e-4``, and two sweeps' Buzen launches (each Adam step's
+    forward and backward and the final forward)."""
+    from repro_torch.core.batched import make_time_objective_padded
+    from repro_torch.core.optimize import pruned_concurrency_sweep
+
+    _, net, consts = _table1_on(cuda, 5)
+    M, steps = 40, 100
+    obj = make_time_objective_padded(net, consts, M)
+    kb.buzen_batched.launches = kb.buzen_log_Z_backward.launches = 0
+    got = pruned_concurrency_sweep(obj, net, m_grid=np.arange(2, M + 1),
+                                   steps=steps, backend="kernel")
+    assert kb.buzen_batched.launches == 2 * (steps + 1)
+    assert kb.buzen_log_Z_backward.launches == 2 * steps
+    want = pruned_concurrency_sweep(obj, net, m_grid=np.arange(2, M + 1),
+                                    steps=steps, backend="torch")
+    assert kb.buzen_batched.launches == 2 * (steps + 1)  # torch: none
+    np.testing.assert_array_equal(got.m_grid, want.m_grid)
+    assert len(got.m_grid) < M - 1 and got.best.m == want.best.m
+    np.testing.assert_allclose(got.values, want.values, rtol=1e-4)
+    assert got.p.device.type == "cuda"
+
+
+def test_pareto_sweep_kernel_matches_torch_on_the_card(cuda):
+    """``pareto_sweep`` (Table 1 at scale 10 with its power profile, 3
+    rhos, m = 1..16): each rho's m equal on both routes, values within
+    ``rtol 1e-4``, one sweep's launches on ``kernel``."""
+    from repro_torch.core.energy import minimal_energy
+    from repro_torch.core.optimize import pareto_sweep
+    from repro_torch.scenario.spec import EnergySpec
+
+    spec, net, consts = _table1_on(cuda, 10)
+    power = EnergySpec.from_clusters(PAPER_CLUSTERS_TABLE1, 10).profile(
+        spec, device=cuda)
+    e_star = float(minimal_energy(net, consts, power))
+    kw = dict(m_max=16, steps=100)
+    kb.buzen_batched.launches = kb.buzen_log_Z_backward.launches = 0
+    gk, pk = pareto_sweep(net, consts, power, (0.0, 0.3, 1.0), 30.0, e_star,
+                          backend="kernel", **kw)
+    assert kb.buzen_batched.launches == kw["steps"] + 1
+    assert kb.buzen_log_Z_backward.launches == kw["steps"]
+    gt, pt = pareto_sweep(net, consts, power, (0.0, 0.3, 1.0), 30.0, e_star,
+                          backend="torch", **kw)
+    np.testing.assert_allclose(gk.values, gt.values, rtol=1e-4)
+    assert [r.m for r in pk] == [r.m for r in pt]
+    assert pk[-1].m == 1
+
+
+def test_sequential_search_kernel_matches_torch_on_the_card(cuda):
+    """The sequential search on the static objectives with the Buzen
+    backend ``kernel`` process-wide (kernel 1 and its backward 1b reached
+    through ``log_normalizing_constants``) against ``torch``, n = 4."""
+    from repro_torch.core import buzen as cbz
+    from repro_torch.core.optimize import time_optimal
+
+    rng = np.random.default_rng(42)
+    net = NetworkParams(
+        p=torch.as_tensor(rng.dirichlet(np.ones(4)), device=cuda),
+        **{k: torch.as_tensor(rng.uniform(0.3, 8.0, 4), device=cuda)
+           for k in ("mu_c", "mu_d", "mu_u")})
+    consts = LearningSpec().consts
+    saved = cbz.get_backend()
+    out = {}
+    try:
+        for be in ("kernel", "torch"):
+            cbz.set_backend(be)
+            kb.buzen_batched.launches = kb.buzen_log_Z_backward.launches = 0
+            out[be] = time_optimal(net, consts, m_max=10, steps=150,
+                                   search="sequential")
+            out[be + "_launches"] = (kb.buzen_batched.launches,
+                                     kb.buzen_log_Z_backward.launches)
+    finally:
+        cbz.set_backend(saved)
+    got, want = out["kernel"], out["torch"]
+    assert min(out["kernel_launches"]) > 0
+    assert out["torch_launches"] == (0, 0)
+    assert got.m == want.m
+    assert [m for m, _ in got.history] == [m for m, _ in want.history]
+    np.testing.assert_allclose([v for _, v in got.history],
+                               [v for _, v in want.history], rtol=1e-4)
+    assert got.p.device.type == "cuda"
+
+
+@pytest.mark.parametrize("mu_cs,chunk", [(None, 1), (2.5, 8)])
+def test_jump_chain_throughput_on_the_card(cuda, mu_cs, chunk):
+    """``jump_chain_throughput`` on the ``kernel`` route is bitwise the
+    ``simulate_stats`` call it wraps, and launches the lane kernel."""
+    from repro_torch.core.events import simulate_stats
+    from repro_torch.core.simulator import jump_chain_throughput
+
+    _, net, _ = _table1_on(cuda, 10)
+    if mu_cs is not None:
+        net = net.with_cs(mu_cs)
+    m, steps = 9, 6000
+    counter = ke.event_step_lanes if chunk == 1 else ke.megastep_lanes
+    counter.launches = 0
+    lam, counts = jump_chain_throughput(net, m, steps, seed=4,
+                                        backend="kernel", chunk=chunk)
+    assert counter.launches > 0
+    total = steps // (4 if mu_cs is not None else 3)
+    st = simulate_stats(net, m, total - total // 3, warmup=total // 3,
+                        seed=4, backend="kernel", chunk=chunk)
+    assert lam == float(st.throughput)
+    np.testing.assert_array_equal(counts,
+                                  st.mean_queue_counts[:-1].cpu().numpy())
+    assert counts.shape == (3 * net.n,)

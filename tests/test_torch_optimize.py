@@ -105,6 +105,15 @@ def test_sweep_guards():
         topt.batched_concurrency_sweep(
             tbat.make_time_objective_padded(tp, tc, 5), tp,
             m_grid=np.arange(1, 5), m_max=6, steps=1)
-    with pytest.raises(ValueError):
-        topt.time_optimal(tp, tc, m_max=5, search="pruned")
+    # search="pruned" on a grid of at most min_full points is the full
+    # sweep, as in the JAX package (m = 2..5: 4 rows)
+    pruned = topt.time_optimal(tp, tc, m_max=5, search="pruned", steps=1)
+    full = topt.time_optimal(tp, tc, m_max=5, steps=1)
+    assert pruned.m == full.m and pruned.value == full.value
+    assert torch.equal(pruned.p, full.p)
+    jp, _ = _net(13, 3)
+    want = jopt.time_optimal(jp, jcx.LearningConstants(**CONSTS), m_max=5,
+                             search="pruned", steps=1)
+    assert pruned.m == want.m
+    assert pruned.value == pytest.approx(want.value, rel=1e-6)
     assert torch.get_default_dtype() == torch.float32  # never changed

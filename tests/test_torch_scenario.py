@@ -421,14 +421,22 @@ def test_joint_reuses_time_opt_tau_star(table1, monkeypatch):
 
 
 def test_unported_searches_raise(table1):
-    scn = T.Scenario(network=table1["tnet"], energy=table1["ten"],
-                     strategy=T.StrategySpec("time_opt", steps=2,
-                                             search="pruned"))
-    with pytest.raises(ValueError, match="the port implements 'batched'"):
-        TS.resolve_strategy(scn, device="cpu")
-    scn = scn.with_strategy("joint", search="sequential")
-    with pytest.raises(ValueError, match="the port implements 'batched'"):
-        TS.resolve_strategy(scn, device="cpu")
+    """The searches the port once refused now resolve: ``time_opt`` with
+    ``search="pruned"`` (m = 2..17, the default bound) and ``joint`` with
+    ``search="sequential"`` (m up to 2: JAX compiles once per m) on Table
+    1 at scale 10, two Adam steps, equal the JAX package's resolution."""
+    for name, search, m_max in (("time_opt", "pruned", None),
+                                ("joint", "sequential", 2)):
+        spec = dict(steps=2, search=search, m_max=m_max)
+        jscn = J.Scenario(network=table1["jnet"], energy=table1["jen"],
+                          strategy=J.StrategySpec(name, **spec))
+        tscn = T.Scenario(network=table1["tnet"], energy=table1["ten"],
+                          strategy=T.StrategySpec(name, **spec))
+        assert tscn.to_json() == jscn.to_json()
+        pw, mw = JS.resolve_strategy(jscn)
+        p, m = TS.resolve_strategy(tscn, device="cpu")
+        assert m == mw
+        np.testing.assert_allclose(p, np.asarray(pw), atol=1e-6)
 
 
 @pytest.mark.parametrize("name", ["asyncsgd", "time_opt"])
