@@ -295,6 +295,22 @@ every seed is a ``jax.random`` key, :mod:`repro_torch.core.prng`):
      ``simulate_stats`` call it wraps, lambda within 10% of Prop. 4, the
      tasks in flight summing to m; (g) ``examples/joint_energy_opt_torch.
      main()`` in process: m falls as rho rises and m(rho=1) = 1.
+ 16. the telemetry rings (``repro_torch.obs``) at phase 4's (p*, m* = 33)
+     on Table 1, 6 lanes, E = 1 and 8, the launch counters zeroed just
+     before and read just after: (a) ``simulate_stats_lanes`` on ``kernel``
+     with an event ring of ``OBS_RING`` records a lane, written by the lane
+     kernel in its own launches (exactly ceil(events / E) of them), bitwise
+     the statistics of the run without it, ``count`` the events run, and
+     ``drift_report`` against ``predict(p*, m*)`` holding on every lane
+     (exponential service: throughput, staleness profile, conservation);
+     (b) the same at a shorter depth on ``kernel`` and ``batched``: rings
+     and statistics bitwise; (c) a traced ``ScenarioSuite`` ``simulate`` (2
+     seeds) and ``train`` (2 CNN lanes, a short horizon) bitwise their
+     untraced runs, with their rings' counts; (d) ``python -m
+     repro_torch.obs smoke`` then ``check`` in processes of their own, both
+     exiting 0; (e) the lane kernel's device ms per lock-step event with
+     the ring on and off (E = 1 and 8), beside the wall ms per lock-step
+     event of (a)'s runs.
 
 Phase 3 also holds the fused-update kernel against its plain version
 (bitwise on the new parameters, ``rtol 1e-5`` on the squared norm) at
@@ -444,6 +460,14 @@ PEAK_INT32_OPS = 67e12 / 4
 # integer operations of one threefry2x32: 20 rounds of add, rotate and
 # xor, 5 key injections of three adds, the key schedule's two xors
 THREEFRY_OPS = 20 * 3 + 5 * 3 + 2
+
+# phase 16's depth: the drift monitors' staleness check compares 100
+# clients' delay profiles, a noisy statistic (at p*, 6,000 updates a lane
+# read 0.215 against the 0.25 band on an H100; it falls as one over the
+# root of the updates); the ring holds every event of such a run
+OBS_UPDATES = 12_000
+OBS_RING = 65_536
+OBS_SHORT = 150
 
 # the five tables, the event times and the descriptors a transition returns
 TABLE_OUT = ("finish", "phase", "client", "seq", "disp_round", "t", "desc")
@@ -2496,6 +2520,231 @@ def search_phase(dev, card: str, net, consts, res_k, big_spec, big_res,
         f" s")
 
 
+def obs_phase(dev, card: str, p_star, m_star: int, lam_star: float) -> None:
+    """Phase 16 (see the module docstring): the event ring written by the
+    lane kernel, the drift monitors, the suite's traced paths and the
+    CLI."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.events import (EventState, EventStream, event_key,
+                                         init_state, stack_lanes)
+    from repro_torch.core import prng
+    from repro_torch.fl import cnn_classifier
+    from repro_torch.kernels import events as ke
+    from repro_torch.obs.drift import drift_report, predict
+    from repro_torch.obs.rings import decode_lane, event_ring_init
+    from repro_torch.scenario import (DataSpec, NetworkSpec, Scenario,
+                                      ScenarioSuite, SimSpec, StrategySpec,
+                                      TraceSpec)
+    from repro_torch.scenario.spec import PAPER_CLUSTERS_TABLE1
+    from repro_torch.sim import simulate_stats_lanes
+
+    t_phase = time.perf_counter()
+    counted = (ke.event_step_lanes, ke.megastep_lanes, ke.event_step_tables,
+               ke.megastep_tables)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    lanes = dict(seeds=range(6), backend="kernel")
+    preds = predict(p_star, m_star)
+    U, W = OBS_UPDATES, 400
+    events = 3 * (U + W) + 3 * m_star + 8
+    wall = {}
+    for c in counted:
+        c.launches = 0
+    # -- 16a. kernel lanes with and without the ring, the drift monitors --
+    for chunk in (1, 8):
+        runs = {}
+        for tr in (0, OBS_RING):
+            before = [c.launches for c in counted]
+            t0 = time.perf_counter()
+            runs[tr] = simulate_stats_lanes([p_star] * 6, [m_star] * 6, U,
+                                            warmup=W, chunk=chunk,
+                                            trace_events=tr, **lanes)
+            torch.cuda.synchronize()
+            wall[(chunk, tr)] = 1e3 * (time.perf_counter() - t0) / events
+            got = [c.launches - b for c, b in zip(counted, before)]
+            want = -(-events // chunk)
+            check(got == ([want, 0, 0, 0] if chunk == 1 else [0, want, 0, 0]),
+                  f"16a: E={chunk}, ring {tr}: launches (event lanes, "
+                  f"megastep lanes, event, megastep) {got}, want {want} "
+                  f"lane launches")
+        stats, ring = runs[OBS_RING]
+        check(same(stats, runs[0]),
+              f"16a: E={chunk}: the statistics with the ring on differ")
+        check(ring.count.tolist() == [events] * 6,
+              f"16a: E={chunk}: ring counts {ring.count.tolist()}, want "
+              f"{events}")
+        reports = [drift_report(decode_lane(ring, i), predictions=preds)
+                   for i in range(6)]
+        worst = {c["metric"]: max(r["checks"][k]["rel_err"]
+                                  for r in reports)
+                 for k, c in enumerate(reports[0]["checks"])}
+        check(all(r["ok"] for r in reports),
+              f"16a: E={chunk}: drift {[r['checks'] for r in reports]}")
+        log(f"phase 16: 6 lanes x {U} updates after {W} at (p*, m*="
+            f"{m_star}) on kernel, E = {chunk}, an event ring of {OBS_RING}: "
+            f"statistics bitwise the untraced run's, {want} lane launches, "
+            f"count {events} a lane; drift_report ok on every lane (worst "
+            f"rel_err {({k: round(v, 4) for k, v in worst.items()})}); wall "
+            f"ms per lock-step event {wall[(chunk, OBS_RING)]:.4f} with the "
+            f"ring, {wall[(chunk, 0)]:.4f} without")
+    counts = [c.launches for c in counted]
+    check(counts[0] > 0 and counts[1] > 0 and counts[2] == counts[3] == 0,
+          f"16a: launches (event lanes, megastep lanes, event, megastep) "
+          f"{counts}")
+
+    # -- 16b. the kernel's rings == batched's, bitwise ---------------------
+    for chunk in (1, 8):
+        kw = dict(warmup=50, seeds=range(6), chunk=chunk,
+                  trace_events=OBS_RING)
+        t0 = time.perf_counter()
+        k_stats, k_ring = simulate_stats_lanes([p_star] * 6, [m_star] * 6,
+                                               OBS_SHORT, backend="kernel",
+                                               **kw)
+        b_stats, b_ring = simulate_stats_lanes([p_star] * 6, [m_star] * 6,
+                                               OBS_SHORT, backend="batched",
+                                               **kw)
+        torch.cuda.synchronize()
+        check(same(k_stats, b_stats) and same(k_ring, b_ring),
+              f"16b: E={chunk}: kernel != batched with the ring on")
+        log(f"phase 16: {OBS_SHORT} updates after 50, E = {chunk}: kernel "
+            f"== batched on every ring column and statistic "
+            f"({time.perf_counter() - t0:.2f} s)")
+
+    # -- 16c. the suite's traced simulate and train ------------------------
+    data = DataSpec(dataset="emnist", partition="dirichlet", alpha=0.2,
+                    num_classes=47, samples_per_class=200,
+                    test_fraction=0.2)
+
+    def scenario(trace):
+        return Scenario(
+            network=NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1),
+            strategy=StrategySpec("explicit", p=p_star.p.tolist(),
+                                  m=m_star),
+            data=data, sim=SimSpec(backend="kernel", chunk=8, trace=trace))
+
+    res = {}
+    t0 = time.perf_counter()
+    for tr in (None, TraceSpec(events=OBS_RING)):
+        res[tr is not None] = ScenarioSuite(
+            {"t": scenario(tr)}, seeds=(0, 1), device=dev).run(
+                mode="simulate", num_updates=1000, warmup=200)
+    sim_s = time.perf_counter() - t0
+    traced, plain = res[True], res[False]
+    check(all(same(a, b) for a, b in zip(traced.entries["t"],
+                                         plain.entries["t"]))
+          and plain.traces is None,
+          "16c: the traced suite's simulate != the untraced one")
+    sim_events = 3 * 1200 + 3 * m_star + 8
+    check([d["count"] for d in traced.traces["t"]] == [sim_events] * 2
+          and len(traced.drift["t"]) == 2,
+          f"16c: suite rings {[d['count'] for d in traced.traces['t']]}")
+    sim_drift = [r["ok"] for r in traced.drift["t"]]
+    horizon = 20.0 / lam_star
+    model = cnn_classifier(28, 47, device=dev)
+    t0 = time.perf_counter()
+    for tr in (None, TraceSpec(updates=64)):
+        res[tr is not None] = ScenarioSuite(
+            {"t": scenario(tr)}, seeds=(0, 1), device=dev).run(
+                mode="train", model=model, horizon_time=horizon,
+                max_updates=TRAIN_CAP, batch_size=32,
+                eval_every_time=horizon / 4)
+    train_s = time.perf_counter() - t0
+    traced, plain = res[True], res[False]
+    for a, b in zip(traced.entries["t"], plain.entries["t"]):
+        check((a.times, a.losses, a.accuracies, a.updates, a.throughput,
+               a.energy) == (b.times, b.losses, b.accuracies, b.updates,
+                             b.throughput, b.energy)
+              and np.array_equal(a.mean_delay, b.mean_delay),
+              "16c: the traced suite's train != the untraced one")
+    rings = traced.traces["t"]
+    check([d["count"] for d in rings]
+          == [lg.updates[-1] for lg in traced.entries["t"]]
+          and all(np.isfinite(d["grad_norm"]).all() and
+                  (d["snapshot_age"] >= 0).all() for d in rings),
+          f"16c: update rings {[d['count'] for d in rings]}")
+    log(f"phase 16: ScenarioSuite with TraceSpec: simulate (2 seeds, 1000 "
+        f"updates after 200, kernel, E = 8; rings of {sim_events} events, "
+        f"drift ok {sim_drift}, logged) and train (2 CNN lanes, horizon "
+        f"{horizon:.6g} = 20 / lambda*) bitwise their untraced runs "
+        f"({sim_s:.2f} and {train_s:.2f} s for both runs each); update "
+        f"rings of {[d['count'] for d in rings]} updates, grad norms "
+        f"{[round(float(np.median(d['grad_norm'])), 4) for d in rings]} "
+        f"(medians)")
+
+    # -- 16d. the CLI in processes of its own -------------------------------
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [x for x in [os.environ.get("PYTHONPATH")]
+                               if x]))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "TRACE_smoke.json")
+        outs = [subprocess.run([sys.executable, "-m", "repro_torch.obs",
+                                *verb], capture_output=True, text=True,
+                               timeout=300, env=env)
+                for verb in (("smoke", "--out", path),
+                             ("check", path))]
+        with open(path) as fh:
+            meta = json.load(fh)["metadata"]
+    cli_s = time.perf_counter() - t0
+    for out, verb in zip(outs, ("smoke", "check")):
+        check(out.returncode == 0,
+              f"python -m repro_torch.obs {verb} exited {out.returncode}: "
+              f"{out.stdout[-1500:]} {out.stderr[-1500:]}")
+        for line in out.stdout.strip().splitlines()[:6]:
+            log(f"phase 16: obs {verb} | {line}")
+    log(f"phase 16: python -m repro_torch.obs smoke and check exited 0 "
+        f"({cli_s:.1f} s for both processes; ring count "
+        f"{meta['ring']['count']})")
+
+    # -- 16e. device ms per lock-step event, ring on and off ---------------
+    lane_params = stack_lanes([p_star] * 6)
+    keys = prng.seed_keys(range(910, 916), device=dev)
+    st = stack_lanes([init_state(p_star, m_star, k, m_max=m_star)
+                      for k in keys])
+    per_event = {}
+    for chunk, reps in ((1, 200), (8, 50)):
+        fs, cn, _ = EventStream([p_star] * 6, event_key(keys)).window(chunk)
+        for tr in (0, OBS_RING):
+            own = EventState(*[x.clone() for x in st])
+            ring = (event_ring_init(tr, lanes=6, device=dev) if tr
+                    else None)
+            if chunk == 1:
+                def fn(s=own, f=fs[:, 0], c=cn[:, 0], r=ring):
+                    ke.event_step_lanes(lane_params, s, f, c, donate=True,
+                                        ring=r)
+            else:
+                def fn(s=own, f=fs, c=cn, r=ring):
+                    ke.megastep_lanes(lane_params, s, f, c, 8, donate=True,
+                                      ring=r)
+
+            def run(fn=fn, reps=reps):
+                for _ in range(reps):
+                    fn()
+
+            run()
+            torch.cuda.synchronize()
+            best = (0.0, 0)
+            for _ in range(2):  # the larger of two traces (records may drop)
+                for name, (ms, k) in profiled(run)[2].items():
+                    if "lanes_kernel" in name:
+                        best = max(best, (ms, k))
+            wall_ms = time_ms(fn, reps)
+            per_event[(chunk, tr)] = (best[0] / best[1] / chunk if best[1]
+                                      else float("nan"), wall_ms / chunk)
+    log(f"phase 16: lane kernel ms per lock-step event, device [between "
+        f"CUDA events], 6 lanes x m*={m_star}, n=100 ({card}): "
+        + ", ".join(f"E={e} {'ring' if tr else 'no ring'} {d:.6f} "
+                    f"[{w:.6f}]" for (e, tr), (d, w) in per_event.items()))
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+
 def lm_phase(dev, card: str, seed: int) -> dict:
     """Phase 9 (see the module docstring); returns kernel 6's record with
     its launches on one full-depth prefill."""
@@ -3810,12 +4059,15 @@ def main() -> int:
     # -- 15. the searches and the paper's optimisation claims ------------
     search_phase(dev, card, net, consts, res_k, big_spec, big_res, M)
 
+    # -- 16. the telemetry rings, the drift monitors, the obs CLI ---------
+    obs_phase(dev, card, p_star, m_star, lam_star)
+
     # -- 9. the dense LM's prefill: Qwen3-8B, kernel 6 ---------------------
     flash_rec = lm_phase(dev, card, seed)
 
     # -- 10. the dense LM's decode and the serve loop, kernel 7 -----------
     decode_rec = decode_phase(dev, card, seed)
-    log(f"chip_smoke: phases 1-15 passed in "
+    log(f"chip_smoke: phases 1-16 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [buzen_rec, bwd_rec, event_rec, mega_rec,

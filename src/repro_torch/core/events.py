@@ -58,6 +58,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kernels import threefry
+from ..obs.rings import event_ring_append
 from ..scenario.laws import form_width, get_law, law_form
 from . import prng
 from .buzen import ClassParams, NetworkParams
@@ -676,15 +677,11 @@ def replay_event(state: EventState, t_new, desc, c_new, *, n: int,
     # O(1) maintenance of the occupancy carries: slot j moved stations;
     # the FIFO promotions stay within theirs and only flip busy indicators
     is_comp = ph_pre == COMP_SERV
-    is_down = ph_pre == DOWN
     is_cs = ph_pre == CS_SERV
-    phase_j = torch.where(is_down, COMP_WAIT, torch.where(
-        is_comp, UP, torch.where(is_update, DOWN, CS_WAIT)))
-    client_j = torch.where(is_update, c_new, c)
     stations = torch.arange(3 * n + 1, device=t_new.device)
     occ_new = (state.occ
-               + (stations[None, :] == _station_index(
-                   phase_j, client_j, n)[:, None]).to(DTYPE)
+               + (stations[None, :] == _moved_to(desc, c_new, n)[:, None])
+               .to(DTYPE)
                - (stations[None, :] == _station_index(
                    ph_pre, c, n)[:, None]).to(DTYPE))
     delta_srv = do_comp.to(DTYPE) - is_comp.to(DTYPE)
@@ -705,6 +702,40 @@ def replay_event(state: EventState, t_new, desc, c_new, *, n: int,
     return state._replace(**new)
 
 
+def _moved_to(desc, c_new, n: int):
+    """The station each lane's event moved its task to, from the event's
+    descriptors ``desc [K, >= 9]`` and routed client ``c_new [K]``: a
+    downlink to the compute queue, a computation to the uplink, an update
+    re-dispatches the slot to ``c_new``'s downlink, else the task joins
+    the CS queue."""
+    c, is_update, ph_pre = desc[:, 1], desc[:, 2] > 0, desc[:, 6]
+    phase_j = torch.where(ph_pre == DOWN, COMP_WAIT, torch.where(
+        ph_pre == COMP_SERV, UP, torch.where(is_update, DOWN, CS_WAIT)))
+    return _station_index(phase_j, torch.where(is_update, c_new, c), n)
+
+
+def ring_append_events(ring, t_new, desc, station_to, n: int, valid=None):
+    """Append one event a lane to the lane-stacked event ``ring`` (in
+    place; a no-op at capacity 0): the time ``t_new [K]``, the descriptors
+    ``desc [K, >= 9]`` and the station the task moved to; ``valid [K]``
+    gates the append per lane.  Reads, never writes, the engine's
+    state."""
+    ph = desc[:, 6]
+    return event_ring_append(
+        ring, time=t_new, station=_station_index(ph, desc[:, 1], n),
+        station_to=station_to, kind=ph, slot=desc[:, 0], client=desc[:, 1],
+        delay=desc[:, 3], update=desc[:, 2], valid=valid)
+
+
+def _post_station(state, desc, n: int, owner: str = "client"):
+    """The station of each lane's completed slot in the post-step tables
+    ``state`` (``owner`` the table of the slot's client or class)."""
+    j = desc[:, 0].long()
+    lanes = torch.arange(j.shape[0], device=j.device)
+    return _station_index(state.phase[lanes, j],
+                          getattr(state, owner)[lanes, j], n)
+
+
 def _select(keep, a, b):
     """Per lane ``a`` where ``keep [K]`` else ``b`` (any trailing axes)."""
     return torch.where(keep.reshape(keep.shape + (1,) * (a.dim() - 1)), a, b)
@@ -712,15 +743,18 @@ def _select(keep, a, b):
 
 def megastep_lanes_plain(params, state: EventState, fs, c_new, rem, *,
                          power=None, stop_on_update: bool = False,
-                         donate: bool = False, law: str = "scale"):
+                         donate: bool = False, law: str = "scale",
+                         ring=None):
     """Up to ``chunk`` events per lane in PyTorch — the plain version of
     the CUDA lane steps
     (:func:`repro_torch.kernels.events.megastep_lanes`): the plain
     megastep transition, then :func:`replay_event` per kept event, in
     event order.  ``rem`` is an int, one int per lane or an int32 ``[K]``
     tensor; ``law`` the rate form of ``fs [K, chunk, W]``
-    (:func:`repro_torch.scenario.laws.apply_rate`).  Never reuses a donated
-    buffer."""
+    (:func:`repro_torch.scenario.laws.apply_rate`).  A lane-stacked event
+    ``ring`` (:mod:`repro_torch.obs.rings`) gets each kept event, in
+    place; a masked event neither writes it nor bumps its count.  Never
+    reuses a donated buffer."""
     from ..kernels.events import megastep_tables_plain
 
     law = law_form(law)
@@ -751,21 +785,31 @@ def megastep_lanes_plain(params, state: EventState, fs, c_new, rem, *,
         keep = None if min(taken) > i else keep_mat[:, i]
         st = replay_event(st, t_mat[:, i], D[:, i], c_new[:, i], n=n,
                           has_cs=has_cs, power=power, keep=keep)
+        if ring is not None:
+            ring_append_events(ring, t_mat[:, i], D[:, i],
+                               _moved_to(D[:, i], c_new[:, i], n), n,
+                               valid=keep_mat[:, i])
     return st._replace(**dict(zip(_TABLES, tables))), t_mat, int_mat
 
 
 def event_step_lanes_plain(params, state: EventState, fs, c_new, *,
                            power=None, keep=None, donate: bool = False,
-                           law: str = "scale"):
+                           law: str = "scale", ring=None):
     """One event per lane in PyTorch — the plain version of
     :func:`repro_torch.kernels.events.event_step_lanes`: the megastep of
     one event (:func:`megastep_lanes_plain`), kept where ``keep [K]``.
+    Each kept event is appended to the lane-stacked event ``ring``, its
+    destination read from the post-step table at the completed slot.
     Returns the new state, ``t_new [K, 1]`` and the nine descriptors ``[K,
     9]``."""
     rem = 1 if keep is None else keep.to(torch.int32)
     st, t_mat, int_mat = megastep_lanes_plain(
         params, state, fs[:, None], c_new[:, None], rem, power=power,
         law=law)
+    if ring is not None:
+        n = params.p.shape[-1]
+        ring_append_events(ring, t_mat[:, 0], int_mat,
+                           _post_station(st, int_mat, n), n, valid=keep)
     return st, t_mat, int_mat[:, :9]
 
 
@@ -794,7 +838,7 @@ _CLASS_TABLES = ("finish", "phase", "cls", "member", "seq", "disp_round")
 
 def step_class_event_lanes(classes, state: ClassEventState, fs, c_new,
                            member, *, power=None, keep=None,
-                           law: str = "scale"):
+                           law: str = "scale", ring=None):
     """One event for every lane of the class engine: ``state`` leaves
     ``[K, ...]``, ``classes``/``power`` leaves ``[K, C]`` (scalars
     ``[K]``), ``fs [K, W]``, ``c_new [K]`` and ``member [K]`` the event's
@@ -802,7 +846,9 @@ def step_class_event_lanes(classes, state: ClassEventState, fs, c_new,
     pairs.  The transition is
     :func:`repro_torch.kernels.events.class_step_tables_plain`, the
     statistics :func:`replay_event` over ``C`` owners.  Lanes where
-    ``keep [K]`` is false stay as they were.  Returns ``(ClassEventState,
+    ``keep [K]`` is false stay as they were.  Each kept event is appended
+    to the lane-stacked event ``ring`` (the class as its client, stations
+    in the ``[3C+1]`` class layout).  Returns ``(ClassEventState,
     EventOut)`` (``client`` reports the completing task's class)."""
     from ..kernels.events import class_step_tables_plain
 
@@ -820,12 +866,17 @@ def step_class_event_lanes(classes, state: ClassEventState, fs, c_new,
         tables = [_select(keep, a, getattr(state, k))
                   for k, a in zip(_CLASS_TABLES, tables)]
     new_state = new_state._replace(**dict(zip(_CLASS_TABLES, tables)))
+    if ring is not None:
+        ring_append_events(ring, t_col[:, 0], int_col,
+                           _post_station(new_state, int_col, C, "cls"), C,
+                           valid=keep)
     return new_state, _event_out(t_col, int_col)
 
 
 def run_events(params: NetworkParams, state: EventState,
                stream: EventStream, num_events: int, *, chunk: int = 1,
-               power=None, backend: str = "batched") -> EventState:
+               power=None, backend: str = "batched",
+               ring=None) -> EventState:
     """Advance every lane by ``num_events`` events from ``stream``.
 
     ``chunk = 1`` runs one lane step per event (the event lane kernel
@@ -837,7 +888,11 @@ def run_events(params: NetworkParams, state: EventState,
     ``state`` itself is never written.  With :class:`ClassParams` lanes
     every event runs the class transition (:func:`step_class_event_lanes`),
     ``chunk`` events taken from the stream at a time.  The steps apply the
-    rates in the stream's law's form (``stream.form``).
+    rates in the stream's law's form (``stream.form``).  A lane-stacked
+    event ``ring`` (:func:`repro_torch.obs.rings.event_ring_init`) gets
+    every event, in place: under ``"kernel"`` the lane kernel writes it
+    in the same launches; its ``count`` grows by ``num_events`` a lane.
+    The statistics are bitwise those of a run without it.
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -858,13 +913,13 @@ def run_events(params: NetworkParams, state: EventState,
             for i in range(rem):
                 state, _ = step_class_event_lanes(
                     params, state, fs[:, i], cn[:, i], mb[:, i], power=power,
-                    law=law)
+                    law=law, ring=ring)
         elif chunk == 1:
             state = step(params, state, fs[:, 0], cn[:, 0], power=power,
-                         donate=owned, law=law)[0]
+                         donate=owned, law=law, ring=ring)[0]
         else:
             state = megastep(params, state, fs, cn, rem, power=power,
-                             donate=owned, law=law)[0]
+                             donate=owned, law=law, ring=ring)[0]
         owned = True
         stream.advance(rem)
         done += rem

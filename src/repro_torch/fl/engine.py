@@ -63,8 +63,16 @@ The reference's documented deviations (fixed eval batch, minibatches drawn
 with replacement at full ``batch_size``, float32 parameter updates, energy
 integrated exactly to the horizon, the throughput denominator when a
 ``max_updates`` cap binds) hold here too.  :meth:`DeviceTrainer.from_scenario`
-builds the trainer from a declarative ``repro_torch.scenario.Scenario``;
-the update telemetry rings are not ported yet.
+builds the trainer from a declarative ``repro_torch.scenario.Scenario``.
+
+Telemetry.  ``trace_updates = R > 0`` keeps an update ring of ``R``
+records per lane (:mod:`repro_torch.obs.rings`): each live update's time,
+client, staleness, the float64 L2 norm of its gradient (before the clip,
+as the JAX package records it) and its snapshot's age (the update time
+less the time its slot's snapshot was written, from a ``[L, m_max]``
+table of write times).  The appends read the loop's values and never feed
+back into it, so training is bitwise that of an untraced run;
+:attr:`DeviceTrainer.last_update_rings` holds the rings of the last run.
 """
 from __future__ import annotations
 
@@ -83,6 +91,7 @@ from ..core.events import (EventStream, event_key, init_state, next_update,
 from ..core.numerics import DTYPE, seqsum
 from ..kernels.fused_update import fused_async_update_flat
 from ..kernels.threefry import chain_words, paths_tensor
+from ..obs.rings import lane_rings, update_ring_append, update_ring_init
 from ..sim.backend import resolve_backend
 from .models import accuracy, cross_entropy_loss
 
@@ -260,7 +269,7 @@ class DeviceTrainer:
                  config, test_data=None, power=None,
                  loss_fn: Callable = cross_entropy_loss,
                  sim_backend: Optional[str] = None, sim_chunk: int = 1, *,
-                 device="cuda"):
+                 trace_updates: int = 0, device="cuda"):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.layout = ParamLayout(self.model)
@@ -274,6 +283,10 @@ class DeviceTrainer:
         # trajectories for any value
         self.sim_backend = sim_backend
         self.sim_chunk = int(sim_chunk)
+        # update-ring capacity per lane (0: tracing off); the last run's
+        # per-lane rings, in input lane order (None when tracing is off)
+        self.trace_updates = int(trace_updates)
+        self.last_update_rings = None
         self.n = net.n              # row count (n_max when padded)
         # real population: the bias correction eta/(n p_C) and the reported
         # per-client statistics use the active count
@@ -305,22 +318,18 @@ class DeviceTrainer:
         come from the spec, the event-engine backend and megastep chunk
         from its ``SimSpec``; ``config_overrides`` feed ``AsyncFLConfig``.
         Lane routing and concurrency still vary per :meth:`run_lanes` call
-        (resolve them with ``repro_torch.scenario.resolve_strategy``).  A
-        scenario that asks for telemetry rings raises: they are not ported
-        (ROADMAP Queue 1 item 6), and training without them would drop
-        what was asked for."""
+        (resolve them with ``repro_torch.scenario.resolve_strategy``).  The
+        update-ring capacity is the spec's ``TraceSpec.updates`` (the
+        trainer keeps no event ring, as the JAX package's does not)."""
         sim, trace = scenario.sim, scenario.trace
-        if trace is not None and (trace.events > 0 or trace.updates > 0):
-            raise NotImplementedError(
-                f"TraceSpec(events={trace.events}, updates={trace.updates}):"
-                " the event and update telemetry rings are not ported yet "
-                "(ROADMAP Queue 1 item 6)")
         return cls(model, clients, scenario.params(device=device),
                    scenario.fl_config(**config_overrides),
                    test_data=test_data, power=scenario.power(device=device),
                    loss_fn=loss_fn,
                    sim_backend=None if sim is None else sim.backend,
-                   sim_chunk=1 if sim is None else sim.chunk, device=device)
+                   sim_chunk=1 if sim is None else sim.chunk,
+                   trace_updates=0 if trace is None else trace.updates,
+                   device=device)
 
     # -- parameters ---------------------------------------------------------
 
@@ -338,15 +347,22 @@ class DeviceTrainer:
             rows.append(self.layout.flatten(scratch))
         return torch.stack(rows)
 
-    def _grad(self, flat_w, x, y) -> torch.Tensor:
-        """The flat gradient of the loss at ``flat_w [N]``, clipped to
-        ``grad_clip`` by its norm in the parameter type."""
+    def _raw_grad(self, flat_w, x, y) -> torch.Tensor:
+        """The flat gradient of the loss at ``flat_w [N]``."""
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in self.layout.views(flat_w).items()}
         with torch.enable_grad():
             loss = self.loss_fn(functional_call(self.model, leaves, (x,)), y)
             grads = torch.autograd.grad(loss, list(leaves.values()))
-        g = torch.cat([v.reshape(-1) for v in grads])
+        return torch.cat([v.reshape(-1) for v in grads])
+
+    def _grad(self, flat_w, x, y) -> torch.Tensor:
+        """:meth:`_raw_grad` clipped to ``grad_clip`` by its norm in the
+        parameter type."""
+        return self._clip(self._raw_grad(flat_w, x, y))
+
+    def _clip(self, g) -> torch.Tensor:
+        """``g`` scaled to at most ``grad_clip`` in norm (no clip: as is)."""
         clip = self.cfg.grad_clip
         if clip is not None:
             norm = torch.sqrt(torch.sum(g * g))
@@ -460,6 +476,12 @@ class DeviceTrainer:
         row0 = (lanes * (n * s_max) if lane_data is not None
                 else torch.zeros_like(lanes))
 
+        ring = None
+        if self.trace_updates:
+            ring = update_ring_init(self.trace_updates, lanes=L, device=dev)
+            # when each slot's snapshot was written (snapshot_age)
+            snap_t = torch.zeros(L, m_max, dtype=DTYPE, device=dev)
+            gnorm = torch.zeros(L, dtype=DTYPE, device=dev)
         params = params0.to(dev, self.layout.dtype).clone()
         snaps = params[:, None].repeat(1, m_max, 1)    # [L, m_max, N]
         grid_snaps = params[:, None].repeat(1, G, 1)   # [L, G, N]
@@ -481,8 +503,20 @@ class DeviceTrainer:
             for i in range(L):
                 # a masked round's gradient is discarded: skip it
                 if live_host[i]:
-                    g[i] = self._grad(stale[i], x_flat[rows[i]],
-                                      y_flat[rows[i]])
+                    raw = self._raw_grad(stale[i], x_flat[rows[i]],
+                                         y_flat[rows[i]])
+                    if ring is not None:
+                        gnorm[i] = torch.sqrt(torch.sum(torch.square(
+                            raw.to(DTYPE))))
+                    g[i] = self._clip(raw)
+            if ring is not None:
+                update_ring_append(ring, time=upd.time, client=c,
+                                   staleness=upd.delay, grad_norm=gnorm,
+                                   snapshot_age=upd.time - snap_t[lanes, j],
+                                   valid=live)
+                # no live mask, like the snapshots: time is monotone, so a
+                # write past the horizon is only read by masked appends
+                snap_t[lanes, j] = upd.time
             # bias correction over the REAL population (Algorithm 2), in
             # float64, then cast to the parameter type
             scale = (eta / (n_act * p_norm[lanes, c])).to(params.dtype)
@@ -499,6 +533,8 @@ class DeviceTrainer:
             outs.append((upd.time, c, upd.delay, live))
             done = [d or not lv for d, lv in zip(done, live_host)]
             k += 1
+        self.last_update_rings = (None if ring is None
+                                  else lane_rings(ring))
         times, clients_k, delays, live = (torch.stack(x, dim=1)
                                           for x in zip(*outs))
         K = times.shape[1]

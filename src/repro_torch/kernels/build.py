@@ -6,7 +6,8 @@ headers, so a build takes seconds).  Libraries go to ``build/`` at the repo
 root, keyed by a hash of the source, the shared headers (``csrc/*.cuh``)
 and the flags, and are built at first use — never at import.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all
-of them.
+of them.  :func:`spans` lists the builds this process ran, the compile
+spans of a Perfetto trace (``repro_torch.obs.trace``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -34,6 +36,7 @@ FLAGS = {"buzen": [], "events": ["-fmad=false"],
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_spans: list = []  # (program, end, seconds) of each nvcc run
 
 
 def _nvcc() -> str:
@@ -64,25 +67,34 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def spans() -> list:
+    """``(program, end, seconds)`` of every ``nvcc`` run of this process,
+    on the ``time.perf_counter`` clock."""
+    return list(_spans)
+
+
 def _start(name: str):
     """Start ``nvcc`` for ``name`` unless its library exists; returns
-    ``(process, tmp, final)`` or ``None``."""
+    ``(process, tmp, final, start time)`` or ``None``."""
     final = library_path(name)
     if final.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    t0 = time.perf_counter()
     proc = subprocess.Popen(_command(name, Path(tmp)),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    return proc, Path(tmp), final
+    return proc, Path(tmp), final, t0
 
 
 def _finish(name: str, started) -> None:
     if started is None:
         return
-    proc, tmp, final = started
+    proc, tmp, final, t0 = started
     out, _ = proc.communicate()
+    end = time.perf_counter()
+    _spans.append((f"nvcc:{name}", end, end - t0))
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu "

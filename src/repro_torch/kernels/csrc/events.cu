@@ -285,7 +285,12 @@ __device__ __forceinline__ void write_desc(int* d, const EventDesc& e) {
 //     again; and t, round, seq_ctr.
 // Event i is kept when i < rem and, with stop_on_update, no earlier kept
 // event was an update; a masked event still writes its time and
-// descriptors, and changes nothing.
+// descriptors, and changes nothing.  With STATS and an event ring
+// (LaneArgs::r_count set), thread 0 also writes each kept event's record,
+// repro_torch.obs.rings' columns, at count % ring_cap of the lane's row and
+// counts it; the ring is read by nothing else, so the state is bitwise
+// that of a launch without it, and a launch without one skips the writes
+// on a launch-wide flag (thread 0's branch, uniform across the launch).
 //
 // STATS = false is the transition alone, the contract of the TPU kernels
 // (event_step, megastep below: tables in, tables and descriptors out), on
@@ -381,10 +386,23 @@ struct LaneArgs {
   // desc_width] (the nine of one_event, then keep when desc_width is 10)
   double* ev_t;
   int* ev_int;
+  // the event ring (repro_torch.obs.rings.EventRing; null without one):
+  // eight columns [K, ring_cap] and count [K], the caller's own buffers,
+  // written in place; each kept event goes at count % ring_cap
+  double* r_time;
+  int* r_station;
+  int* r_station_to;
+  int* r_kind;
+  int* r_slot;
+  int* r_client;
+  int* r_delay;
+  int* r_update;
+  int* r_count;
   // round, seq_ctr and rem are sc_stride apart from lane to lane
   long long fs_stride, cn_stride, sc_stride;
   int K, m_max, n, has_cs, chunk, rem_all, stop_on_update, desc_width;
   int law;  // the rate form: LAW_SCALE, LAW_H2 or LAW_LOGNORMAL
+  int ring_cap;
 };
 
 // torch.minimum: a NaN operand gives NaN
@@ -606,6 +624,10 @@ __device__ __forceinline__ void lane_events(const LaneArgs& a,
   }
   Kept prev;
   bool pending = false;  // the statistics thread owes prev its carries
+  // the event ring: a launch-wide flag, its count in thread 0's register
+  const bool ring = STATS && a.r_count != nullptr;
+  int ring_count = 0;
+  if (ring && tid == 0) ring_count = a.r_count[k];
   __syncthreads();
 
   bool done = false;
@@ -646,6 +668,27 @@ __device__ __forceinline__ void lane_events(const LaneArgs& a,
           s_d[6] = d.ph;
           s_d[7] = d.do_comp;
           s_d[8] = d.do_cs;
+          if (ring) {
+            // the record replay_one's carries move: slot j left (ph, c)
+            // for phase_j, owned by c_new after an update
+            const size_t at =
+                (size_t)k * a.ring_cap + (size_t)(ring_count % a.ring_cap);
+            const int phase_j =
+                d.ph == DOWN ? COMP_WAIT
+                             : (d.ph == COMP_SERV ? UP
+                                                  : (d.is_update ? DOWN
+                                                                 : CS_WAIT));
+            a.r_time[at] = d.t_new;
+            a.r_station[at] = station(d.ph, d.c, n);
+            a.r_station_to[at] =
+                station(phase_j, d.is_update ? in.c_new : d.c, n);
+            a.r_kind[at] = d.ph;
+            a.r_slot[at] = d.j;
+            a.r_client[at] = d.c;
+            a.r_delay[at] = d.delay;
+            a.r_update[at] = d.is_update;
+            ++ring_count;
+          }
         }
       }
     } else if (STATS && tid == STATS_THREAD && keep) {
@@ -715,6 +758,7 @@ __device__ __forceinline__ void lane_events(const LaneArgs& a,
     a.o_round[k] = rnd;
     a.o_seq_ctr[k] = seq_ctr;
   }
+  if (ring && tid == 0) a.r_count[k] = ring_count;
   if (STATS && tid == STATS_THREAD) {
     a.o_energy[k] = st.energy;
     a.o_t0[k] = st.t0;

@@ -54,6 +54,7 @@ from typing import Optional
 import torch
 
 from ..core import events as E
+from ..obs.rings import _EVENT_DTYPES, EventRing
 from ..scenario.laws import FORMS, apply_rate, form_width, law_form
 from . import build
 
@@ -323,8 +324,12 @@ _CONST = ("warmup", "cap", "t_cap")  # leaves a step never changes
 _MUTABLE = tuple(f for f in E.EventState._fields if f not in _CONST)
 _OTHER = ("mu_c", "mu_u", "P_c", "P_u", "P_d", "P_cs", "fs", "c_new", "rem",
           "keep", "ev_t", "ev_int")
+# the event ring's columns (repro_torch.obs.rings.EventRing), then its count
+_RING = EventRing._fields
+_RING_DTYPES = tuple(_EVENT_DTYPES.values()) + (None,)  # None: the count
+_RING_PTRS = tuple("r_" + f for f in _RING)
 _INTS = ("K", "m_max", "n", "has_cs", "chunk", "rem_all", "stop_on_update",
-         "desc_width", "law")
+         "desc_width", "law", "ring_cap")
 
 
 class _LaneArgs(ctypes.Structure):
@@ -333,6 +338,7 @@ class _LaneArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in E.EventState._fields]
                 + [("o_" + f, ctypes.c_void_p) for f in _MUTABLE]
                 + [(f, ctypes.c_void_p) for f in _OTHER]
+                + [(f, ctypes.c_void_p) for f in _RING_PTRS]
                 + [(f, ctypes.c_longlong)
                    for f in ("fs_stride", "cn_stride", "sc_stride")]
                 + [(f, ctypes.c_int) for f in _INTS])
@@ -403,6 +409,25 @@ def _check_lanes(what: str, params, state, power, fs, c_new, keep,
         raise ValueError(f"{what}: the task table needs at least one slot")
 
 
+def _check_ring(what: str, ring, K: int, dev) -> None:
+    """Raise ``ValueError`` unless ``ring`` is a lane-stacked event ring
+    of ``K`` lanes on ``dev`` whose columns the kernel can write in place
+    (contiguous, the ring's dtypes).  Runs once a launch: kept lean."""
+    if type(ring) is not EventRing:
+        raise ValueError(f"{what}: ring must be an EventRing, got "
+                         f"{type(ring).__name__}")
+    cols = (K, ring.time.shape[-1])
+    for name, x, dtype in zip(_RING, ring, _RING_DTYPES):
+        shape = cols if dtype is not None else (K,)
+        dtype = dtype or torch.int32
+        if x.dtype != dtype or x.shape != shape:
+            raise ValueError(f"{what}: ring.{name} is {x.dtype} "
+                             f"{tuple(x.shape)}, expected {dtype} {shape}")
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{what}: ring.{name} must be contiguous on "
+                             f"{dev}, the state's device")
+
+
 def _check_rem(rem, K: int, dev) -> None:
     """Raise ``ValueError`` unless ``rem`` is an int, ``K`` ints or an
     int32 ``[K]`` tensor on ``dev``."""
@@ -431,12 +456,14 @@ def _rem_arg(rem, K: int, dev):
 
 def _launch_lanes(counter, params, state, power, fs, c_new, *, chunk: int,
                   rem, keep, stop_on_update: bool, desc_width: int,
-                  donate: bool, law: str):
+                  donate: bool, law: str, ring):
     """Launch ``csrc/events.cu``'s lane steps on the checked inputs:
     returns the new state (in the donated buffers of ``state`` when
     ``donate``, else in new ones; the leaves a step never changes are
     ``state``'s own), the event times ``[K, chunk]`` and the descriptors
-    ``[K, desc_width * chunk]``; counts the launch on ``counter``."""
+    ``[K, desc_width * chunk]``; the kernel appends each kept event to
+    the event ``ring`` in place (none, or capacity 0: null pointers);
+    counts the launch on ``counter``."""
     K, M = state.finish.shape
     n = params.mu_c.shape[-1]
     dev = state.finish.device
@@ -467,11 +494,15 @@ def _launch_lanes(counter, params, state, power, fs, c_new, *, chunk: int,
             for f, x in ptrs.items()}
     for f, x in list(ptrs.items()) + [("fs", fs), ("c_new", c_new)]:
         setattr(args, f, None if x is None else x.data_ptr())
+    ring_cap = 0 if ring is None else ring.time.shape[-1]
+    if ring_cap:
+        for f, x in zip(_RING_PTRS, ring):
+            setattr(args, f, x.data_ptr())
     args.fs_stride, args.cn_stride = fs.stride(0), c_new.stride(0)
     args.sc_stride = 1
     for f, v in zip(_INTS, (K, M, n, params.mu_cs is not None, chunk,
                             rem_all, stop_on_update, desc_width,
-                            FORMS.index(law))):
+                            FORMS.index(law), ring_cap)):
         setattr(args, f, int(v))
     fn = build.load("events").lanes
     if not fn.argtypes:  # the library caches its function objects
@@ -484,7 +515,7 @@ def _launch_lanes(counter, params, state, power, fs, c_new, *, chunk: int,
 
 
 def event_step_lanes(params, state, fs, c_new, *, power=None, keep=None,
-                     donate: bool = False, law: str = "scale"):
+                     donate: bool = False, law: str = "scale", ring=None):
     """One event per lane on ``K`` lane-stacked states, statistics and all.
 
     ``params``/``power`` leaves ``[K, n]`` (``P_cs`` ``[K]``), ``state``
@@ -498,19 +529,26 @@ def event_step_lanes(params, state, fs, c_new, *, power=None, keep=None,
     after them; rows may be strided.  Returns the new state, ``t_new [K,
     1]`` and the nine descriptors ``[K, 9]`` of :func:`event_step_tables`.
     With ``donate`` the kernel may write the new state into ``state``'s
-    own buffers (the caller must own them and use only the result).
+    own buffers (the caller must own them and use only the result).  A
+    lane-stacked event ``ring`` (:mod:`repro_torch.obs.rings`) gets each
+    kept event, written in place by the same launch; it belongs to the
+    caller and is never donated.
     """
     law = law_form(law)
     _check_lanes("event_step_lanes", params, state, power, fs, c_new, keep,
                  None, law)
+    if ring is not None:
+        _check_ring("event_step_lanes", ring, c_new.shape[0],
+                    state.finish.device)
     if state.finish.is_cuda:
         return _launch_lanes(event_step_lanes, params, state, power, fs,
                              c_new, chunk=1, rem=1, keep=keep,
                              stop_on_update=False, desc_width=9,
-                             donate=donate, law=law)
+                             donate=donate, law=law, ring=ring)
     if state.finish.device.type == "cpu":
         return E.event_step_lanes_plain(params, state, fs, c_new,
-                                        power=power, keep=keep, law=law)
+                                        power=power, keep=keep, law=law,
+                                        ring=ring)
     raise ValueError(f"no event lane kernel for device {state.finish.device}")
 
 
@@ -519,7 +557,7 @@ event_step_lanes.launches = 0
 
 def megastep_lanes(params, state, fs, c_new, rem, *, power=None,
                    stop_on_update: bool = False, donate: bool = False,
-                   law: str = "scale"):
+                   law: str = "scale", ring=None):
     """Up to ``chunk`` events per lane on ``K`` lane-stacked states in one
     launch, statistics and all.
 
@@ -529,7 +567,9 @@ def megastep_lanes(params, state, fs, c_new, rem, *, power=None,
     tensor) and, with ``stop_on_update``, no earlier kept event of the
     lane was an update.  Returns the new state, the event times ``[K,
     chunk]`` and the descriptors ``[K, 10 * chunk]`` of
-    :func:`megastep_tables` (masked events' too).
+    :func:`megastep_tables` (masked events' too).  Each kept event goes to
+    the event ``ring`` as in :func:`event_step_lanes`; a masked one
+    neither writes it nor bumps its count.
     """
     if c_new.dim() != 2 or c_new.shape[1] < 1:
         raise ValueError(f"c_new must be [K, chunk >= 1], got "
@@ -539,15 +579,19 @@ def megastep_lanes(params, state, fs, c_new, rem, *, power=None,
     _check_lanes("megastep_lanes", params, state, power, fs, c_new, None,
                  chunk, law)
     _check_rem(rem, c_new.shape[0], state.finish.device)
+    if ring is not None:
+        _check_ring("megastep_lanes", ring, c_new.shape[0],
+                    state.finish.device)
     if state.finish.is_cuda:
         return _launch_lanes(megastep_lanes, params, state, power, fs, c_new,
                              chunk=chunk, rem=rem, keep=None,
                              stop_on_update=stop_on_update, desc_width=10,
-                             donate=donate, law=law)
+                             donate=donate, law=law, ring=ring)
     if state.finish.device.type == "cpu":
         return E.megastep_lanes_plain(params, state, fs, c_new, rem,
                                       power=power,
-                                      stop_on_update=stop_on_update, law=law)
+                                      stop_on_update=stop_on_update, law=law,
+                                      ring=ring)
     raise ValueError(f"no megastep lane kernel for device "
                      f"{state.finish.device}")
 

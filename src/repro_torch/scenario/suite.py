@@ -50,6 +50,8 @@ from ..core.energy import (PowerProfile, energy_optimal_routing,
                            minimal_energy)
 from ..core.events import lane, stack_lanes, unpad_stats
 from ..core.numerics import DTYPE
+from ..obs.drift import drift_report, predict
+from ..obs.rings import decode, decode_lane
 from ..core.optimize import (joint_optimal, make_energy_objective,
                              make_joint_objective, make_round_objective,
                              make_throughput_objective, make_time_objective,
@@ -334,9 +336,13 @@ class SuiteResult:
     ``programs < len(entries)`` for structurally-alike scenarios.
     ``cache_hits`` counts entries served from the suite-level result cache
     (keyed by ``Scenario.hash()`` x seeds x mode x run settings): re-running
-    an unchanged scenario costs nothing.  ``traces`` and ``drift`` (the
-    telemetry rings and their drift reports) stay ``None``: the rings are
-    not ported yet.
+    an unchanged scenario costs nothing.  ``traces[name]`` holds the
+    per-seed decoded telemetry rings (:func:`repro_torch.obs.rings.decode`)
+    of scenarios whose ``TraceSpec`` asks for them — the event ring in
+    ``simulate``, the update ring in ``train`` — and ``drift[name]`` the
+    per-seed drift reports of the event rings against the closed forms
+    (:func:`repro_torch.obs.drift.drift_report`); ``None`` when no
+    scenario traces.
     """
 
     mode: str
@@ -480,17 +486,6 @@ class ScenarioSuite:
         res.metrics = self.metrics.snapshot()
         return res
 
-    def _refuse_rings(self, channel: str) -> None:
-        """Raise before any lane runs if a scenario asks for the telemetry
-        ring of ``channel`` (``"events"`` or ``"updates"``)."""
-        for name, scn in self.scenarios.items():
-            if scn.trace is not None and getattr(scn.trace, channel) > 0:
-                raise NotImplementedError(
-                    f"scenario {name!r} asks for the {channel} telemetry "
-                    f"ring (TraceSpec.{channel}="
-                    f"{getattr(scn.trace, channel)}); the rings are not "
-                    "ported yet (ROADMAP Queue 1 item 6)")
-
     def _pop_max(self):
         """The suite-wide pads: ``n_max`` over the per-client scenarios and
         ``c_max`` over the class sets (class lanes never inflate the
@@ -620,16 +615,20 @@ class ScenarioSuite:
         :func:`repro_torch.sim.simulate_stats_lanes` of its scenario alone
         at the same seed, table size and chunk, bitwise.  Seed ``s`` is
         ``PRNGKey(s)``, the JAX package's key, so each lane draws what the
-        JAX suite's lane draws.
+        JAX suite's lane draws.  A scenario whose ``TraceSpec`` asks for an
+        event ring runs with one per lane (the bucket carries its
+        capacity): the result's ``traces`` and ``drift`` hold the decoded
+        rings and their drift reports, cached beside the statistics.
         """
         from ..sim.backend import resolve_backend
         from ..sim.batched_events import build_class_lanes_fn, build_lanes_fn
 
-        self._refuse_rings("events")
         strategies = self.resolve()
         names = list(self.scenarios)
         n_max, c_max = self._pop_max()
         entries: dict = {}
+        traces: dict = {}
+        drift: dict = {}
         cache_hits = 0
         buckets: dict = {}
         for name in names:
@@ -637,14 +636,15 @@ class ScenarioSuite:
             bk = resolve_backend(backend if backend is not None
                                  else scn.sim_backend)
             ck = 1 if scn.sim is None else int(scn.sim.chunk)
+            tr = 0 if scn.trace is None else int(scn.trace.events)
             key = (scn.network.law, scn.network.mu_cs is not None,
-                   _power_sig(scn), bk, scn.is_class_network, ck)
+                   _power_sig(scn), bk, scn.is_class_network, ck, tr)
             buckets.setdefault(key, []).append(name)
 
         programs = 0
         S = len(self.seeds)
         nu, wu = int(num_updates), int(warmup)
-        for (law, has_cs, power_sig, bk, is_classes, ck), \
+        for (law, has_cs, power_sig, bk, is_classes, ck, tr), \
                 members in buckets.items():
             has_power = power_sig is not None
             # the table size comes from ALL bucket members (trajectories
@@ -668,6 +668,9 @@ class ScenarioSuite:
                 if hit is not None:
                     entries[name] = hit
                     cache_hits += 1
+                    if tr:  # cached alongside the statistics, same ckey
+                        traces[name], drift[name] = self._result_cache[
+                            ("trace",) + ckey]
                 else:
                     todo.append((name, ckey))
             if not todo:
@@ -685,15 +688,17 @@ class ScenarioSuite:
             keys = prng.seed_keys([s for _ in todo for s in self.seeds],
                                   device=self.device)
             sig = ("simulate", is_classes, axis_max, law, has_cs, power_sig,
-                   mx, nu, wu, bk, ck)
+                   mx, nu, wu, bk, ck, tr)
             fn = self._jit_cache.get(sig)
             if fn is None:
                 build = build_class_lanes_fn if is_classes else build_lanes_fn
                 fn = self._jit_cache[sig] = build(bk, nu, wu, law, mx,
-                                                  has_power, chunk=ck)
+                                                  has_power, trace_events=tr,
+                                                  chunk=ck)
                 programs += 1
             with self.metrics.timed("suite.dispatch", mode="simulate"):
-                stats = fn(lane_params, m_vec, keys, power)
+                out = fn(lane_params, m_vec, keys, power)
+            stats, rings = out if tr else (out, None)
             self.metrics.observe("suite.lanes_per_dispatch", len(todo) * S,
                                  mode="simulate")
             for i, (name, ckey) in enumerate(todo):
@@ -704,9 +709,48 @@ class ScenarioSuite:
                 entries[name] = [unpad_stats(lane(stats, i * S + j), n_i)
                                  for j in range(S)]
                 self._result_cache[ckey] = entries[name]
+                if tr:
+                    traces[name] = [decode_lane(rings, i * S + j)
+                                    for j in range(S)]
+                    preds = self._drift_predictions(name, strategies[name],
+                                                    is_classes)
+                    tol = self.scenarios[name].trace.tolerance
+                    drift[name] = [drift_report(d, predictions=preds,
+                                                law=law, tolerance=tol)
+                                   for d in traces[name]]
+                    self._result_cache[("trace",) + ckey] = (traces[name],
+                                                             drift[name])
         return SuiteResult(mode="simulate", entries=entries, seeds=self.seeds,
                            lanes=len(names) * S, programs=programs,
-                           strategies=strategies, cache_hits=cache_hits)
+                           strategies=strategies, cache_hits=cache_hits,
+                           traces=traces or None, drift=drift or None)
+
+    def _drift_predictions(self, name: str, strategy, is_classes: bool):
+        """The closed forms a scenario's event rings are held to, at its
+        resolved ``(p, m)``: seed- and run-invariant, so computed once per
+        (scenario, m) and cached (with the Buzen backend and the device,
+        which change the last bits).  Class rings index stations per
+        class, so the members' delays fold onto their classes (``E0[D_c]``,
+        the sum of the members' shares)."""
+        scn = self.scenarios[name]
+        p, m = strategy
+        pkey = ("drift_pred", scn.hash(), int(m), get_backend(),
+                str(self.device))
+        preds = self._result_cache.get(pkey)
+        if preds is None:
+            # Scenario.params() expands a class network, so the closed
+            # forms always see the member population
+            preds = predict(scn.params(p, device=self.device), m)
+            if is_classes:
+                cnt = scn.class_params(p, device=self.device).count
+                cnt = cnt.detach().cpu().numpy().astype(np.int64)
+                lbl = np.repeat(np.arange(len(cnt)), cnt)
+                d = np.bincount(lbl, weights=np.asarray(preds["delays"],
+                                                        dtype=np.float64),
+                                minlength=len(cnt))
+                preds = dict(preds, delays=[float(v) for v in d])
+            self._result_cache[pkey] = preds
+        return preds
 
     # -- train: the lane trainer ---------------------------------------------
 
@@ -739,18 +783,21 @@ class ScenarioSuite:
         ``programs`` counts the trainers this call built (the JAX package
         counts compiled scans instead); the trainer memo and the result
         cache hit only for the same ``model``, ``clients``, ``test_data``
-        and ``loss_fn`` objects.
+        and ``loss_fn`` objects.  A scenario whose ``TraceSpec`` asks for
+        an update ring gets one per lane (the bucket carries its
+        capacity): the result's ``traces`` hold the decoded rings, cached
+        beside the logs.
         """
         from ..fl.engine import DeviceTrainer  # local: fl imports scenario
         from ..fl.models import cross_entropy_loss
 
-        self._refuse_rings("updates")
         strategies = self.resolve()
         names = list(self.scenarios)
         dev = str(self.device)
         run_sig = (float(horizon_time), max_updates,
                    tuple(sorted(config_overrides.items())), dev)
         entries: dict = {}
+        traces: dict = {}
         cache_hits = 0
         buckets: dict = {}
         for name in names:
@@ -762,11 +809,14 @@ class ScenarioSuite:
             if hit is not None and hit[0] is model and hit[1] is clients \
                     and hit[2] is test_data and hit[3] is loss_fn:
                 entries[name] = hit[4]
+                if hit[5] is not None:
+                    traces[name] = hit[5]
                 cache_hits += 1
                 continue
             ck = 1 if scn.sim is None else int(scn.sim.chunk)
             common = (str(None if scn.data is None else scn.data.to_dict()),
                       scn.sim_backend, ck,
+                      0 if scn.trace is None else int(scn.trace.updates),
                       tuple(sorted(config_overrides.items())), dev)
             if clients is None and not scn.is_class_network:
                 # DataSpec-driven scenarios bucket by STRUCTURE: the
@@ -823,6 +873,8 @@ class ScenarioSuite:
                     loss_fn=loss_fn or cross_entropy_loss,
                     sim_backend=scn0.sim_backend,
                     sim_chunk=1 if scn0.sim is None else scn0.sim.chunk,
+                    trace_updates=(0 if scn0.trace is None
+                                   else scn0.trace.updates),
                     device=self.device)
                 self._trainers[key] = (model, bucket_clients, bucket_test,
                                        loss_fn, trainer)
@@ -864,13 +916,19 @@ class ScenarioSuite:
                                             **lane_kw)
             self.metrics.observe("suite.lanes_per_dispatch", len(ps),
                                  mode="train")
+            lane_rings = trainer.last_update_rings
             for i, (name, ckey) in enumerate(members):
                 entries[name] = logs[i * S:(i + 1) * S]
+                if lane_rings is not None:
+                    traces[name] = [decode(lane_rings[i * S + j])
+                                    for j in range(S)]
                 self._result_cache[ckey] = (model, clients, test_data,
-                                            loss_fn, entries[name])
+                                            loss_fn, entries[name],
+                                            traces.get(name))
         return SuiteResult(mode="train", entries=entries, seeds=self.seeds,
                            lanes=len(names) * S, programs=programs,
-                           strategies=strategies, cache_hits=cache_hits)
+                           strategies=strategies, cache_hits=cache_hits,
+                           traces=traces or None)
 
 
 _ANALYZE_KEY = {"time": "tau", "round": "K_eps", "throughput": "throughput",

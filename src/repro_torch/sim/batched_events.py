@@ -1,6 +1,6 @@
 """Lane-batched simulation: K independent lanes advance in lock-step, one
 event or one megastep of ``chunk`` events per lane per step (port of
-``repro.sim.batched_events``; no telemetry rings).
+``repro.sim.batched_events``).
 
   * ``"reference"`` — each lane runs alone (``K = 1``) and the results are
     stacked;
@@ -24,6 +24,12 @@ kernel, so ``"kernel"`` raises for class lanes.
 :func:`build_lanes_fn` and :func:`build_class_lanes_fn` return the runner
 of one static signature (the programs ``ScenarioSuite`` dispatches its
 buckets through), memoized per signature.
+
+``trace_events > 0`` carries an event telemetry ring of that capacity per
+lane (:mod:`repro_torch.obs.rings`) on every backend: the runs return
+``(EventStats, EventRing)``, the ring lane-stacked, with statistics
+bitwise those of the untraced run.  On ``"kernel"`` the lane kernel
+writes the ring in the same launches.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from ..core import events, prng
 from ..core.buzen import ClassParams, NetworkParams
 from ..core.events import (DRAW_EVENTS, EventStats, finalize_stats, lane,
                            stack_lanes)  # noqa: F401  (re-exported)
+from ..obs.rings import event_ring_init
 from ..scenario.laws import get_law
 from .backend import resolve_backend
 
@@ -43,13 +50,15 @@ from .backend import resolve_backend
 def run_lanes(lane_params: NetworkParams, ms, keys, num_updates: int,
               *, warmup: int, distribution: str, m_max: int, power=None,
               backend: str = "batched", chunk: int = 1,
-              draw_events: int = DRAW_EVENTS) -> EventStats:
+              draw_events: int = DRAW_EVENTS, trace_events: int = 0):
     """The lock-step loop: ``lane_params``/``power`` lane-stacked, one
     concurrency and one seed key (``keys [L, 2]``) per lane;
     ``ceil(num_events / chunk)`` steps of ``chunk`` events, the events past
     ``num_events`` masked.
     ``"reference"`` runs the lanes one at a time through the same loop.
-    :class:`ClassParams` lanes run the class engine."""
+    :class:`ClassParams` lanes run the class engine.  Returns
+    :class:`EventStats`, or ``(EventStats, EventRing)`` with
+    ``trace_events > 0``."""
     if backend == "reference":
         outs = [run_lanes(stack_lanes([lane(lane_params, i)]), [ms[i]],
                           keys[i:i + 1], num_updates, warmup=warmup,
@@ -57,8 +66,11 @@ def run_lanes(lane_params: NetworkParams, ms, keys, num_updates: int,
                           power=None if power is None
                           else stack_lanes([lane(power, i)]),
                           backend="batched", chunk=chunk,
-                          draw_events=draw_events)
+                          draw_events=draw_events, trace_events=trace_events)
                 for i in range(len(keys))]
+        if trace_events:
+            return tuple(stack_lanes([lane(o[part], 0) for o in outs])
+                         for part in (0, 1))
         return stack_lanes([lane(o, 0) for o in outs])
     mult = 4 if lane_params.mu_cs is not None else 3
     num_events = mult * (num_updates + warmup) + mult * m_max + 8
@@ -73,9 +85,11 @@ def run_lanes(lane_params: NetworkParams, ms, keys, num_updates: int,
     stream = events.EventStream(singles, events.event_key(keys),
                                 distribution=distribution, block=draw_events,
                                 total=num_events)
+    ring = (event_ring_init(trace_events, lanes=len(keys),
+                            device=keys.device) if trace_events else None)
     st = events.run_events(lane_params, st, stream, num_events, chunk=chunk,
-                           power=power, backend=backend)
-    return finalize_stats(st)
+                           power=power, backend=backend, ring=ring)
+    return finalize_stats(st) if ring is None else (finalize_stats(st), ring)
 
 
 def simulate_stats_lanes(params, ms, num_updates: int, *, warmup: int = 0,
@@ -83,7 +97,8 @@ def simulate_stats_lanes(params, ms, num_updates: int, *, warmup: int = 0,
                          distribution: str = "exponential", power=None,
                          m_max: Optional[int] = None,
                          backend: Optional[str] = None, chunk: int = 1,
-                         draw_events: int = DRAW_EVENTS) -> EventStats:
+                         draw_events: int = DRAW_EVENTS,
+                         trace_events: int = 0):
     """Stationary statistics for ``L`` lanes through the selected backend.
 
     ``params`` is a list of per-lane :class:`NetworkParams` (or one
@@ -94,12 +109,14 @@ def simulate_stats_lanes(params, ms, num_updates: int, *, warmup: int = 0,
     list.  ``chunk`` events retire per step (megasteps; the statistics are
     bitwise those of ``chunk = 1``) and each lane draws its randomness in
     blocks of ``draw_events``.  Returns :class:`EventStats` with a leading
-    ``[L]`` lane axis.
+    ``[L]`` lane axis, or ``(EventStats, EventRing)`` when ``trace_events >
+    0`` enables the event telemetry ring (statistics bitwise unchanged).
     """
     return _lanes(NetworkParams, params, ms, num_updates, warmup=warmup,
                   keys=keys, seeds=seeds,
                   distribution=distribution, power=power, m_max=m_max,
-                  backend=backend, chunk=chunk, draw_events=draw_events)
+                  backend=backend, chunk=chunk, draw_events=draw_events,
+                  trace_events=trace_events)
 
 
 def simulate_stats_classes_lanes(classes, ms, num_updates: int, *,
@@ -109,24 +126,26 @@ def simulate_stats_classes_lanes(classes, ms, num_updates: int, *,
                                  power=None, m_max: Optional[int] = None,
                                  backend: Optional[str] = None,
                                  chunk: int = 1,
-                                 draw_events: int = DRAW_EVENTS
-                                 ) -> EventStats:
+                                 draw_events: int = DRAW_EVENTS,
+                                 trace_events: int = 0):
     """:func:`simulate_stats_lanes` for class-aggregated lanes: ``classes``
     a list of per-lane :class:`ClassParams` (or one lane-stacked with
     ``[L, C]`` leaves), ``power`` per-class profiles.  The per-client
     fields of the result are per class (``[L, C]``, occupancy ``[L,
     3C+1]``; :func:`repro_torch.core.events.expand_class_stats` expands
     them).  ``backend`` ``"batched"`` or ``"reference"``; ``"kernel"``
-    raises (no kernel exists for the class transition)."""
+    raises (no kernel exists for the class transition).  ``trace_events``
+    as in :func:`simulate_stats_lanes`, the ring's ``client`` the class."""
     return _lanes(ClassParams, classes, ms, num_updates, warmup=warmup,
                   keys=keys, seeds=seeds,
                   distribution=distribution, power=power, m_max=m_max,
-                  backend=backend, chunk=chunk, draw_events=draw_events)
+                  backend=backend, chunk=chunk, draw_events=draw_events,
+                  trace_events=trace_events)
 
 
 def _lanes(kind, params, ms, num_updates: int, *, warmup, keys, seeds,
-           distribution, power, m_max, backend, chunk,
-           draw_events) -> EventStats:
+           distribution, power, m_max, backend, chunk, draw_events,
+           trace_events):
     """Stack the lanes of ``kind`` (:class:`NetworkParams` or
     :class:`ClassParams`), their keys and power profiles, and run
     :func:`run_lanes`."""
@@ -155,14 +174,8 @@ def _lanes(kind, params, ms, num_updates: int, *, warmup, keys, seeds,
     return run_lanes(lane_params, ms, keys, int(num_updates),
                      warmup=int(warmup), distribution=distribution,
                      m_max=m_max, power=power, backend=backend,
-                     chunk=int(chunk), draw_events=int(draw_events))
-
-
-def _refuse_traces(trace_events: int) -> None:
-    if int(trace_events) > 0:
-        raise NotImplementedError(
-            f"trace_events={trace_events}: the event telemetry ring is not "
-            "ported yet (ROADMAP Queue 1 item 6)")
+                     chunk=int(chunk), draw_events=int(draw_events),
+                     trace_events=int(trace_events))
 
 
 def build_lanes_fn(backend: str, num_updates: int, warmup: int,
@@ -175,13 +188,14 @@ def build_lanes_fn(backend: str, num_updates: int, warmup: int,
     key per lane and ``power`` ``None`` when
     ``has_power`` is false, else a lane-stacked ``PowerProfile``.  ``chunk
     > 1`` retires that many events per step (bitwise the same statistics).
-    Runners are memoized per signature; ``trace_events > 0`` (the event
-    telemetry ring) raises."""
-    _refuse_traces(trace_events)
+    ``trace_events > 0`` carries an event ring of that capacity per lane:
+    the runner returns ``(EventStats, EventRing)``.  Runners are memoized
+    per signature."""
     get_law(distribution)
     return _build_lanes_fn(NetworkParams, resolve_backend(backend),
                            int(num_updates), int(warmup), distribution,
-                           int(m_max), bool(has_power), int(chunk))
+                           int(m_max), bool(has_power), int(chunk),
+                           int(trace_events))
 
 
 def build_class_lanes_fn(backend: str, num_updates: int, warmup: int,
@@ -190,7 +204,6 @@ def build_class_lanes_fn(backend: str, num_updates: int, warmup: int,
     """:func:`build_lanes_fn` for lanes of class-aggregated networks
     (lane-stacked :class:`ClassParams`, per-class power profiles).  No
     kernel exists for the class transition: ``"kernel"`` raises."""
-    _refuse_traces(trace_events)
     get_law(distribution)
     backend = resolve_backend(backend)
     if backend == "kernel":
@@ -199,14 +212,14 @@ def build_class_lanes_fn(backend: str, num_updates: int, warmup: int,
             "backend='batched' or 'reference' for class lanes")
     return _build_lanes_fn(ClassParams, backend, int(num_updates),
                            int(warmup), distribution, int(m_max),
-                           bool(has_power), int(chunk))
+                           bool(has_power), int(chunk), int(trace_events))
 
 
 @functools.lru_cache(maxsize=None)
 def _build_lanes_fn(kind, backend: str, num_updates: int, warmup: int,
                     distribution: str, m_max: int, has_power: bool,
-                    chunk: int):
-    def fn(lane_params, m_vec, keys, power) -> EventStats:
+                    chunk: int, trace_events: int):
+    def fn(lane_params, m_vec, keys, power):
         if not isinstance(lane_params, kind):
             raise TypeError(f"expected {kind.__name__} lanes, got "
                             f"{type(lane_params).__name__}")
@@ -216,6 +229,7 @@ def _build_lanes_fn(kind, backend: str, num_updates: int, warmup: int,
         return run_lanes(lane_params, [int(m) for m in m_vec],
                          keys, num_updates, warmup=warmup,
                          distribution=distribution, m_max=m_max,
-                         power=power, backend=backend, chunk=chunk)
+                         power=power, backend=backend, chunk=chunk,
+                         trace_events=trace_events)
 
     return fn

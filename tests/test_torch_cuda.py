@@ -850,6 +850,105 @@ def test_kernel_route_launches_once_per_chunk(cuda, chunk):
                         else [0, lane_launches, 0, 0])
 
 
+# the rate forms (scale, H2, lognormal), with and without power
+_RING_CASES = [("exponential", False, None), ("exponential", True, "pcs"),
+               ("hyperexponential", True, "no_pcs"),
+               ("lognormal", False, "pcs")]
+
+
+@pytest.mark.parametrize("storage", ["shared", "global"])
+@pytest.mark.parametrize("law,has_cs,power", _RING_CASES)
+@pytest.mark.parametrize("chunk", [1, 8, 32])
+def test_lane_kernel_event_ring_matches_plain_bitwise(cuda, chunk, law,
+                                                      has_cs, power,
+                                                      storage):
+    # the ring the kernel writes in its launches == the plain route's
+    # appends, bitwise; the states with the ring on == with it off; count
+    # == the kept events; a ring of 50 wraps inside the run
+    from repro_torch.obs.rings import event_ring_init
+
+    K, cap = 8, 50
+    params, pw, st, events = _lane_inputs(chunk + 60, K, _LANE_N[storage],
+                                          24, has_cs, power, law, cuda,
+                                          cap=12)
+    rng = np.random.default_rng(chunk + 61)
+    ring_k = event_ring_init(cap, lanes=K, device=cuda)
+    ring_p = event_ring_init(cap, lanes=K, device=cuda)
+    st_k = st_off = st_p = st
+    kept = torch.zeros(K, dtype=torch.int64, device=cuda)
+    steps = 120 if chunk == 1 else max(4, 240 // chunk)
+    for s in range(steps):
+        fs, cn = events(rng, chunk)
+        kw = dict(power=pw, law=law)
+        if chunk == 1:
+            keep = (None if s % 4 == 0 else
+                    torch.as_tensor(rng.random(K) < 0.8, device=cuda))
+            got = ke.event_step_lanes(params, st_k, fs[:, 0], cn[:, 0],
+                                      keep=keep, donate=s > 0, ring=ring_k,
+                                      **kw)
+            off = ke.event_step_lanes(params, st_off, fs[:, 0], cn[:, 0],
+                                      keep=keep, donate=s > 0, **kw)
+            want = E.event_step_lanes_plain(params, st_p, fs[:, 0],
+                                            cn[:, 0], keep=keep,
+                                            ring=ring_p, **kw)
+            kept += 1 if keep is None else keep.long()
+        else:
+            rem = rng.integers(0, chunk + 1, K).tolist()
+            rem[0] = chunk
+            stop = s % 2 == 1
+            got = ke.megastep_lanes(params, st_k, fs, cn, rem,
+                                    stop_on_update=stop, donate=s > 0,
+                                    ring=ring_k, **kw)
+            off = ke.megastep_lanes(params, st_off, fs, cn, rem,
+                                    stop_on_update=stop, donate=s > 0, **kw)
+            want = E.megastep_lanes_plain(params, st_p, fs, cn, rem,
+                                          stop_on_update=stop, ring=ring_p,
+                                          **kw)
+            kept += got[2].view(K, chunk, 10)[..., 9].sum(dim=1)
+        torch.cuda.synchronize()
+        _same_lanes(got, want, f"{law} step {s}")
+        _same_lanes(off, got, f"{law} step {s}, ring off")
+        st_k, st_off, st_p = got[0], off[0], want[0]
+    for name, a, b in zip(ring_k._fields, ring_k, ring_p):
+        assert torch.equal(a, b), name
+    assert ring_k.count.tolist() == kept.tolist()
+    assert int(ring_k.count.max()) > cap  # a lane wrapped
+
+
+@pytest.mark.parametrize("chunk", [1, 8])
+def test_traced_kernel_route_equals_batched_and_untraced(cuda, chunk):
+    prms = [NetworkParams(*[torch.as_tensor(x, device=cuda) for x in (
+        np.full(10, 0.1), np.linspace(1.0, 3.0, 10),
+        np.linspace(2.0, 4.0, 10), np.linspace(1.5, 2.5, 10))])] * 3
+    updates, warmup, m = 100, 20, 6
+    events = 3 * (updates + warmup) + 3 * m + 8  # run_lanes' event count
+    counter = ke.event_step_lanes if chunk == 1 else ke.megastep_lanes
+    kw = dict(warmup=warmup, chunk=chunk, trace_events=256)
+    before = counter.launches
+    got, ring = simulate_stats_lanes(prms, [m] * 3, updates,
+                                     backend="kernel", **kw)
+    assert counter.launches - before == -(-events // chunk)  # no fallback
+    want, ring_b = simulate_stats_lanes(prms, [m] * 3, updates,
+                                        backend="batched", **kw)
+    plain = simulate_stats_lanes(prms, [m] * 3, updates, warmup=warmup,
+                                 backend="kernel", chunk=chunk)
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w) and torch.equal(g, p)
+    for name, a, b in zip(ring._fields, ring, ring_b):
+        assert torch.equal(a, b), name
+    assert ring.count.tolist() == [events] * 3
+    with pytest.raises(ValueError, match="ring.time"):
+        from repro_torch.obs.rings import event_ring_init
+
+        st = E.stack_lanes([E.init_state(prms[0], m,
+                                         prng.PRNGKey(0, device=cuda))] * 3)
+        ke.event_step_lanes(E.stack_lanes(prms), st,
+                            torch.ones(3, 4, dtype=torch.float64,
+                                       device=cuda),
+                            torch.zeros(3, dtype=torch.int32, device=cuda),
+                            ring=event_ring_init(8, lanes=3, device="cpu"))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L", [1, 4])
 @pytest.mark.parametrize("N", [1, 4096, 4097, 408767])

@@ -658,17 +658,29 @@ def test_device_trainer_from_scenario_runs_each_law(law):
 
 @pytest.mark.parametrize("trace", [dict(updates=16), dict(events=8)])
 def test_device_trainer_from_scenario_refuses_rings(trace):
+    """Once a refusal; now the trainer takes the spec's update-ring
+    capacity (as the JAX package's, it keeps no event ring)."""
     clients, test = _clients()
     scn = _fl_problem(T, sim=T.SimSpec(trace=T.TraceSpec(**trace)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        teng.DeviceTrainer.from_scenario(
-            scn, tmodels.mlp_classifier(64, 4, hidden=(16,), device="cpu"),
-            clients, test_data=test, device="cpu")
-    # capacities of 0 are tracing off
-    scn = _fl_problem(T, sim=T.SimSpec(trace=T.TraceSpec()))
-    teng.DeviceTrainer.from_scenario(
+    tr = teng.DeviceTrainer.from_scenario(
         scn, tmodels.mlp_classifier(64, 4, hidden=(16,), device="cpu"),
         clients, test_data=test, device="cpu")
+    R = trace.get("updates", 0)
+    assert tr.trace_updates == R and tr.last_update_rings is None
+    logs, _ = tr.run_lanes([np.full(4, 0.25)] * 2, [3, 2], [0.05, 0.05],
+                           [0, 1], 4.0)
+    if R:
+        assert len(tr.last_update_rings) == 2
+        for ring, log in zip(tr.last_update_rings, logs):
+            assert ring.time.shape == (R,)
+            assert int(ring.count) == log.updates[-1] > 0
+    else:
+        assert tr.last_update_rings is None
+    jtr = jeng.DeviceTrainer.from_scenario(
+        J.Scenario.from_dict(scn.to_dict()),
+        jmodels.mlp_classifier(64, 4, hidden=(16,)), clients,
+        test_data=test)
+    assert jtr.trace_updates == tr.trace_updates
 
 
 def test_async_trainer_from_scenario_matches_jax():

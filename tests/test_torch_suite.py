@@ -38,6 +38,7 @@ import repro.core.numerics  # noqa: F401  (the JAX package's float64 mode)
 from repro.scenario import spec as J
 from repro.scenario import suite as JS
 from repro_torch.core import events as tev
+from repro_torch.core import prng
 from repro_torch.data import iid_partition, make_synthetic_image_dataset
 from repro_torch.fl import AsyncFLConfig, DeviceTrainer, mlp_classifier
 from repro_torch.obs import Metrics
@@ -424,10 +425,25 @@ def test_lane_runners_memoized_and_refusals():
                                     False, chunk=2)
     with pytest.raises(ValueError, match="no kernel"):
         build_class_lanes_fn("kernel", 10, 0, "exponential", 4, False)
-    for build in (build_lanes_fn, build_class_lanes_fn):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            build("batched", 10, 0, "exponential", 4, False,
-                  trace_events=8)
+    # the traced runners: memoized apart, (statistics, ring) per lane
+    cls = T.ClassSpec(mu_c=[1.0, 2.0], mu_d=[3.0, 2.5], mu_u=[2.0, 1.5],
+                      count=[2, 3]).class_params(device="cpu")
+    net = T.NetworkSpec(mu_c=[1.0, 2.0, 1.5], mu_d=[3.0] * 3,
+                        mu_u=[2.0] * 3).params(device="cpu")
+    keys = prng.seed_keys([0, 1], device="cpu")
+    for build, prm in ((build_lanes_fn, net), (build_class_lanes_fn, cls)):
+        traced = build("batched", 10, 0, "exponential", 4, False,
+                       trace_events=8)
+        assert traced is build("batched", 10, 0, "exponential", 4, False,
+                               trace_events=8)
+        assert traced is not build("batched", 10, 0, "exponential", 4,
+                                   False)
+        stats, ring = traced(tev.stack_lanes([prm] * 2), [3, 4], keys, None)
+        assert ring.time.shape == (2, 8)
+        assert ring.count.tolist() == [3 * 10 + 3 * 4 + 8] * 2
+        plain = build("batched", 10, 0, "exponential", 4, False)(
+            tev.stack_lanes([prm] * 2), [3, 4], keys, None)
+        _assert_stats_equal(stats, plain, build.__name__)
     with pytest.raises(ValueError, match="unknown sim backend"):
         build_lanes_fn("pallas", 10, 0, "exponential", 4, False)
 
@@ -551,15 +567,40 @@ def test_to_dict_matches_jax():
 @pytest.mark.parametrize("mode,trace", [("simulate", dict(events=8)),
                                         ("train", dict(updates=16))])
 def test_rings_raise_naming_item_6(mode, trace):
-    scn = T.Scenario(network=T.NetworkSpec.from_clusters(
-        T.PAPER_CLUSTERS_TABLE1, 10), sim=T.SimSpec(trace=T.TraceSpec(
-            **trace)), data=T.DataSpec())
-    suite = TS.ScenarioSuite(scn, device="cpu")
+    """Once a refusal; now the traced runs: ``traces`` (and in
+    ``simulate`` the ``drift`` reports) come back with the entries, bitwise
+    again from the result cache, a class network's rings per class."""
+    sim = T.SimSpec(trace=T.TraceSpec(**trace))
+    scns = {"table1": T.Scenario(network=T.NetworkSpec.from_clusters(
+        T.PAPER_CLUSTERS_TABLE1, 10), sim=sim, data=T.DataSpec())}
+    if mode == "simulate":
+        scns["classes"] = T.Scenario(
+            network=T.NetworkSpec(classes=T.ClassSpec(
+                mu_c=[1.0, 2.0], mu_d=[3.0, 2.5], mu_u=[2.0, 1.5],
+                count=[2, 3])), sim=sim)
+    suite = TS.ScenarioSuite(scns, seeds=(0, 1), device="cpu")
     kw = (dict(num_updates=10) if mode == "simulate"
           else dict(model=mlp_classifier(28 * 28, 4, device="cpu"),
                     horizon_time=1.0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        suite.run(mode=mode, **kw)
+    first = suite.run(mode=mode, **kw)
+    again = suite.run(mode=mode, **kw)
+    assert again.cache_hits == len(scns) and first.cache_hits == 0
+    cap = trace.get("events", trace.get("updates"))
+    for name in scns:
+        assert len(first.traces[name]) == 2
+        for a, b in zip(first.traces[name], again.traces[name]):
+            assert a["capacity"] == cap and a["count"] > 0
+            assert a.keys() == b.keys() and all(
+                np.array_equal(a[k], b[k]) for k in a)
+    if mode == "simulate":
+        assert first.drift == again.drift
+        assert set(first.drift) == set(scns)
+        C = 2  # class rings: class indices, the [3C+1] station layout
+        for d in first.traces["classes"]:
+            assert d["client"].max() < C and d["station"].max() <= 3 * C
+        assert len(first.drift["classes"][0]["checks"]) > 0
+    else:
+        assert first.drift is None
     assert suite.run(mode="analyze").traces is None
 
 
