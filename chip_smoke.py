@@ -48,10 +48,10 @@ every seed is a ``jax.random`` key, :mod:`repro_torch.core.prng`):
      ``simulate_stats_lanes`` at the optimum on 6 seed lanes (1,500 updates
      after 400 of warm-up) on the ``kernel`` backend at chunk E = 1, 8 and
      32, at m* and at m = 132 (every statistic bitwise equal across E;
-     lane-mean throughput within 10% of Prop. 4), runs of 300 updates with
-     a power profile at E = 1, 8 and 32 and on ``batched`` (bitwise) and
-     without it at E = 1, 8 and 32 (the same trajectory) and on
-     ``batched`` at E = 1 (bitwise), and ``next_update`` on 6 lanes for
+     lane-mean throughput within 10% of Prop. 4), runs of 300 updates
+     after 50 with a power profile at E = 1, 8 and 32 and on ``batched``
+     (bitwise) and without it at E = 1, 8 and 32 (the same trajectory) and
+     on ``batched`` at E = 1 (bitwise), and ``next_update`` on 6 lanes for
      200 updates at chunk 1 and 8 (the updates and final states bitwise).
      Each ``kernel`` run must launch its lane kernel exactly ceil(events /
      E) times and no transition-only kernel, and every run the key-chain
@@ -77,8 +77,9 @@ every seed is a ``jax.random`` key, :mod:`repro_torch.core.prng`):
      beside their plain versions and the transition-only kernels;
   6. the device-busy share of short windows of the sweep (per client and,
      at n = 1e6, per class) and the lane
-     simulation on each backend and at E = 1, 8 and 32 (profiler device
-     time over the wall time of the same traced call), with the wall time
+     simulation on each backend and at E = 1, 8 and 32 (200 updates, 50 on
+     ``batched``; profiler device time over the wall time of the same
+     traced call), with the wall time
      per lock-step event of an untraced call, and of
      the ``kernel`` lane simulation with a power profile at E = 1 and 8
      (the energy integral on; its trajectory must equal the run without
@@ -120,10 +121,10 @@ every seed is a ``jax.random`` key, :mod:`repro_torch.core.prng`):
      ``simulate_stats_classes_lanes`` at the n = 1e6 optimum on 6 seed
      lanes (2,000 updates after 400 of warm-up at chunk 1, ``batched``:
      lane-mean throughput within 10% of Prop. 4; a pair of 300-update runs
-     at chunk 1 and 8, bitwise; 300 updates with a per-class power profile:
-     the pair's trajectory, finite positive energy), and at the n = 100
-     optimum (300 updates) for the wall ms per lock-step event beside
-     n = 1e6;
+     after 50 at chunk 1 and 8, bitwise; 300 updates after 50 with a
+     per-class power profile: the pair's trajectory, finite positive
+     energy), and at the n = 100 optimum (300 updates after 50) for the
+     wall ms per lock-step event beside n = 1e6;
   9. the dense LM's prefill (Qwen3-8B, ``configs/qwen3_8b.py``): (a) the
      flash-attention kernel (bfloat16 on ``wgmma`` with TMA-fed tiles,
      float32 on the FFMA units) against its plain version, float32 within
@@ -311,6 +312,26 @@ every seed is a ``jax.random`` key, :mod:`repro_torch.core.prng`):
      exiting 0; (e) the lane kernel's device ms per lock-step event with
      the ring on and off (E = 1 and 8), beside the wall ms per lock-step
      event of (a)'s runs.
+ 17. the suite server (``repro_torch.serve``) on the card, both routes
+     ``kernel`` process-wide: (a) an in-process ``Server`` on a unix socket
+     (``max_wait`` 0.05 s) and two concurrent clients: two explicit
+     ``simulate`` requests at (p*, m* = 33), Table 1 (n = 100) and its
+     first 49 clients, 4 seeds each, 3,000 updates after 1,000 at E = 8,
+     coalesced into one dispatch of 8 lanes; ``analyze`` of Table 1 and of
+     the n = 1e6 class set under ``time_opt`` (m_max = 132, 200 steps);
+     ``train`` of ``asyncsgd`` and ``time_opt`` (2 seeds each) with the
+     MLP at ``mlp_classifier``'s default widths on the EMNIST stand-in, a
+     horizon of 50 / lambda*.  The launch counters are zeroed just before
+     the requests and read just after: kernels 1, 1b, 2, 3, 4, 5, 5b and 8
+     must each have launched.  Each repeat is a cache hit at admission with
+     no launch; a malformed line, an ``m_max`` over ``MAX_M`` and a class
+     ``simulate`` on ``kernel`` are structured errors, after which the
+     server answers bitwise; ``stats``, ``metrics`` and ``shutdown``
+     (drained); every payload bitwise a direct ``ScenarioSuite.run``.  (b)
+     a warm restart: two processes boot the server over one empty build
+     directory (``enable_build_cache``, ``prebuild``) and answer one
+     ``analyze``: the first builds, the second builds nothing, the payloads
+     bitwise equal.
 
 Phase 3 also holds the fused-update kernel against its plain version
 (bitwise on the new parameters, ``rtol 1e-5`` on the squared norm) at
@@ -358,6 +379,12 @@ CLASS_OPS_PER_TERM = 5
 PHASE4_UPDATES = 1500
 POWER_UPDATES = 300
 WINDOW_UPDATES = 200
+# the warm-up of the runs that only compare trajectories bitwise (phase
+# 4's power and plain-route runs, phase 8's class pair, power and n = 100
+# runs; their depth is not a gate) and phase 6's depth on the plain
+# route, whose window is timing only: cut so that phase 17 fits the clock
+PAIR_WARMUP = 50
+BATCHED_WINDOW_UPDATES = 50
 # phase 12's strategy grid on the event engine: deep enough for every
 # strategy's lanes to leave their start-up transient (Prop. 4's gate), and
 # its CNN lanes' round cap
@@ -468,6 +495,39 @@ THREEFRY_OPS = 20 * 3 + 5 * 3 + 2
 OBS_UPDATES = 12_000
 OBS_RING = 65_536
 OBS_SHORT = 150
+
+# phase 17's simulate pair (updates after warm-up), and the process of
+# 17b: it boots the server on the card over the kernels' build directory
+# argv[1] (prebuilt as ``python -m repro_torch.serve`` does at boot),
+# answers one analyze on a socket in argv[2] and reports its builds
+SERVE_UPDATES, SERVE_WARMUP = 3000, 1000
+RESTART_SCRIPT = r"""
+import json, os, sys
+from repro_torch.serve.build_cache import enable_build_cache, prebuild
+enable_build_cache(sys.argv[1])
+prebuild("cuda")
+from repro_torch import sim
+from repro_torch.core import buzen
+from repro_torch.kernels import build
+from repro_torch.kernels import buzen as kb
+from repro_torch.scenario import (PAPER_CLUSTERS_TABLE1, NetworkSpec,
+                                  Scenario, StrategySpec)
+from repro_torch.serve.client import ServeClient
+from repro_torch.serve.server import ServeConfig, Server
+buzen.set_backend("kernel")
+sim.set_backend("kernel")
+sock = os.path.join(sys.argv[2], "restart.sock")
+server = Server(ServeConfig(socket_path=sock, max_wait=0.02))
+server.start()
+scn = Scenario(network=NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1),
+               strategy=StrategySpec("asyncsgd"))
+with ServeClient(sock, timeout=300) as c:
+    payload = c.run(scn, mode="analyze")
+server.stop()
+print(json.dumps({"builds": len(build.spans()),
+                  "launches": kb.buzen_batched.launches,
+                  "payload": payload}))
+"""
 
 # the five tables, the event times and the descriptors a transition returns
 TABLE_OUT = ("finish", "phase", "client", "seq", "disp_round", "t", "desc")
@@ -1106,15 +1166,15 @@ def class_phase(dev, consts, net, res_k, M: int) -> tuple:
     log(f"phase 8: class forms == per-client forms at the class optimum "
         f"(n=100; max rel err {worst:.3g})")
 
-    def simulate(n, cp, m, chunk, updates=2000, power=None):
+    def simulate(n, cp, m, chunk, updates=2000, power=None, warmup=400):
         t0 = time.perf_counter()
         out = simulate_stats_classes_lanes([cp] * 6, [m] * 6, updates,
-                                           warmup=400, seeds=range(6),
+                                           warmup=warmup, seeds=range(6),
                                            backend="batched", chunk=chunk,
                                            power=power)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        events = 3 * (updates + 400) + 3 * m + 8
+        events = 3 * (updates + warmup) + 3 * m + 8
         log(f"phase 8: simulate_stats_classes_lanes[batched, n={n}, m={m}, "
             f"E={chunk}{', power' if power is not None else ''}] "
             f"{wall:.2f} s, {1e3 * wall / events:.4f} ms per lock-step "
@@ -1127,8 +1187,9 @@ def class_phase(dev, consts, net, res_k, M: int) -> tuple:
     # the throughput check on a long E = 1 run; E = 8 changes only the
     # draw cursor's window on class lanes, checked bitwise on a short pair
     e1 = simulate(10**6, cp_star, m_star, 1)
-    s1 = simulate(10**6, cp_star, m_star, 1, updates=PAIR_UPDATES)
-    s8 = simulate(10**6, cp_star, m_star, 8, updates=PAIR_UPDATES)
+    pair = dict(updates=PAIR_UPDATES, warmup=PAIR_WARMUP)
+    s1 = simulate(10**6, cp_star, m_star, 1, **pair)
+    s8 = simulate(10**6, cp_star, m_star, 8, **pair)
     for name, a, b in zip(s1._fields, s1, s8):
         check(torch.equal(a, b), f"class lanes E=8 != E=1 ({name})")
     logZ = class_log_normalizing_constants(cp_star, M, backend="torch")
@@ -1139,15 +1200,14 @@ def class_phase(dev, consts, net, res_k, M: int) -> tuple:
     np.testing.assert_allclose(e1.mean_queue_counts.sum(-1).cpu().numpy(),
                                m_star, rtol=1e-9)
     # the power run against the pair's E = 8 run: the same trajectory
-    pw = simulate(10**6, cp_star, m_star, 1, updates=PAIR_UPDATES,
-                  power=power_c)
+    pw = simulate(10**6, cp_star, m_star, 1, power=power_c, **pair)
     check(torch.equal(pw.throughput, s8.throughput)
           and torch.equal(pw.mean_queue_counts, s8.mean_queue_counts),
           "power changed the class trajectory")
     check(bool(torch.isfinite(pw.energy).all() and (pw.energy > 0).all()),
           f"class lanes energy {pw.energy.tolist()}")
     small = simulate(100, classes[100]._replace(p=r100.p.detach()), r100.m,
-                     8, updates=POWER_UPDATES)
+                     8, updates=POWER_UPDATES, warmup=PAIR_WARMUP)
     ex = expand_class_stats(small, classes[100].count)
     check(ex.mean_delay.shape == (6, 100), "expand_class_stats shape")
     main_s = time.perf_counter() - t_main
@@ -2745,6 +2805,250 @@ def obs_phase(dev, card: str, p_star, m_star: int, lam_star: float) -> None:
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
 
 
+def serve_phase(dev, card: str, p_star, m_star: int, lam_star: float,
+                big_spec, M: int) -> None:
+    """Phase 17 (see the module docstring): the suite server
+    (``repro_torch.serve``) on the card, in process and across a warm
+    restart; both routes ``kernel`` process-wide for the phase, restored
+    after it."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import sim
+    from repro_torch.core import buzen as cbz
+    from repro_torch.fl.models import mlp_classifier
+    from repro_torch.kernels import buzen as kb
+    from repro_torch.kernels import events as ke
+    from repro_torch.kernels import fused_update as kf
+    from repro_torch.kernels import threefry as ktf
+    from repro_torch.scenario import (PAPER_CLUSTERS_TABLE1, DataSpec,
+                                      NetworkSpec, Scenario, ScenarioSuite,
+                                      SimSpec, StrategySpec)
+    from repro_torch.serve.client import ServeClient
+    from repro_torch.serve.protocol import MAX_M, encode_entry
+    from repro_torch.serve.server import ServeConfig, Server
+
+    t_phase = time.perf_counter()
+    counted = {"buzen": kb.buzen_batched,
+               "buzen_backward": kb.buzen_log_Z_backward,
+               "buzen_classes": kb.buzen_classes_batched,
+               "buzen_classes_backward": kb.buzen_classes_log_Z_backward,
+               "event_step": ke.event_step_lanes,
+               "megastep": ke.megastep_lanes,
+               "fused_update": kf.fused_async_update_flat,
+               "threefry": ktf.chain_words}
+
+    def snap():
+        return {k: c.launches for k, c in counted.items()}
+
+    def since(before):
+        got = {k: c.launches - before[k] for k, c in counted.items()}
+        return {k: v for k, v in got.items() if v}
+
+    table1 = NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1)
+    p_np = p_star.p.detach().cpu().numpy().astype(np.float64)
+    p49 = p_np[:49] / p_np[:49].sum()
+    first49 = NetworkSpec(mu_c=table1.mu_c[:49], mu_d=table1.mu_d[:49],
+                          mu_u=table1.mu_u[:49])
+    time_opt = StrategySpec("time_opt", m_max=M, steps=200)
+    data = DataSpec(dataset="emnist", partition="dirichlet", alpha=0.2,
+                    num_classes=47, samples_per_class=200,
+                    test_fraction=0.2)
+    horizon = 50.0 / lam_star
+    model = {"kind": "mlp", "input_dim": 28 * 28, "num_classes": 47,
+             "hidden": [256, 128]}  # mlp_classifier's default widths
+    sim_opts = dict(num_updates=SERVE_UPDATES, warmup=SERVE_WARMUP)
+    train_opts = dict(horizon_time=horizon, max_updates=TRAIN_CAP,
+                      batch_size=32, eval_every_time=horizon / 4,
+                      model=model)
+    seeds4, seeds2 = (0, 1, 2, 3), (0, 1)
+    # (label, client, scenario, mode, seeds, options), in submit order: the
+    # two simulates first, so they share the first micro-batch window
+    reqs = [
+        ("simulate n=100", 0, Scenario(
+            network=table1, strategy=StrategySpec(
+                "explicit", p=p_np.tolist(), m=m_star),
+            sim=SimSpec(chunk=8)), "simulate", seeds4, sim_opts),
+        ("simulate n=49", 1, Scenario(
+            network=first49, strategy=StrategySpec(
+                "explicit", p=p49.tolist(), m=m_star),
+            sim=SimSpec(chunk=8)), "simulate", seeds4, sim_opts),
+        ("analyze n=100 time_opt", 0, Scenario(
+            network=table1, strategy=time_opt), "analyze", (0,), {}),
+        ("analyze classes n=1e6 time_opt", 1, Scenario(
+            network=NetworkSpec(classes=big_spec), strategy=time_opt),
+         "analyze", (0,), {}),
+        ("train asyncsgd", 0, Scenario(
+            network=table1, strategy=StrategySpec("asyncsgd"), data=data),
+         "train", seeds2, train_opts),
+        ("train time_opt", 1, Scenario(
+            network=table1, strategy=time_opt, data=data), "train", seeds2,
+         train_opts),
+    ]
+
+    def direct(scn, mode, seeds, options):
+        options = dict(options)
+        if mode == "train":
+            spec = options.pop("model")
+            options["model"] = mlp_classifier(
+                spec["input_dim"], spec["num_classes"],
+                hidden=tuple(spec["hidden"]), device=dev)
+        (entry,) = ScenarioSuite(scn, seeds=seeds, device=dev).run(
+            mode=mode, **options).entries.values()
+        return encode_entry(mode, entry)
+
+    saved = cbz.get_backend(), sim.get_backend()
+    cbz.set_backend("kernel")
+    sim.set_backend("kernel")
+    scratch = tempfile.TemporaryDirectory(prefix="serve17-")
+    tmp = scratch.name
+    sock = os.path.join(tmp, "s.sock")
+    try:
+        # -- 17a. the server in process: coalescing, cache, errors --------
+        server = Server(ServeConfig(socket_path=sock, max_wait=0.05,
+                                    device="cuda"))
+        server.start()
+        with ServeClient(sock, timeout=180) as a, \
+                ServeClient(sock, timeout=180) as b:
+            clients = (a, b)
+            for c in counted.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            ids = [clients[ci].submit(scn, mode=mode, seeds=seeds, **opts)
+                   for _, ci, scn, mode, seeds, opts in reqs]
+            served, wall = [], []
+            for (label, ci, _, _, _, _), rid in zip(reqs, ids):
+                served.append(clients[ci].unwrap(clients[ci].collect(rid)))
+                wall.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            launched = since({k: 0 for k in counted})
+            sched = [[e for e in clients[ci].events_for(rid)
+                      if e["event"] == "scheduled"]
+                     for (_, ci, *_), rid in zip(reqs, ids)]
+            check(all(len(s) == 1 for s in sched),
+                  f"17a: scheduled events {sched}")
+            check(sched[0][0]["requests"] == 2 and sched[0][0]["lanes"] == 8
+                  and sched[1][0] == sched[0][0],
+                  f"17a: the two simulates did not coalesce into one "
+                  f"dispatch of 8 lanes: {sched[0]}, {sched[1]}")
+            check(all(launched.get(k, 0) > 0 for k in counted),
+                  f"17a: a kernel of the served path did not launch: "
+                  f"{launched}")
+            log(f"phase 17: served 6 requests over 2 connections ({card}): "
+                + "; ".join(f"{lb} {w:.2f} s ({s[0]['requests']} req / "
+                            f"{s[0]['lanes']} lanes)"
+                            for (lb, *_), w, s in zip(reqs, wall, sched))
+                + f" (seconds since the first submit); launches "
+                f"{launched}")
+
+            # each repeat: answered at admission, nothing launched
+            rep_ms = []
+            before = snap()
+            for (label, ci, scn, mode, seeds, opts), first in zip(reqs,
+                                                                  served):
+                t1 = time.perf_counter()
+                rid = clients[ci].submit(scn, mode=mode, seeds=seeds, **opts)
+                msg = clients[ci].collect(rid)
+                rep_ms.append(1e3 * (time.perf_counter() - t1))
+                check(msg.get("cached") is True
+                      and clients[ci].events_for(rid) == []
+                      and json.dumps(clients[ci].unwrap(msg))
+                      == json.dumps(first),
+                      f"17a: the repeat of {label} was not a cache hit")
+            torch.cuda.synchronize()
+            check(not since(before),
+                  f"17a: repeats launched {since(before)}")
+            log(f"phase 17: 6 repeats cached at admission, 0 launches, ms "
+                f"{[round(x, 3) for x in rep_ms]}")
+
+            # provoked errors: each structured, the server serves on
+            probe = Scenario(network=table1, strategy=StrategySpec(
+                "explicit", p=p_np.tolist(), m=m_star))
+            a.send_raw(b'{"id": "oops", not json\n')
+            bad = [a.collect(None)]
+            rid = a.submit(probe, mode="simulate", num_updates=10,
+                           m_max=MAX_M + 1)
+            bad.append(a.collect(rid))
+            rid = a.submit(reqs[3][2], mode="simulate", num_updates=10)
+            bad.append(a.collect(rid))
+            check([m.get("event") for m in bad] == ["error"] * 3
+                  and [m["error"]["type"] for m in bad]
+                  == ["ProtocolError", "ProtocolError", "ValueError"]
+                  and "no kernel" in bad[2]["error"]["message"],
+                  f"17a: provoked errors {bad}")
+            t1 = time.perf_counter()
+            after = a.run(probe, mode="analyze")
+            probe_s = time.perf_counter() - t1
+            check(json.dumps(after) == json.dumps(
+                direct(probe, "analyze", (0,), {})),
+                "17a: the analyze after the errors != the direct run")
+            log(f"phase 17: malformed line, m_max {MAX_M + 1} and a class "
+                f"simulate on kernel each a structured error "
+                f"({[m['error']['type'] for m in bad]}); the next analyze "
+                f"answered bitwise ({probe_s:.3f} s)")
+            st = b.stats()
+            text = b.metrics()
+            hits = sum(v for k, v in st["counters"].items()
+                       if k.startswith("serve.cache_hits"))
+            check(hits == 6 and "serve_requests" in text,
+                  f"17a: stats {st['counters']}")
+            lat = {k: round(v["p50"], 4) for k, v in st["latency"].items()
+                   if k.startswith("serve.request_latency")}
+            log(f"phase 17: stats: {hits} cache hits, request latency p50 s "
+                f"{lat}; metrics {len(text.splitlines())} lines")
+            check(a.shutdown() == "draining", "17a: shutdown")
+        check(server._stopped.wait(timeout=120) and not os.path.exists(sock),
+              "17a: the server did not drain")
+
+        # every payload bitwise a direct ScenarioSuite.run on these routes
+        t1 = time.perf_counter()
+        for (label, _, scn, mode, seeds, opts), got in zip(reqs, served):
+            check(json.dumps(got) == json.dumps(direct(scn, mode, seeds,
+                                                       opts)),
+                  f"17a: {label}: the served payload != the direct run")
+        log(f"phase 17: every served payload == its direct "
+            f"ScenarioSuite.run bitwise ({time.perf_counter() - t1:.2f} s "
+            f"for the direct runs); train updates "
+            f"{[lg['updates'][-1] for p in served[4:] for lg in p]}, "
+            f"simulate throughput "
+            f"{[round(st['throughput'], 4) for p in served[:2] for st in p]}")
+
+        # -- 17b. a warm restart: the second boot builds nothing ----------
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src")] + [x for x in [os.environ.get("PYTHONPATH")]
+                                   if x]))
+        build_dir = os.path.join(tmp, "build")
+        boots = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-c", RESTART_SCRIPT,
+                                  build_dir, tmp], capture_output=True,
+                                 text=True, timeout=300, env=env)
+            check(out.returncode == 0,
+                  f"17b: the restart process exited {out.returncode}: "
+                  f"{out.stderr[-2000:]}")
+            boots.append((json.loads(out.stdout.strip().splitlines()[-1]),
+                          time.perf_counter() - t1))
+        (cold, cold_s), (warm, warm_s) = boots
+        check(cold["builds"] > 0 and warm["builds"] == 0,
+              f"17b: builds at boot {cold['builds']}, then {warm['builds']}")
+        check(cold["launches"] > 0 and warm["launches"] > 0,
+              f"17b: Buzen launches {cold['launches']}, {warm['launches']}")
+        check(json.dumps(cold["payload"]) == json.dumps(warm["payload"]),
+              "17b: the restarted server's payload differs")
+        log(f"phase 17: warm restart: {cold['builds']} builds at the first "
+            f"boot ({cold_s:.1f} s for the process), {warm['builds']} at "
+            f"the second ({warm_s:.1f} s); payloads bitwise equal")
+    finally:
+        cbz.set_backend(saved[0])
+        sim.set_backend(saved[1])
+        scratch.cleanup()
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+
 def lm_phase(dev, card: str, seed: int) -> dict:
     """Phase 9 (see the module docstring); returns kernel 6's record with
     its launches on one full-depth prefill."""
@@ -3557,17 +3861,17 @@ def main() -> int:
 
     p_star = net._replace(p=res_k.p.detach())
     m_star = res_k.m
-    sim_kw = dict(warmup=400, seeds=range(6))
     sim_ms = {}  # wall ms per lock-step event
 
-    def simulate(m, be, chunk, updates=PHASE4_UPDATES, **kw):
+    def simulate(m, be, chunk, updates=PHASE4_UPDATES, warmup=400, **kw):
         before = [c.launches for c in counted]
         t0 = time.perf_counter()
         out = simulate_stats_lanes([p_star] * 6, [m] * 6, updates,
-                                   backend=be, chunk=chunk, **sim_kw, **kw)
+                                   backend=be, chunk=chunk, warmup=warmup,
+                                   seeds=range(6), **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        events = 3 * (updates + 400) + 3 * m + 8
+        events = 3 * (updates + warmup) + 3 * m + 8
         sim_ms[(m, be, chunk, "power" in kw)] = 1e3 * wall / events
         # the kernel route: one lane-kernel launch per chunk of events, no
         # transition-only launch; the plain route launches nothing
@@ -3606,24 +3910,24 @@ def main() -> int:
             f"throughput lanes {lam_sim:.6g} vs Prop. 4 {lam:.6g}")
     ones = torch.ones(n, dtype=torch.float64, device=dev)
     power = PowerProfile(P_c=2.0 * ones, P_u=ones, P_d=0.5 * ones)
-    pw1 = simulate(m_star, "kernel", 1, updates=POWER_UPDATES, power=power)
+    short = dict(updates=POWER_UPDATES, warmup=PAIR_WARMUP)
+    pw1 = simulate(m_star, "kernel", 1, power=power, **short)
     for chunk in (8, 32):
-        got = simulate(m_star, "kernel", chunk, updates=POWER_UPDATES,
-                       power=power)
+        got = simulate(m_star, "kernel", chunk, power=power, **short)
         check(all(torch.equal(a, b) for a, b in zip(pw1, got)),
               f"simulate with power: E={chunk} != E=1")
     # the energy integral on the card's DFMA against the plain route's
     # emulated fused multiply-adds
-    got = simulate(m_star, "batched", 1, updates=POWER_UPDATES, power=power)
+    got = simulate(m_star, "batched", 1, power=power, **short)
     check(all(torch.equal(a, b) for a, b in zip(pw1, got)),
           "simulate with power: kernel != batched")
     for chunk in (1, 8, 32):  # the same depth without power, for the ratio
-        got = simulate(m_star, "kernel", chunk, updates=POWER_UPDATES)
+        got = simulate(m_star, "kernel", chunk, **short)
         check(torch.equal(got.throughput, pw1.throughput)
               and torch.equal(got.mean_queue_counts, pw1.mean_queue_counts),
               f"power changed the simulated trajectory (E={chunk})")
         if chunk == 1:  # the plain route, at this depth
-            plain = simulate(m_star, "batched", 1, updates=POWER_UPDATES)
+            plain = simulate(m_star, "batched", 1, **short)
             check(all(torch.equal(a, b) for a, b in zip(got, plain)),
                   "simulate kernel vs batched not bitwise")
     check(bool(torch.isfinite(pw1.energy).all() and (pw1.energy > 0).all()),
@@ -3990,16 +4294,16 @@ def main() -> int:
          lambda: time_optimal_classes(cls_big, consts, M, steps=5,
                                       backend="kernel"), None)]
     W = WINDOW_UPDATES
-    sim_events = 3 * W + 3 * m_star + 8
     for be, chunk, pw in (("kernel", 1, None), ("kernel", 8, None),
                           ("kernel", 32, None), ("batched", 1, None),
                           ("kernel", 1, power), ("kernel", 8, power)):
+        u = BATCHED_WINDOW_UPDATES if be == "batched" else W
         windows.append((
             f"simulate[{be}, E={chunk}{', power' if pw else ''}] 6 lanes "
-            f"x {W} updates",
-            lambda be=be, chunk=chunk, pw=pw: simulate_stats_lanes(
-                [p_star] * 6, [m_star] * 6, W, seeds=range(6), power=pw,
-                backend=be, chunk=chunk), sim_events))
+            f"x {u} updates",
+            lambda be=be, chunk=chunk, pw=pw, u=u: simulate_stats_lanes(
+                [p_star] * 6, [m_star] * 6, u, seeds=range(6), power=pw,
+                backend=be, chunk=chunk), 3 * u + 3 * m_star + 8))
     for name, fn, events in windows:
         fn()  # warm
         torch.cuda.synchronize()
@@ -4062,12 +4366,15 @@ def main() -> int:
     # -- 16. the telemetry rings, the drift monitors, the obs CLI ---------
     obs_phase(dev, card, p_star, m_star, lam_star)
 
+    # -- 17. the suite server: in process, then a warm restart -----------
+    serve_phase(dev, card, p_star, m_star, lam_star, big_spec, M)
+
     # -- 9. the dense LM's prefill: Qwen3-8B, kernel 6 ---------------------
     flash_rec = lm_phase(dev, card, seed)
 
     # -- 10. the dense LM's decode and the serve loop, kernel 7 -----------
     decode_rec = decode_phase(dev, card, seed)
-    log(f"chip_smoke: phases 1-16 passed in "
+    log(f"chip_smoke: phases 1-17 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [buzen_rec, bwd_rec, event_rec, mega_rec,

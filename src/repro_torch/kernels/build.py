@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with :mod:`ctypes` (no PyTorch
 headers, so a build takes seconds).  Libraries go to ``build/`` at the repo
-root, keyed by a hash of the source, the shared headers (``csrc/*.cuh``)
-and the flags, and are built at first use — never at import.
+root (or the directory given to :func:`set_build_dir`), keyed by a hash of
+the source, the shared headers (``csrc/*.cuh``) and the flags, and are
+built at first use — never at import.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all
 of them.  :func:`spans` lists the builds this process ran, the compile
 spans of a Perfetto trace (``repro_torch.obs.trace``).
@@ -22,7 +23,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -65,6 +67,14 @@ def library_path(name: str) -> Path:
     digest = hashlib.sha256(
         src + " ".join(_ARCH + _COMMON + FLAGS[name]).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def set_build_dir(path) -> Path:
+    """Put the libraries in ``path`` from now on (created on first build);
+    returns it.  The sources stay those of ``csrc``."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).expanduser().resolve()
+    return BUILD_DIR
 
 
 def spans() -> list:

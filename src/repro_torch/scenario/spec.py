@@ -28,10 +28,10 @@ scenario gives the same :meth:`Scenario.to_json` string and the same
 
 Validation is eager: unknown timing laws, strategies, objectives,
 backends or malformed shapes raise at construction, listing the
-registered options.  The port registers the ``exponential`` and
-``deterministic`` laws and the ``reference``, ``batched`` and ``kernel``
-sim backends; it has no interpret mode, so ``SimSpec.interpret`` must be
-``None``.
+registered options.  The port registers the ``exponential``,
+``deterministic``, ``lognormal`` and ``hyperexponential`` laws and the
+``reference``, ``batched`` and ``kernel`` sim backends; it has no
+interpret mode, so ``SimSpec.interpret`` must be ``None``.
 """
 from __future__ import annotations
 

@@ -1784,3 +1784,154 @@ def test_jump_chain_throughput_on_the_card(cuda, mu_cs, chunk):
     np.testing.assert_array_equal(counts,
                                   st.mean_queue_counts[:-1].cpu().numpy())
     assert counts.shape == (3 * net.n,)
+
+
+# ---------------------------------------------------------------------------
+# the suite server on the card (repro_torch.serve)
+# ---------------------------------------------------------------------------
+
+_SERVE_MODEL = {"kind": "mlp", "input_dim": 28 * 28, "num_classes": 2,
+                "hidden": [4]}
+_SERVE_KERNELS = (kb.buzen_batched, ke.event_step_lanes, ke.megastep_lanes,
+                  kf.fused_async_update_flat, ktf.chain_words)
+
+
+def _serve_scenario(n, seed, chunk=1):
+    from repro_torch.scenario import (DataSpec, NetworkSpec, Scenario,
+                                      SimSpec, StrategySpec)
+
+    rng = np.random.default_rng(seed)
+    return Scenario(
+        network=NetworkSpec(mu_c=list(rng.uniform(1.0, 2.0, n)),
+                            mu_d=[2.0] * n, mu_u=[2.0] * n),
+        strategy=StrategySpec("explicit", p=list(np.full(n, 1.0 / n)), m=2),
+        data=DataSpec(dataset="synthetic", num_classes=2,
+                      samples_per_class=6),
+        sim=None if chunk == 1 else SimSpec(chunk=chunk))
+
+
+@pytest.fixture(scope="module")
+def served_on_card(tmp_path_factory):
+    """A server on the card with both routes on ``kernel`` (the CLI's
+    defaults there), the process-wide routes restored after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import sim
+    from repro_torch.core import buzen as cbz
+    from repro_torch.serve.server import ServeConfig, Server
+
+    saved = cbz.get_backend(), sim.get_backend()
+    cbz.set_backend("kernel")
+    sim.set_backend("kernel")
+    sock = str(tmp_path_factory.mktemp("serve") / "s.sock")
+    server = Server(ServeConfig(socket_path=sock, max_wait=0.25,
+                                device="cuda"))
+    server.start()
+    yield sock
+    server.stop()
+    cbz.set_backend(saved[0])
+    sim.set_backend(saved[1])
+
+
+@pytest.mark.parametrize("mode", ["analyze", "simulate", "train"])
+def test_serve_on_the_card_bitwise_and_repeats_launch_nothing(
+        served_on_card, mode):
+    """Served payloads are bitwise a direct ``ScenarioSuite.run`` on the
+    card on the same routes (a mixed-``n`` simulate pair coalesced into
+    one dispatch on the lane kernel); a repeat is answered from the
+    response cache and launches no kernel."""
+    import json
+
+    from repro_torch.fl.models import mlp_classifier
+    from repro_torch.scenario import ScenarioSuite
+    from repro_torch.serve.client import ServeClient
+    from repro_torch.serve.protocol import encode_entry
+
+    opts = {"analyze": {}, "simulate": dict(num_updates=200, warmup=20),
+            "train": dict(horizon_time=4.0, batch_size=4,
+                          eval_every_time=2.0, model=_SERVE_MODEL)}[mode]
+    scns = [_serve_scenario(3, 60, chunk=8), _serve_scenario(5, 61, chunk=8)]
+    for k in _SERVE_KERNELS:
+        k.launches = 0
+    with ServeClient(served_on_card, timeout=300) as a, \
+            ServeClient(served_on_card, timeout=300) as b:
+        ids = [c.submit(s, mode=mode, seeds=(0, 1), **opts)
+               for c, s in zip((a, b), scns)]
+        got = [c.unwrap(c.collect(r)) for c, r in zip((a, b), ids)]
+        sched = [e for e in a.events_for(ids[0]) if e["event"] == "scheduled"]
+        launched = {k.__name__: k.launches for k in _SERVE_KERNELS}
+        assert sched[0]["requests"] == 2 and sched[0]["lanes"] == 4
+        rep = a.collect(a.submit(scns[0], mode=mode, seeds=(0, 1), **opts))
+        assert rep["cached"] is True and rep["value"] == got[0]
+        assert {k.__name__: k.launches for k in _SERVE_KERNELS} == launched
+    want_kernels = {"analyze": ("buzen_batched",),
+                    "simulate": ("megastep_lanes", "chain_words"),
+                    "train": ("megastep_lanes", "fused_async_update_flat",
+                              "chain_words")}[mode]
+    assert all(launched[k] > 0 for k in want_kernels), launched
+    for scn, payload in zip(scns, got):
+        options = dict(opts)
+        if mode == "train":
+            spec = options.pop("model")
+            options["model"] = mlp_classifier(
+                spec["input_dim"], spec["num_classes"],
+                hidden=tuple(spec["hidden"]), device="cuda")
+        (entry,) = ScenarioSuite(scn, seeds=(0, 1), device="cuda").run(
+            mode=mode, **options).entries.values()
+        assert json.dumps(payload) == json.dumps(encode_entry(mode, entry))
+
+
+_RESTART = r"""
+import json, os, sys
+from repro_torch.serve.build_cache import enable_build_cache, prebuild
+enable_build_cache(sys.argv[1])
+prebuild("cuda")
+from repro_torch import sim
+from repro_torch.core import buzen
+from repro_torch.kernels import build
+from repro_torch.scenario import (NetworkSpec, Scenario, SimSpec,
+                                  StrategySpec)
+from repro_torch.serve.client import ServeClient
+from repro_torch.serve.server import ServeConfig, Server
+buzen.set_backend("kernel")
+sim.set_backend("kernel")
+sock = os.path.join(sys.argv[2], "r.sock")
+server = Server(ServeConfig(socket_path=sock, max_wait=0.02))
+server.start()
+scn = Scenario(network=NetworkSpec(mu_c=[1.0, 1.5, 2.0], mu_d=[2.0] * 3,
+                                   mu_u=[2.0] * 3),
+               strategy=StrategySpec("explicit", p=[1 / 3] * 3, m=2),
+               sim=SimSpec(chunk=8))
+with ServeClient(sock, timeout=300) as c:
+    out = [c.run(scn, mode="analyze"),
+           c.run(scn, mode="simulate", num_updates=40)]
+server.stop()
+print(json.dumps({"builds": len(build.spans()), "payloads": out}))
+"""
+
+
+def test_serve_warm_restart_pays_zero_builds(cuda, tmp_path):
+    """Two boots of a server process over one fresh build directory: the
+    first builds the scenario path's kernels, the second builds nothing
+    and answers bitwise the same."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parents[1] / "src")]
+        + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+
+    def boot():
+        out = subprocess.run([sys.executable, "-c", _RESTART,
+                              str(tmp_path / "build"), str(tmp_path)],
+                             capture_output=True, text=True, env=env,
+                             timeout=600)
+        assert out.returncode == 0, out.stderr[-2000:]
+        return json.loads(out.stdout.strip().splitlines()[-1])
+
+    cold, warm = boot(), boot()
+    assert cold["builds"] == 4 and warm["builds"] == 0
+    assert json.dumps(cold["payloads"]) == json.dumps(warm["payloads"])
