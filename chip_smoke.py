@@ -332,6 +332,25 @@ every seed is a ``jax.random`` key, :mod:`repro_torch.core.prng`):
      directory (``enable_build_cache``, ``prebuild``) and answer one
      ``analyze``: the first builds, the second builds nothing, the payloads
      bitwise equal.
+ 18. the sharded lane backend (``repro_torch.sim.sharded``), each run on
+     the card as it is (``device_count()`` devices, one here: the
+     ``batched`` runner itself) and with ``lane_devices`` patched to three
+     copies of the card (three worker threads, each on a stream of its
+     own, and the gather), the launch counters zeroed at the phase's start
+     and read at its end (kernels 1, 1b, 5, 5b and 8 must launch, the
+     event lane kernels never under ``sharded``): (a) 6 lanes at phase 4's
+     (p*, m*) of Table 1 at E = 1 and 8, the event ring on and off (split
+     three ways: E = 1 without the ring, E = 8 with it), and 2 class lanes
+     at phase 8's n = 1e6 optimum, every leaf (statistics and rings)
+     bitwise ``batched``; (b) ``batched_concurrency_sweep(shard=
+     True)`` on the ``kernel`` Buzen route, m = 2..132, per client (n =
+     100) and per class (n = 1e6), bitwise the unsharded sweep, (steps +
+     1) forward and steps backward launches a shard; (c) a
+     ``ScenarioSuite`` ``simulate`` pinned to ``sharded`` bitwise the same
+     suite pinned to ``batched``, and, on phase 17's server before it
+     drains, one ``simulate`` request pinned to ``sharded`` (split three
+     ways), accepted and answered with the direct ``batched`` run's
+     payload.
 
 Phase 3 also holds the fused-update kernel against its plain version
 (bitwise on the new parameters, ``rtol 1e-5`` on the squared norm) at
@@ -528,6 +547,20 @@ print(json.dumps({"builds": len(build.spans()),
                   "launches": kb.buzen_batched.launches,
                   "payload": payload}))
 """
+
+# phase 5's traced runs per timed call (``device_ms`` takes the largest):
+# one, from three, to pay for phase 18 (90 profiler sessions took 133 s of
+# a 1,042 s run on the H100)
+PHASE5_TRACES = 1
+# phase 18's depth: the sharded lanes are the plain ``batched`` program,
+# about 3 ms a lock-step event on the card, and split three ways on one
+# card they took 7-10x as long as on one device (60 updates after 20: 8.6
+# to 11.1 s a run on an H100); every check is a bitwise comparison with
+# ``batched`` (no gate on depth), so the runs are short: the lanes (client
+# and n = 1e6 class lanes, the suite, the served request: updates after
+# warm-up; a ring of every event), the sweeps' Adam steps
+SHARD_UPDATES, SHARD_WARMUP, SHARD_RING = 20, 10, 1024
+SHARD_STEPS = 40
 
 # the five tables, the event times and the descriptors a transition returns
 TABLE_OUT = ("finish", "phase", "client", "seq", "disp_round", "t", "desc")
@@ -799,17 +832,17 @@ def busy_share(wall_ms: float, busy_ms: float) -> str:
             f"({100 * busy_ms / wall_ms:.1f}%)")
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, traces: int = 3) -> float:
     """Mean device time per call of ``fn()`` over a traced run of ``reps``
-    calls after one untraced call: the largest of three traced runs, since
-    a trace late in this long process can drop device records (seen on the
-    H100: a kernel's calls missing, a library call at half its time), which
-    only lowers the sum."""
+    calls after one untraced call: the largest of ``traces`` traced runs,
+    since a trace late in this long process can drop device records (seen
+    on the H100 in the LM phases, the last: a kernel's calls missing, a
+    library call at half its time), which only lowers the sum."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    return max(traced(fn, reps)[2] for _ in range(3)) / reps
+    return max(traced(fn, reps)[2] for _ in range(traces)) / reps
 
 
 def train_phase(dev, net, n, p_star, m_star, lam_star) -> dict:
@@ -2999,6 +3032,7 @@ def serve_phase(dev, card: str, p_star, m_star: int, lam_star: float,
                    if k.startswith("serve.request_latency")}
             log(f"phase 17: stats: {hits} cache hits, request latency p50 s "
                 f"{lat}; metrics {len(text.splitlines())} lines")
+            sharded_request(a, direct, table1, p_np, m_star)
             check(a.shutdown() == "draining", "17a: shutdown")
         check(server._stopped.wait(timeout=120) and not os.path.exists(sock),
               "17a: the server did not drain")
@@ -3047,6 +3081,232 @@ def serve_phase(dev, card: str, p_star, m_star: int, lam_star: float,
         sim.set_backend(saved[1])
         scratch.cleanup()
     log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+
+def _same_leaves(a, b) -> bool:
+    """Every tensor leaf of two (nested) results bitwise equal, on the
+    same device."""
+    import torch
+
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.device == b.device
+                and a.dtype == b.dtype and torch.equal(a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    return (type(a) is type(b) and len(a) == len(b)
+            and all(_same_leaves(x, y) for x, y in zip(a, b)))
+
+
+def _on_devices(devices):
+    """A context that patches ``repro_torch.sim.sharded.lane_devices`` to
+    return ``devices`` (``None``: the function as it is)."""
+    import contextlib
+
+    from repro_torch.sim import sharded
+
+    if devices is None:
+        return contextlib.nullcontext()
+    return mock.patch.object(sharded, "lane_devices",
+                             lambda device: list(devices))
+
+
+SPLIT3 = "[cuda:0] x 3"
+
+
+def _device_lists():
+    """Phase 18's two device lists: the card as it is (``device_count()``
+    devices, one here) and three copies of it (three worker threads and
+    streams on the one card, and the gather)."""
+    import torch
+
+    return {"as it is": None, SPLIT3: [torch.device("cuda", 0)] * 3}
+
+
+def sharded_request(client, direct, table1, p_np, m_star: int) -> float:
+    """Phase 18c's served request (run in phase 17, on its server): one
+    ``simulate`` pinned to ``SimSpec(backend="sharded")`` with its lanes
+    split over three copies of the card, accepted and answered with the
+    payload of the same scenario's direct ``batched`` run; its seconds."""
+    from repro_torch.scenario import Scenario, SimSpec, StrategySpec
+
+    def scenario(backend):
+        return Scenario(network=table1, strategy=StrategySpec(
+            "explicit", p=p_np.tolist(), m=m_star),
+            sim=SimSpec(backend=backend, chunk=8))
+
+    opts = dict(num_updates=SHARD_UPDATES, warmup=SHARD_WARMUP)
+    t0 = time.perf_counter()
+    with _on_devices(_device_lists()[SPLIT3]):
+        got = client.run(scenario("sharded"), mode="simulate",
+                         seeds=(0, 1, 2), **opts)
+    took = time.perf_counter() - t0
+    check(json.dumps(got) == json.dumps(direct(
+        scenario("batched"), "simulate", (0, 1, 2), opts)),
+        "18c: the served sharded simulate != the direct batched run")
+    log(f"phase 18c: a simulate pinned to sharded (3 seeds, {SPLIT3}) "
+        f"accepted by the phase 17 server and answered in {took:.2f} s, "
+        f"bitwise the direct batched run")
+    return took
+
+
+def sharded_phase(dev, card: str, net, consts, p_star, m_star: int,
+                  big_spec, big_res, M: int) -> None:
+    """Phase 18 (see the module docstring): the sharded lane backend and
+    ``shard=True`` on the sweep, on the card as it is and split three ways
+    on it; the served request is :func:`sharded_request`, in phase 17."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.batched import (make_time_objective_classes,
+                                          make_time_objective_padded)
+    from repro_torch.core.optimize import batched_concurrency_sweep
+    from repro_torch.kernels import buzen as kb
+    from repro_torch.kernels import events as ke
+    from repro_torch.kernels import threefry as ktf
+    from repro_torch.scenario import (PAPER_CLUSTERS_TABLE1, NetworkSpec,
+                                      Scenario, ScenarioSuite, SimSpec,
+                                      StrategySpec)
+    from repro_torch.sim import (device_count, simulate_stats_classes_lanes,
+                                 simulate_stats_lanes)
+
+    t_phase = time.perf_counter()
+    check(device_count() == torch.cuda.device_count(),
+          f"18: device_count() {device_count()}")
+    counted = {"buzen": kb.buzen_batched,
+               "buzen_backward": kb.buzen_log_Z_backward,
+               "buzen_classes": kb.buzen_classes_batched,
+               "buzen_classes_backward": kb.buzen_classes_log_Z_backward,
+               "event_step": ke.event_step_lanes,
+               "megastep": ke.megastep_lanes, "threefry": ktf.chain_words}
+    lists = _device_lists()
+    walls = {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        return out
+
+    for c in counted.values():
+        c.launches = 0
+    # -- 18a. lanes: 6 client lanes at (p*, m*), E = 1 and 8, ring on and
+    # off; 2 class lanes at n = 1e6 --------------------------------------
+    kw = dict(warmup=SHARD_WARMUP, seeds=range(6), m_max=m_star)
+    ref = timed("client batched E=1 ring", lambda: simulate_stats_lanes(
+        [p_star] * 6, [m_star] * 6, SHARD_UPDATES, backend="batched",
+        trace_events=SHARD_RING, **kw))
+    # every (E, ring) pair on the card as it is; split three ways, E = 1
+    # without the ring and E = 8 with it (both gathers: statistics alone
+    # and with rings), as a split run costs 5-10x an unsplit one
+    runs = [(label, chunk, ring) for label, devices in lists.items()
+            for chunk, ring in ([(1, 0), (1, SHARD_RING), (8, 0),
+                                 (8, SHARD_RING)] if devices is None
+                                else [(1, 0), (8, SHARD_RING)])]
+    for label, chunk, ring in runs:
+        name = f"client sharded {label} E={chunk}{' ring' if ring else ''}"
+        with _on_devices(lists[label]):
+            got = timed(name, lambda: simulate_stats_lanes(
+                [p_star] * 6, [m_star] * 6, SHARD_UPDATES, backend="sharded",
+                chunk=chunk, trace_events=ring, **kw))
+        check(_same_leaves(got, ref if ring else ref[0]),
+              f"18a: {name} != batched")
+    cp = big_spec.class_params(device=dev)._replace(p=big_res.p.detach())
+    ckw = dict(warmup=SHARD_WARMUP, seeds=range(2))
+    cref = timed("class batched", lambda: simulate_stats_classes_lanes(
+        [cp] * 2, [big_res.m] * 2, SHARD_UPDATES, backend="batched",
+        **ckw))
+    for label, devices in lists.items():
+        name = f"class sharded {label}"
+        with _on_devices(devices):
+            got = timed(name, lambda: simulate_stats_classes_lanes(
+                [cp] * 2, [big_res.m] * 2, SHARD_UPDATES,
+                backend="sharded", **ckw))
+        check(_same_leaves(got, cref), f"18a: {name} != batched")
+    lanes_launched = {k: c.launches for k, c in counted.items()}
+    check(lanes_launched["event_step"] == 0
+          and lanes_launched["megastep"] == 0
+          and lanes_launched["threefry"] > 0,
+          f"18a: the sharded lanes ran an event kernel or no key chain: "
+          f"{lanes_launched}")
+    log(f"phase 18a: 6 lanes at (p*, m*={m_star}), {SHARD_UPDATES} updates "
+        f"after {SHARD_WARMUP}, E = 1 and 8, ring of {SHARD_RING} on and "
+        f"off (split: E=1 off, E=8 on), and 2 class lanes at n=1e6, sharded "
+        f"on the card as it is and {SPLIT3}: every leaf bitwise batched; "
+        f"wall s "
+        + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
+
+    # -- 18b. shard=True on the kernel Buzen route, per client and class --
+    grid = np.arange(2, M + 1)  # the first two shards stop below m = M
+    sweeps = {
+        "client n=100": (net, make_time_objective_padded(net, consts, M),
+                         ("buzen", "buzen_backward")),
+        "class n=1e6": (big_spec.class_params(device=dev),
+                        make_time_objective_classes(
+                            big_spec.class_params(device=dev), consts, M),
+                        ("buzen_classes", "buzen_classes_backward"))}
+    sweep_walls = {}
+    for kind, (params, obj, (fwd, bwd)) in sweeps.items():
+        swkw = dict(m_grid=grid, m_max=M, steps=SHARD_STEPS,
+                    backend="kernel")
+        t0 = time.perf_counter()
+        want = batched_concurrency_sweep(obj, params, **swkw)
+        sweep_walls[f"{kind} unsharded"] = time.perf_counter() - t0
+        for label, devices in lists.items():
+            before = (counted[fwd].launches, counted[bwd].launches)
+            t0 = time.perf_counter()
+            with _on_devices(devices):
+                got = batched_concurrency_sweep(obj, params, shard=True,
+                                                **swkw)
+            torch.cuda.synchronize()
+            sweep_walls[f"{kind} {label}"] = time.perf_counter() - t0
+            shards = 1 if devices is None else len(devices)
+            made = (counted[fwd].launches - before[0],
+                    counted[bwd].launches - before[1])
+            check(made == ((SHARD_STEPS + 1) * shards, SHARD_STEPS * shards),
+                  f"18b: {kind} {label}: launches {made}")
+            check(got.p.device == want.p.device
+                  and torch.equal(got.p, want.p)
+                  and np.array_equal(got.values, want.values)
+                  and got.best.m == want.best.m,
+                  f"18b: {kind} {label}: shard=True != the unsharded sweep")
+    log(f"phase 18b: batched_concurrency_sweep(shard=True) on kernel, m = "
+        f"2..{M}, {SHARD_STEPS} steps, per client and per class, as it is "
+        f"and {SPLIT3}: bitwise the unsharded sweep; wall s "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sweep_walls.items()))
+
+    # -- 18c. a suite pinned to sharded against the same on batched -------
+    table10 = NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1, 10)
+    n10 = table10.n
+
+    def suite(backend):
+        scns = {f"m={m}": Scenario(
+            network=table10, strategy=StrategySpec(
+                "explicit", p=[1.0 / n10] * n10, m=m),
+            sim=SimSpec(backend=backend, chunk=8)) for m in (4, n10)}
+        return ScenarioSuite(scns, seeds=(0, 1), device=dev).run(
+            mode="simulate", num_updates=SHARD_UPDATES, warmup=SHARD_WARMUP)
+
+    ra = timed("suite batched", lambda: suite("batched"))
+    with _on_devices(lists[SPLIT3]):
+        rb = timed(f"suite sharded {SPLIT3}", lambda: suite("sharded"))
+    check(ra.programs == rb.programs == 1 and ra.lanes == rb.lanes == 4
+          and ra.entries.keys() == rb.entries.keys()
+          and all(_same_leaves(rb.entries[k], ra.entries[k])
+                  for k in ra.entries),
+          "18c: the suite pinned to sharded != batched")
+    launched = {k: c.launches for k, c in counted.items()}
+    check(all(launched[k] > 0 for k in ("buzen", "buzen_backward",
+                                        "buzen_classes",
+                                        "buzen_classes_backward",
+                                        "threefry")),
+          f"18: a kernel of the sharded path did not launch: {launched}")
+    log(f"phase 18c: a ScenarioSuite simulate of Table 1 at scale 10 (m = 4 "
+        f"and {n10}, 2 seeds) pinned to sharded ({SPLIT3}) == batched "
+        f"bitwise, 1 program, 4 lanes ({walls['suite batched']:.2f} and "
+        f"{walls[f'suite sharded {SPLIT3}']:.2f} s)")
+    log(f"phase 18: device_count() = {device_count()}; launches {launched} "
+        f"({card}); {time.perf_counter() - t_phase:.1f} s")
 
 
 def lm_phase(dev, card: str, seed: int) -> dict:
@@ -4120,13 +4380,18 @@ def main() -> int:
                              lambda: kf.fused_async_update_flat_plain(
                                  *fu_args), 200, 50)
     labels["fused_update"] = f"[{L4}x{N4}] float32"
+    # one trace a call: phase 5 runs early in the process, before the
+    # traces that dropped records (the LM phases keep three)
     times = {}
     for name, (kern, plain, rk, rp) in calls.items():
-        times[name] = {"kernel": (device_ms(kern, rk), time_ms(kern, rk)),
-                       "plain": (device_ms(plain, rp), time_ms(plain, rp))}
-    recompute = (device_ms(autograd_recompute, 3),
+        times[name] = {"kernel": (device_ms(kern, rk, PHASE5_TRACES),
+                                  time_ms(kern, rk)),
+                       "plain": (device_ms(plain, rp, PHASE5_TRACES),
+                                 time_ms(plain, rp))}
+    recompute = (device_ms(autograd_recompute, 3, PHASE5_TRACES),
                  time_ms(autograd_recompute, 3))
-    c_recompute = (device_ms(class_recompute, 5), time_ms(class_recompute, 5))
+    c_recompute = (device_ms(class_recompute, 5, PHASE5_TRACES),
+                   time_ms(class_recompute, 5))
     profiled = all(t["kernel"][0] > 0 and t["plain"][0] > 0
                    for t in times.values())
     pick = 0 if profiled else 1  # device time when the profiler saw the card
@@ -4369,12 +4634,16 @@ def main() -> int:
     # -- 17. the suite server: in process, then a warm restart -----------
     serve_phase(dev, card, p_star, m_star, lam_star, big_spec, M)
 
+    # -- 18. the sharded lane backend and shard= on the sweep -------------
+    sharded_phase(dev, card, net, consts, p_star, m_star, big_spec, big_res,
+                  M)
+
     # -- 9. the dense LM's prefill: Qwen3-8B, kernel 6 ---------------------
     flash_rec = lm_phase(dev, card, seed)
 
     # -- 10. the dense LM's decode and the serve loop, kernel 7 -----------
     decode_rec = decode_phase(dev, card, seed)
-    log(f"chip_smoke: phases 1-17 passed in "
+    log(f"chip_smoke: phases 1-18 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [buzen_rec, bwd_rec, event_rec, mega_rec,

@@ -34,7 +34,7 @@ from .buzen import (ClassParams, NetworkParams, class_log_normalizing_constants,
 from .complexity import LearningConstants
 from .energy import PowerProfile, energy_per_round, energy_per_round_classes
 from .jackson import _log_geom_sum
-from .numerics import DTYPE, NEG_INF, seqsum
+from .numerics import DTYPE, NEG_INF, map_tensors, seqsum
 from .optimize import _with_p  # shared routing-replace helper
 
 
@@ -574,14 +574,25 @@ def expand_class_matrix(cross: torch.Tensor, same: torch.Tensor,
     return mat
 
 
+def _objective(obj: Callable, factory: Callable, *args) -> Callable:
+    """``obj`` as ``factory(*args)`` returns it: ``obj.m_max`` (the last
+    argument, consumed by the sweep-side padding guard) and
+    ``obj.to(device)``, the factory's objective on the arguments moved to
+    ``device`` (what a sharded sweep runs on each device)."""
+    obj.m_max = args[-1]
+    obj.to = lambda device: factory(*map_tensors(
+        lambda t: t.to(device), args))
+    return obj
+
+
 def make_time_objective_classes(classes: ClassParams,
                                 consts: LearningConstants, m_max: int):
     """Class-space wall-clock objective ``obj(p [B, C], m [B], logZ)``."""
     def obj(p, m, logZ):
         return wallclock_time_classes(_with_p(classes, p), m, consts, logZ,
                                       m_max)
-    obj.m_max = m_max  # consumed by the sweep-side padding guard
-    return obj
+    return _objective(obj, make_time_objective_classes, classes, consts,
+                      m_max)
 
 
 def make_round_objective_classes(classes: ClassParams,
@@ -590,8 +601,8 @@ def make_round_objective_classes(classes: ClassParams,
     def obj(p, m, logZ):
         return round_complexity_classes(_with_p(classes, p), m, consts, logZ,
                                         m_max)
-    obj.m_max = m_max
-    return obj
+    return _objective(obj, make_round_objective_classes, classes, consts,
+                      m_max)
 
 
 # ---------------------------------------------------------------------------
@@ -603,15 +614,14 @@ def make_round_objective_padded(params: NetworkParams,
     def obj(p, m, logZ):
         return round_complexity_padded(_with_p(params, p), m, consts, logZ,
                                        m_max)
-    obj.m_max = m_max  # consumed by the sweep-side padding guard
-    return obj
+    return _objective(obj, make_round_objective_padded, params, consts,
+                      m_max)
 
 
 def make_throughput_objective_padded(params: NetworkParams, m_max: int):
     def obj(p, m, logZ):
         return -throughput_padded(logZ, m)
-    obj.m_max = m_max
-    return obj
+    return _objective(obj, make_throughput_objective_padded, params, m_max)
 
 
 def make_time_objective_padded(params: NetworkParams,
@@ -619,8 +629,8 @@ def make_time_objective_padded(params: NetworkParams,
     def obj(p, m, logZ):
         return wallclock_time_padded(_with_p(params, p), m, consts, logZ,
                                      m_max)
-    obj.m_max = m_max
-    return obj
+    return _objective(obj, make_time_objective_padded, params, consts,
+                      m_max)
 
 
 def make_energy_objective_padded(params: NetworkParams,
@@ -629,8 +639,8 @@ def make_energy_objective_padded(params: NetworkParams,
     def obj(p, m, logZ):
         return energy_complexity_padded(_with_p(params, p), m, consts, power,
                                         logZ, m_max)
-    obj.m_max = m_max
-    return obj
+    return _objective(obj, make_energy_objective_padded, params, consts,
+                      power, m_max)
 
 
 def make_joint_objective_padded(params: NetworkParams,
@@ -642,8 +652,8 @@ def make_joint_objective_padded(params: NetworkParams,
     def obj(p, m, logZ, rho):
         return joint_objective_padded(_with_p(params, p), m, consts, power,
                                       rho, tau_star, e_star, logZ, m_max)
-    obj.m_max = m_max
-    return obj
+    return _objective(obj, make_joint_objective_padded, params, consts,
+                      power, tau_star, e_star, m_max)
 
 
 # ---------------------------------------------------------------------------

@@ -817,7 +817,8 @@ def _lane_steps(backend: str):
     """``(single step, megastep)`` of a lane backend: the CUDA lane
     steps' wrappers for ``"kernel"`` (transition and statistics in one
     launch), their plain versions (the plain transition, then
-    :func:`replay_event` per kept event) otherwise."""
+    :func:`replay_event` per kept event) otherwise: ``"sharded"`` steps
+    its lanes as ``"batched"`` does, as the JAX package's does."""
     if backend == "kernel":
         from ..kernels import events as ke
 
@@ -902,7 +903,7 @@ def run_events(params: NetworkParams, state: EventState,
     elif backend == "kernel":
         raise ValueError(
             "the class-aggregated event engine has no kernel; pin "
-            "backend='batched' or 'reference' for class lanes")
+            "backend='batched', 'reference' or 'sharded' for class lanes")
     law = stream.form
     done = 0
     owned = False  # whether state's buffers are this call's own
@@ -1123,9 +1124,10 @@ def simulate_stats(params: NetworkParams, m, num_updates: int, *,
     window ``[warmup, warmup + num_updates)``.  The randomness comes from
     ``key`` (default ``PRNGKey(seed)`` on the params' device), the JAX
     package's draws for the same key, drawn in blocks of ``draw_events``.
-    ``backend`` picks the table transition (:mod:`repro_torch.sim.backend`);
-    ``chunk`` events retire per transition call (megasteps), bitwise the
-    same statistics for every ``chunk``.
+    ``backend`` picks the table transition (:mod:`repro_torch.sim.backend`;
+    one lane runs ``"sharded"`` as ``"batched"``, as the JAX package's
+    single-lane scan does); ``chunk`` events retire per transition call
+    (megasteps), bitwise the same statistics for every ``chunk``.
     """
     from ..sim.batched_events import run_lanes
     from ..sim.backend import resolve_backend
@@ -1136,11 +1138,12 @@ def simulate_stats(params: NetworkParams, m, num_updates: int, *,
     m_max = int(m) if m_max is None else m_max
     lanes = stack_lanes([params])
     pw = None if power is None else stack_lanes([power])
+    backend = resolve_backend(backend)
     stats = run_lanes(lanes, [int(m)], key.reshape(1, 2), int(num_updates),
                       warmup=int(warmup), distribution=distribution,
                       m_max=m_max, power=pw,
-                      backend=resolve_backend(backend), chunk=int(chunk),
-                      draw_events=int(draw_events))
+                      backend="batched" if backend == "sharded" else backend,
+                      chunk=int(chunk), draw_events=int(draw_events))
     return lane(stats, 0)
 
 
@@ -1157,14 +1160,18 @@ def simulate_stats_classes(classes: ClassParams, m, num_updates: int, *,
     The per-client fields of the result are per-class aggregates
     (``mean_delay``/``delay_counts`` ``[C]``, occupancy ``[3C+1]``);
     :func:`expand_class_stats` gives the per-member view.  ``power`` holds
-    per-class ``[C]`` arrays.  ``backend`` is ``"batched"`` or
-    ``"reference"`` (the class transition has no kernel; ``"kernel"``
-    raises), and every ``chunk`` gives bitwise the same statistics.  The
-    randomness is ``key``'s (default ``PRNGKey(seed)``), as in the JAX
-    package.
+    per-class ``[C]`` arrays.  ``backend`` is ``"batched"``,
+    ``"reference"`` or ``"sharded"`` (one lane: ``"batched"``; the class
+    transition has no kernel, ``"kernel"`` raises), and every ``chunk``
+    gives bitwise the same statistics.  The randomness is ``key``'s
+    (default ``PRNGKey(seed)``), as in the JAX package.
     """
+    from ..sim.backend import resolve_backend
     from ..sim.batched_events import simulate_stats_classes_lanes
 
+    backend = resolve_backend(backend)
+    if backend == "sharded":
+        backend = "batched"
     if key is None:
         key = prng.PRNGKey(seed, device=classes.device)
     stats = simulate_stats_classes_lanes(

@@ -17,6 +17,25 @@ def safe_log(x: torch.Tensor) -> torch.Tensor:
     return torch.log(torch.clamp_min(x, 1e-300))
 
 
+class _SeqSum(torch.autograd.Function):
+    """:func:`seqsum` with its gradient written out: the output's gradient
+    broadcast along ``dim``, contiguous (the values the loop's own graph
+    passes back, in the input's layout, with no graph node per entry)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.shape = dim, x.shape
+        x = torch.movedim(x, dim, 0)
+        acc = torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
+        for v in x:
+            acc = acc + v
+        return acc
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.unsqueeze(ctx.dim).expand(ctx.shape).contiguous(), None
+
+
 def seqsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Strictly left-to-right float sum along ``dim`` (a Python loop).
 
@@ -25,12 +44,15 @@ def seqsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     sequential loop is: appended zeros satisfy ``acc + 0 == acc`` exactly
     and the real entries keep their left-to-right association.  Used for
     every client-axis reduction on the padded-``n`` bitwise contract.
+
+    Its gradient is the output's, broadcast along ``dim`` into a
+    contiguous tensor.  The loop's own graph passes back the same values
+    in a transposed layout, and a later reduction over a transposed
+    gradient (the broadcast of a per-row scalar, as in ``p / seqsum(p)``)
+    rounds differently as the batch of rows grows: a row's gradient would
+    depend on the rows beside it.
     """
-    x = torch.movedim(x, dim, 0)
-    acc = torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
-    for v in x:
-        acc = acc + v
-    return acc
+    return _SeqSum.apply(x, dim)
 
 
 def seqcumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -45,6 +67,18 @@ def seqcumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     if not out:
         return torch.movedim(x.clone(), 0, dim)
     return torch.movedim(torch.stack(out), 0, dim)
+
+
+def map_tensors(fn, tree):
+    """``fn`` on every tensor of a tensor, a tuple or a ``NamedTuple``
+    (nested); every other leaf (``None``, a float, an int) as it is."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        leaves = [map_tensors(fn, x) for x in tree]
+        return (type(tree)(*leaves) if hasattr(tree, "_fields")
+                else tuple(leaves))
+    return tree
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,8 @@ The routing vector lives on the simplex via ``p = softmax(theta)``
     ``B = len(m_grid)`` softmax logits are stacked, each Adam step evaluates
     the batched Buzen DP once for the whole ``[B, n]`` routing batch
     (``"torch"`` or ``"kernel"`` backend) and the summed loss decouples
-    row-wise, so the step is exactly ``B`` independent Adam runs;
+    row-wise, so the step is exactly ``B`` independent Adam runs
+    (``shard=True`` splits the rows over the local devices, bitwise);
   * :func:`pruned_concurrency_sweep` — coarse-to-fine over the batched
     sweep: a strided coarse pass, then a warm-started refinement between
     the coarse neighbours of its winner (about ``2 sqrt(B)`` rows);
@@ -104,12 +105,84 @@ def optimize_routing(objective: Callable, n: int, m: int, *,
                      history=[float(v) for v in vals.cpu()])
 
 
+def _solve_rows(objective: Callable, params, theta0: torch.Tensor,
+                m_rows: torch.Tensor, ctx_rows, *, m_pad: int, steps: int,
+                lr: float, backend: Optional[str]):
+    """Adam on the logit rows ``theta0 [B, n]`` of one sweep, then the
+    final evaluation: ``(p [B, n], values [B])``, on ``params``' device.
+    Every operation is row-local (the Buzen DP, the objective and Adam), so
+    a subset of rows gives those rows' bits."""
+    from .batched import (batch_class_log_normalizing_constants,
+                          batch_log_normalizing_constants)
+
+    is_classes = isinstance(params, ClassParams)
+    if is_classes:
+        cmask = params.count > 0
+        cnt_safe = torch.where(cmask, params.count.to(DTYPE), 1.0)
+    dp = (batch_class_log_normalizing_constants if is_classes
+          else batch_log_normalizing_constants)
+
+    def to_p(thetas):
+        if is_classes:
+            th = torch.where(cmask, thetas, -torch.inf)
+            return torch.softmax(th, dim=-1) / cnt_safe
+        return torch.softmax(thetas, dim=-1)
+
+    def row_values(thetas):
+        ps = to_p(thetas)
+        logZ = dp(params, ps, m_pad, backend=backend)
+        if ctx_rows is None:
+            return ps, objective(ps, m_rows, logZ)
+        return ps, objective(ps, m_rows, logZ, ctx_rows)
+
+    theta, _ = _adam_minimize(lambda th: torch.sum(row_values(th)[1]),
+                              theta0, steps, lr)
+    with torch.no_grad():
+        return row_values(theta)
+
+
+def _sharded_rows(objective: Callable, params, theta0: torch.Tensor,
+                  m_rows: torch.Tensor, ctx_rows, **kw):
+    """:func:`_solve_rows` with the rows split into contiguous chunks over
+    :func:`repro_torch.sim.sharded.lane_devices` of ``params``' device,
+    one worker thread and stream a device; the chunks' results gathered in
+    row order on that device.  Each device gets the network and the
+    objective rebuilt on it (``objective.to(device)``); with one device
+    nothing moves and no thread starts."""
+    from ..sim.sharded import lane_devices, run_split
+    from .numerics import map_tensors
+
+    src = params.device
+    devices = lane_devices(src)
+    if len(devices) == 1:
+        return _solve_rows(objective, params, theta0, m_rows, ctx_rows, **kw)
+    if not callable(getattr(objective, "to", None)):
+        raise TypeError(
+            "batched_concurrency_sweep(shard=True) over several devices "
+            "needs an objective with a .to(device) method, which rebuilds "
+            "it on another device (every repro_torch.core.batched factory "
+            "gives one)")
+
+    def shard(a, b, dev):
+        def part(t):
+            return t[a:b].to(dev)
+
+        out = _solve_rows(objective.to(dev),
+                          map_tensors(lambda t: t.to(dev), params),
+                          part(theta0), part(m_rows),
+                          None if ctx_rows is None else part(ctx_rows), **kw)
+        return map_tensors(lambda t: t.to(src), out)
+
+    return run_split(shard, theta0.shape[0], devices, src)
+
+
 def batched_concurrency_sweep(objective: Callable, params, *,
                               m_grid, ctx=None, steps: int = 400,
                               lr: float = 0.05,
                               p_init: Optional[torch.Tensor] = None,
                               m_max: Optional[int] = None,
-                              backend: Optional[str] = None) -> SweepResult:
+                              backend: Optional[str] = None,
+                              shard: bool = False) -> SweepResult:
     """Optimize routing for every concurrency candidate in one batched
     Adam run.
 
@@ -124,10 +197,15 @@ def batched_concurrency_sweep(objective: Callable, params, *,
     members share ``p = q / count``, and padded (count-0) classes are
     pinned to ``-inf`` logits, so they carry ``p = 0`` and a zero
     gradient.
-    """
-    from .batched import (batch_class_log_normalizing_constants,
-                          batch_log_normalizing_constants)
 
+    ``shard=True`` splits the ``B`` rows into contiguous chunks over the
+    local CUDA devices (:func:`repro_torch.sim.sharded.lane_devices`), an
+    Adam run on each, concurrently, with ``logZ`` padded to the whole
+    grid's ``m_max``: bitwise the unsharded sweep.  Over more than one
+    device the objective must have ``.to(device)`` (the
+    :mod:`repro_torch.core.batched` factories' objectives do); on one
+    device it is the unsharded sweep.
+    """
     dev = params.device
     m_grid = torch.as_tensor(np.asarray(m_grid), dtype=torch.int64,
                              device=dev)
@@ -135,12 +213,12 @@ def batched_concurrency_sweep(objective: Callable, params, *,
     is_classes = isinstance(params, ClassParams)
     if is_classes:
         n = params.C
-        cmask = params.count > 0
         cnt = params.count.to(DTYPE)
-        cnt_safe = torch.where(cmask, cnt, 1.0)
         n_total = float(params.n_total)
     else:
         n = params.n
+    # the padding comes from the whole grid, before any split: a shard
+    # whose rows stop at a lower m pads as the whole sweep does
     m_top = int(m_grid.max())
     m_pad = m_top if m_max is None else m_max
     if m_pad < m_top:
@@ -165,25 +243,9 @@ def batched_concurrency_sweep(objective: Callable, params, *,
     if theta0.dim() == 1:
         theta0 = theta0.expand(B, n)
 
-    def to_p(thetas):
-        if is_classes:
-            th = torch.where(cmask, thetas, -torch.inf)
-            return torch.softmax(th, dim=-1) / cnt_safe
-        return torch.softmax(thetas, dim=-1)
-
-    def row_values(thetas):
-        ps = to_p(thetas)
-        dp = (batch_class_log_normalizing_constants if is_classes
-              else batch_log_normalizing_constants)
-        logZ = dp(params, ps, m_pad, backend=backend)
-        if ctx is None:
-            return ps, objective(ps, m_grid, logZ)
-        return ps, objective(ps, m_grid, logZ, ctx)
-
-    theta, _ = _adam_minimize(lambda th: torch.sum(row_values(th)[1]),
-                              theta0, steps, lr)
-    with torch.no_grad():
-        ps, vals = row_values(theta)
+    solve = _sharded_rows if shard else _solve_rows
+    ps, vals = solve(objective, params, theta0, m_grid, ctx, m_pad=m_pad,
+                     steps=steps, lr=lr, backend=backend)
 
     m_np = m_grid.cpu().numpy()
     vals_np = vals.cpu().numpy()
@@ -214,9 +276,9 @@ def pruned_concurrency_sweep(objective: Callable, params, *, m_grid,
     with the grid, which is treated as one monotone ``m`` axis (product
     grids such as :func:`pareto_sweep`'s want the full sweep).  ``**kw``
     goes to :func:`batched_concurrency_sweep` (``steps``, ``lr``,
-    ``m_max``, ``backend``); ``m_max`` is pinned for both passes from the
-    objective's, else the grid's last value.  ``p`` stays on the
-    network's device.
+    ``m_max``, ``backend``, ``shard``); ``m_max`` is pinned for both
+    passes from the objective's, else the grid's last value.  ``p`` stays
+    on the network's device.
     """
     m_np = np.asarray(_host(m_grid), dtype=np.int64)
     if m_np.ndim != 1 or m_np.size == 0:
@@ -282,7 +344,8 @@ def pareto_sweep(params: NetworkParams, consts, power, rhos, tau_star,
     grid (``rho`` as the row context) and argmins per rho.  Returns the
     raw :class:`SweepResult` (rows rho-major, ``np.tile(m_cands,
     len(rhos))``) and one :class:`OptResult` per rho whose ``history`` is
-    that rho's ``(m, value)`` slice.
+    that rho's ``(m, value)`` slice.  ``**kw`` goes to
+    :func:`batched_concurrency_sweep` (``shard=True`` among them).
     """
     from .batched import make_joint_objective_padded
 

@@ -38,6 +38,7 @@ FLAGS = {"buzen": [], "events": ["-fmad=false"],
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _spans: list = []  # (program, end, seconds) of each nvcc run
 
 
@@ -133,6 +134,14 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, _start(name))
             lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def count(wrapper, attr: str = "launches") -> None:
+    """Add one to a wrapper's launch count (``wrapper.launches``, or
+    ``attr``), under a lock: worker threads that launch at once (the
+    sharded lanes and sweeps) lose no count."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def check(err: int, what: str) -> None:

@@ -153,7 +153,7 @@ def buzen_batched(log_rho: torch.Tensor, log_gamma_total: torch.Tensor,
                  _init_rows(log_gamma_total, m_pad,
                             torch.float64).contiguous(), out),
                 (B, S, m_pad))
-        buzen_batched.launches += 1
+        build.count(buzen_batched)
         return out
     if log_rho.device.type == "cpu":
         return buzen_batched_plain(log_rho, log_gamma_total, m_max)
@@ -257,7 +257,7 @@ def buzen_log_Z_backward(log_rho: torch.Tensor, log_gamma_total: torch.Tensor,
     if log_rho.is_cuda:
         out = _launch_backward("buzen_backward", log_rho, None,
                                log_gamma_total, g, m_max, _MAX_M_PAD)
-        buzen_log_Z_backward.launches += 1
+        build.count(buzen_log_Z_backward)
         return out
     if log_rho.device.type == "cpu":
         return buzen_log_Z_backward_plain(log_rho, log_gamma_total, g, m_max)
@@ -390,7 +390,7 @@ def buzen_classes_batched(log_rho: torch.Tensor, counts: torch.Tensor,
         _launch("buzen_classes_forward", (_f64(log_rho), _f64(counts),
                                           _f64(log_gamma_total), out),
                 (B, S, m_pad))
-        buzen_classes_batched.launches += 1
+        build.count(buzen_classes_batched)
         return out
     if log_rho.device.type == "cpu":
         return buzen_classes_batched_plain(log_rho, counts, log_gamma_total,
@@ -434,7 +434,7 @@ def buzen_classes_log_Z_backward(log_rho: torch.Tensor, counts: torch.Tensor,
     if log_rho.is_cuda:
         out = _launch_backward("buzen_classes_backward", log_rho, counts,
                                log_gamma_total, g, m_max, _MAX_M_PAD_CLASSES)
-        buzen_classes_log_Z_backward.launches += 1
+        build.count(buzen_classes_log_Z_backward)
         return out
     if log_rho.device.type == "cpu":
         return buzen_classes_log_Z_backward_plain(log_rho, counts,

@@ -267,7 +267,7 @@ def _launch(q, k_cache, v_cache, length, plan=None):
                 *ptrs, len_ptr, scalar, B, S, H, KV, D, *strides, D ** -0.5,
                 stream)
             build.check(err, "decode_attention launch")
-            decode_attention.launches += 1
+            build.count(decode_attention)
             return out
         parts, per = plan or split_plan(B, KV, S, span, _sm_count(q.device))
         ws = (torch.empty(parts * B * H * (D + 2), dtype=torch.float32,
@@ -277,12 +277,12 @@ def _launch(q, k_cache, v_cache, length, plan=None):
             *ptrs, None if ws is None else ws.data_ptr(), len_ptr, scalar, B,
             S, H, KV, D, *strides, D ** -0.5, parts, per, stages, stream)
         build.check(err, "decode_attention launch")
-        decode_attention.launches += 1
+        build.count(decode_attention)
         if parts > 1:
             err = _c_function("decode_attention_combine", _COMBINE_ARGS)(
                 ws.data_ptr(), out.data_ptr(), parts, B, H, D, stream)
             build.check(err, "decode_attention combine launch")
-            decode_attention.combine_launches += 1
+            build.count(decode_attention, "combine_launches")
     return out
 
 

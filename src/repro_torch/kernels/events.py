@@ -255,7 +255,7 @@ def _launch(symbol: str, counter, tables, n_f: int, n_i: int, n_t: int,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*[a.data_ptr() for a in args + out], *ints, stream)
     build.check(err, f"{symbol} launch")
-    counter.launches += 1
+    build.count(counter)
     return tuple(out)
 
 
@@ -508,9 +508,12 @@ def _launch_lanes(counter, params, state, power, fs, c_new, *, chunk: int,
     if not fn.argtypes:  # the library caches its function objects
         fn.argtypes = [ctypes.POINTER(_LaneArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    err = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    # the launch, its shared-memory opt-in and the stream are the lane
+    # device's, whichever device is current in the calling thread
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
     build.check(err, "lane step launch")
-    counter.launches += 1
+    build.count(counter)
     return (E.EventState(**{**leaves, **out}), ev_t, ev_int)
 
 

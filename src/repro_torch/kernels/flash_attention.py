@@ -151,7 +151,7 @@ def _launch(q, k, v, causal, window):
                  0 if window is None else int(window), D ** -0.5,
                  _DTYPES[q.dtype], stream)
     build.check(err, "flash_attention launch")
-    flash_attention.launches += 1
+    build.count(flash_attention)
     return out
 
 

@@ -94,7 +94,7 @@ def _launch(w, g, scale):
                  partial.data_ptr(), sumsq.data_ptr(), L, N,
                  _DTYPES[w2.dtype], stream)
     build.check(err, "fused_update launch")
-    fused_async_update_flat.launches += 1
+    build.count(fused_async_update_flat)
     return (out[0], sumsq[0]) if flat else (out, sumsq)
 
 

@@ -97,7 +97,7 @@ def _launch(keys, n, paths):
         err = fn(keys.data_ptr(), paths.data_ptr(), L, int(n), P,
                  chain.data_ptr(), words.data_ptr(), stream)
     build.check(err, "threefry chain launch")
-    chain_words.launches += 1
+    build.count(chain_words)
     return chain, words
 
 

@@ -30,8 +30,9 @@ Validation is eager: unknown timing laws, strategies, objectives,
 backends or malformed shapes raise at construction, listing the
 registered options.  The port registers the ``exponential``,
 ``deterministic``, ``lognormal`` and ``hyperexponential`` laws and the
-``reference``, ``batched`` and ``kernel`` sim backends; it has no
-interpret mode, so ``SimSpec.interpret`` must be ``None``.
+``reference``, ``batched``, ``kernel`` and ``sharded`` sim backends (the
+JAX package's ``pallas`` raises); it has no interpret mode, so
+``SimSpec.interpret`` must be ``None``.
 """
 from __future__ import annotations
 
@@ -597,7 +598,7 @@ class SimSpec:
     ``interpret`` exists so the JAX package's dicts load: the port has no
     interpret mode, and anything but ``None`` raises."""
 
-    backend: Optional[str] = None     # "reference" | "batched" | "kernel"
+    backend: Optional[str] = None     # reference|batched|kernel|sharded
     interpret: Optional[bool] = None
     chunk: int = 1                    # megastep events per transition call
     trace: Optional[TraceSpec] = None

@@ -52,7 +52,7 @@ def main(argv=None) -> None:
                     default=None, help="Buzen DP route (default: kernel "
                                        "on cuda, torch on cpu)")
     ap.add_argument("--sim-backend", choices=("reference", "batched",
-                                              "kernel"),
+                                              "kernel", "sharded"),
                     default=None, help="event-engine route (default: "
                                        "kernel on cuda, batched on cpu)")
     args = ap.parse_args(argv)

@@ -25,8 +25,9 @@ Streamed responses for a ``run`` (all tagged with the request id)::
 Any failure becomes ``{"event": "error", "error": {"type", "message"}}``
 — a structured reply on the wire, never a dead server process.  The
 port's eager spec validation refuses what only the JAX package runs (the
-``pallas`` and ``sharded`` sim backends, a non-null ``SimSpec.interpret``)
-the same way, as a structured error.
+``pallas`` sim backend, a non-null ``SimSpec.interpret``) the same way, as
+a structured error; ``sharded`` runs, its lanes split over the server's
+local CUDA devices (:mod:`repro_torch.sim.sharded`).
 """
 from __future__ import annotations
 

@@ -8,17 +8,21 @@
   * ``"kernel"``   — like ``"batched"``, with the per-event table transition
     in the CUDA event kernel (``repro_torch.kernels.events``); its plain
     version for CPU tensors.
+  * ``"sharded"``  — ``"batched"`` with the lane axis split into
+    contiguous chunks over the local CUDA devices, one worker thread and
+    stream a device (:mod:`repro_torch.sim.sharded`); a CPU run, or one
+    card, is ``"batched"`` itself.
 
-The three are bitwise equal lane by lane.  Select per call with
+The four are bitwise equal lane by lane.  Select per call with
 ``backend=...`` or process-wide with :func:`set_backend`; no environment
-variable is read.  (The JAX package's ``"sharded"`` backend is not ported
-yet; ``"kernel"`` takes the place of ``"pallas"``.)
+variable is read.  ``"kernel"`` takes the place of the JAX package's
+``"pallas"``.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-BACKENDS = ("reference", "batched", "kernel")
+BACKENDS = ("reference", "batched", "kernel", "sharded")
 
 _backend = "batched"
 

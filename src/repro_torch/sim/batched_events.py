@@ -7,7 +7,9 @@ event or one megastep of ``chunk`` events per lane per step (port of
   * ``"batched"``   — all lanes in one ``[K, ...]`` state through the plain
     PyTorch table transition;
   * ``"kernel"``    — the same loop with the transition in the CUDA event
-    kernel (``chunk = 1``) or the CUDA megastep kernel.
+    kernel (``chunk = 1``) or the CUDA megastep kernel;
+  * ``"sharded"``   — ``"batched"`` with the lanes split over the local
+    CUDA devices (:mod:`repro_torch.sim.sharded`).
 
 Each lane draws from its own key (``PRNGKey(seed)`` of
 :mod:`repro_torch.core.prng`, the JAX package's seeds and streams), in
@@ -18,8 +20,8 @@ lanes equal singles and every ``chunk`` equals ``chunk = 1``, bitwise.
 
 :func:`simulate_stats_classes_lanes` runs lanes of class-aggregated
 networks (:class:`repro_torch.core.buzen.ClassParams`) through the same
-loop on ``"reference"`` and ``"batched"``; the class transition has no
-kernel, so ``"kernel"`` raises for class lanes.
+loop on ``"reference"``, ``"batched"`` and ``"sharded"``; the class
+transition has no kernel, so ``"kernel"`` raises for class lanes.
 
 :func:`build_lanes_fn` and :func:`build_class_lanes_fn` return the runner
 of one static signature (the programs ``ScenarioSuite`` dispatches its
@@ -55,10 +57,20 @@ def run_lanes(lane_params: NetworkParams, ms, keys, num_updates: int,
     concurrency and one seed key (``keys [L, 2]``) per lane;
     ``ceil(num_events / chunk)`` steps of ``chunk`` events, the events past
     ``num_events`` masked.
-    ``"reference"`` runs the lanes one at a time through the same loop.
+    ``"reference"`` runs the lanes one at a time through the same loop,
+    ``"sharded"`` splits them over the local devices
+    (:func:`repro_torch.sim.sharded.run_sharded_lanes`).
     :class:`ClassParams` lanes run the class engine.  Returns
     :class:`EventStats`, or ``(EventStats, EventRing)`` with
     ``trace_events > 0``."""
+    if backend == "sharded":
+        from .sharded import run_sharded_lanes
+
+        return run_sharded_lanes(lane_params, ms, keys, num_updates,
+                                 warmup=warmup, distribution=distribution,
+                                 m_max=m_max, power=power, chunk=chunk,
+                                 draw_events=draw_events,
+                                 trace_events=trace_events)
     if backend == "reference":
         outs = [run_lanes(stack_lanes([lane(lane_params, i)]), [ms[i]],
                           keys[i:i + 1], num_updates, warmup=warmup,
@@ -133,9 +145,10 @@ def simulate_stats_classes_lanes(classes, ms, num_updates: int, *,
     ``[L, C]`` leaves), ``power`` per-class profiles.  The per-client
     fields of the result are per class (``[L, C]``, occupancy ``[L,
     3C+1]``; :func:`repro_torch.core.events.expand_class_stats` expands
-    them).  ``backend`` ``"batched"`` or ``"reference"``; ``"kernel"``
-    raises (no kernel exists for the class transition).  ``trace_events``
-    as in :func:`simulate_stats_lanes`, the ring's ``client`` the class."""
+    them).  ``backend`` ``"batched"``, ``"reference"`` or ``"sharded"``;
+    ``"kernel"`` raises (no kernel exists for the class transition).
+    ``trace_events`` as in :func:`simulate_stats_lanes`, the ring's
+    ``client`` the class."""
     return _lanes(ClassParams, classes, ms, num_updates, warmup=warmup,
                   keys=keys, seeds=seeds,
                   distribution=distribution, power=power, m_max=m_max,
@@ -190,7 +203,8 @@ def build_lanes_fn(backend: str, num_updates: int, warmup: int,
     > 1`` retires that many events per step (bitwise the same statistics).
     ``trace_events > 0`` carries an event ring of that capacity per lane:
     the runner returns ``(EventStats, EventRing)``.  Runners are memoized
-    per signature."""
+    per signature; a ``"sharded"`` runner splits its lanes over the local
+    devices (:func:`run_lanes`)."""
     get_law(distribution)
     return _build_lanes_fn(NetworkParams, resolve_backend(backend),
                            int(num_updates), int(warmup), distribution,
@@ -209,7 +223,7 @@ def build_class_lanes_fn(backend: str, num_updates: int, warmup: int,
     if backend == "kernel":
         raise ValueError(
             "the class-aggregated event engine has no kernel; pin "
-            "backend='batched' or 'reference' for class lanes")
+            "backend='batched', 'reference' or 'sharded' for class lanes")
     return _build_lanes_fn(ClassParams, backend, int(num_updates),
                            int(warmup), distribution, int(m_max),
                            bool(has_power), int(chunk), int(trace_events))

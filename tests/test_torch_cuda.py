@@ -1935,3 +1935,90 @@ def test_serve_warm_restart_pays_zero_builds(cuda, tmp_path):
     cold, warm = boot(), boot()
     assert cold["builds"] == 4 and warm["builds"] == 0
     assert json.dumps(cold["payloads"]) == json.dumps(warm["payloads"])
+
+
+# -- the sharded lane backend and shard= on the sweep, on one card -----------
+
+def _split_on_card(monkeypatch, split):
+    """``lane_devices`` patched to three copies of the card (three worker
+    threads and streams, the gather) or left as it is (one card: the
+    ``batched`` runner itself)."""
+    from repro_torch.sim import sharded
+
+    if split:
+        monkeypatch.setattr(sharded, "lane_devices",
+                            lambda device: [torch.device("cuda", 0)] * 3)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("chunk,trace", [(1, 0), (8, 512)])
+def test_sharded_lanes_on_the_card_bitwise_batched(cuda, monkeypatch, split,
+                                                   chunk, trace):
+    """Five lanes (n = 6, CS on) under ``sharded`` bitwise ``batched`` in
+    every leaf, traced or not; no event lane kernel runs (``sharded`` is
+    the ``batched`` program), the key-chain kernel does."""
+    from repro_torch.sim import build_lanes_fn, stack_lanes
+
+    _split_on_card(monkeypatch, split)
+    rng = np.random.default_rng(40)
+    lanes = stack_lanes([NetworkParams(
+        p=torch.as_tensor(rng.dirichlet(np.ones(6)), device=cuda),
+        mu_c=torch.as_tensor(rng.uniform(0.5, 4.0, 6), device=cuda),
+        mu_d=torch.as_tensor(rng.uniform(0.5, 4.0, 6), device=cuda),
+        mu_u=torch.as_tensor(rng.uniform(0.5, 4.0, 6), device=cuda),
+    ).with_cs(1.5) for _ in range(5)])
+    keys = prng.seed_keys(range(5), device=cuda)
+    args = (lanes, [3, 4, 5, 3, 4], keys, None)
+    want = build_lanes_fn("batched", 100, 20, "exponential", 5, False,
+                          trace_events=trace, chunk=chunk)(*args)
+    before = (ke.event_step_lanes.launches, ke.megastep_lanes.launches,
+              ktf.chain_words.launches)
+    got = build_lanes_fn("sharded", 100, 20, "exponential", 5, False,
+                         trace_events=trace, chunk=chunk)(*args)
+    torch.cuda.synchronize()
+    after = (ke.event_step_lanes.launches, ke.megastep_lanes.launches,
+             ktf.chain_words.launches)
+    assert after[:2] == before[:2] and after[2] > before[2]
+    flat_w = list(want) if not trace else list(want[0]) + list(want[1])
+    flat_g = list(got) if not trace else list(got[0]) + list(got[1])
+    for a, b in zip(flat_g, flat_w):
+        if b is None:
+            assert a is None
+        else:
+            assert a.device == b.device and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("kind", ["client", "class"])
+def test_shard_sweep_on_the_card_bitwise_unsharded(cuda, monkeypatch, split,
+                                                   kind):
+    """``batched_concurrency_sweep(shard=True)`` on the ``kernel`` Buzen
+    route (kernels 1, 1b or 5, 5b in every shard) bitwise the unsharded
+    sweep; the grid's last shard stops below the padded m."""
+    from repro_torch.core.batched import (make_time_objective_classes,
+                                          make_time_objective_padded)
+    from repro_torch.core.optimize import batched_concurrency_sweep
+
+    _split_on_card(monkeypatch, split)
+    spec = NetworkSpec.from_clusters(PAPER_CLUSTERS_TABLE1, 10)
+    consts = LearningSpec().consts
+    M = 20
+    if kind == "client":
+        params = spec.params(device=cuda)
+        obj = make_time_objective_padded(params, consts, M)
+        fwd, bwd = kb.buzen_batched, kb.buzen_log_Z_backward
+    else:
+        params = ClassSpec.from_clusters(PAPER_CLUSTERS_TABLE1
+                                         ).class_params(device=cuda)
+        obj = make_time_objective_classes(params, consts, M)
+        fwd, bwd = kb.buzen_classes_batched, kb.buzen_classes_log_Z_backward
+    kw = dict(m_grid=np.arange(2, 18), m_max=M, steps=10, backend="kernel")
+    want = batched_concurrency_sweep(obj, params, **kw)
+    fwd.launches = bwd.launches = 0
+    got = batched_concurrency_sweep(obj, params, shard=True, **kw)
+    torch.cuda.synchronize()
+    shards = 3 if split else 1
+    assert (fwd.launches, bwd.launches) == (11 * shards, 10 * shards)
+    assert got.p.device == want.p.device and torch.equal(got.p, want.p)
+    assert np.array_equal(got.values, want.values)
+    assert got.best.m == want.best.m

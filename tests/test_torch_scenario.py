@@ -6,7 +6,8 @@ package's (``repro.scenario``).
    rebuilds the other's scenario; ``from_dict(to_dict())`` is bitwise.
 2. What the port lacks raises at construction, listing its options: an
    unregistered law (all four of the JAX package's laws load), the
-   ``pallas`` and ``sharded`` backends, ``interpret``.
+   ``pallas`` backend, ``interpret``; a ``sharded`` scenario loads with
+   the JAX ``hash()``.
 3. Eager validation and the step-size rules, as ``tests/test_scenario.py``.
 4. Strategy resolution on Table 1 at scale 10 with its power profile,
    ``steps=40``, against JAX at the sweep tests' tolerances (m exact,
@@ -208,12 +209,20 @@ def test_unported_laws_raise_listing_the_ports(law):
         T.NetworkSpec.from_dict({**d, "law": unknown})
 
 
-@pytest.mark.parametrize("backend", ["pallas", "sharded"])
+@pytest.mark.parametrize("backend", ["pallas"])
 def test_unported_backends_raise_listing_the_ports(backend):
     d = _build(J, "per_client").replace(sim=J.SimSpec(backend=backend))
     with pytest.raises(ValueError, match=r"registered backends: "
-                       r"\['batched', 'kernel', 'reference'\]"):
+                       r"\['batched', 'kernel', 'reference', 'sharded'\]"):
         T.Scenario.from_dict(d.to_dict())
+
+
+def test_sharded_backend_loads_with_the_jax_hash():
+    d = _build(J, "per_client").replace(sim=J.SimSpec(backend="sharded"))
+    got = T.Scenario.from_dict(d.to_dict())
+    assert got.sim.backend == "sharded" and got.sim_backend == "sharded"
+    assert got.to_dict() == d.to_dict()
+    assert got.to_json() == d.to_json() and got.hash() == d.hash()
 
 
 @pytest.mark.parametrize("interpret", [True, False])

@@ -7,9 +7,9 @@ protocol and payloads, and its own live-server contracts on the CPU.
    both packages' ``decode_line`` / ``parse_request``.  Where both accept
    a line, ``id``, ``mode``, ``seeds``, ``options`` and
    ``scenario.hash()`` are equal; where both refuse it, the error
-   ``type``, message and request id are.  A ``pallas`` / ``sharded`` sim
-   backend and ``interpret: true`` are refused by the port alone, as
-   structured errors.
+   ``type``, message and request id are.  A ``pallas`` sim backend and
+   ``interpret: true`` are refused by the port alone, as structured
+   errors.
 3. ``encode_entry`` parity: the port's payload of its ``ScenarioSuite.run``
    against JAX's ``encode_entry`` of JAX's run on the same scenario and
    seeds — the same keys, list shapes and JSON types; ``analyze`` at
@@ -22,9 +22,11 @@ protocol and payloads, and its own live-server contracts on the CPU.
    1e-12``).
 4. The live server on the CPU, bitwise against direct port
    ``ScenarioSuite.run`` payloads: analyze and the response cache,
-   concurrent mixed-``n`` simulate coalesced into one dispatch, mixed-``n``
-   train, structured errors, a killed in-flight client, ``stats`` and
-   ``metrics``, drain and refusal; the refusal of ``cuda`` without a card;
+   concurrent mixed-``n`` simulate coalesced into one dispatch, two
+   ``analyze`` requests of different ``m`` coalesced into one dispatch, a
+   ``sharded`` simulate answered as ``batched`` (its lanes split over
+   three CPU devices), mixed-``n`` train, structured errors, a killed
+   in-flight client, ``stats`` and ``metrics``, drain and refusal; the refusal of ``cuda`` without a card;
    the build directory; ``python -m repro_torch.serve --device cpu
    --stdio`` answering one request in a process of its own.
 
@@ -294,7 +296,6 @@ def test_protocol_parity(name):
 
 
 @pytest.mark.parametrize("sim", [{"backend": "pallas"},
-                                 {"backend": "sharded"},
                                  {"interpret": True}])
 def test_protocol_refuses_what_only_jax_runs(sim):
     d = _scn()
@@ -473,6 +474,69 @@ def test_concurrent_simulate_coalesced_and_bitwise(served):
                                             seeds=(0, 1), **opts))
     assert bitwise_equal(pb, direct_payload(scns[1], "simulate",
                                             seeds=(0, 1), **opts))
+
+
+def _close_tree(got, want, rtol):
+    """Numbers within ``rtol``, everything else equal, key for key."""
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            _close_tree(got[k], want[k], rtol)
+    elif isinstance(want, list):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _close_tree(g, w, rtol)
+    elif isinstance(want, (int, float)) and not isinstance(want, bool):
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=0)
+    else:
+        assert got == want
+
+
+def test_analyze_of_different_m_coalesced_and_bitwise(served):
+    # the analyze bucket key has no m (the JAX key): two asyncsgd requests
+    # at m = 4 and 9 on one network share a dispatch, evaluated at the
+    # larger table; each payload must be its direct run's, at rtol 1e-10
+    # and bitwise
+    sock, _ = served
+    rng = np.random.default_rng(31)
+    net = T.NetworkSpec(mu_c=list(rng.uniform(1.0, 2.0, 6)),
+                        mu_d=[2.0] * 6, mu_u=[2.0] * 6)
+    scns = [T.Scenario(network=net, strategy=T.StrategySpec("asyncsgd",
+                                                            m=m))
+            for m in (4, 9)]
+    with ServeClient(sock, timeout=30) as a, \
+            ServeClient(sock, timeout=30) as b:
+        ids = [c.submit(scn, mode="analyze")
+               for c, scn in zip((a, b), scns)]
+        payloads = [c.unwrap(c.collect(i)) for c, i in zip((a, b), ids)]
+        sched = [e for e in a.events_for(ids[0])
+                 if e["event"] == "scheduled"]
+    assert sched and sched[0]["requests"] == 2
+    for scn, got in zip(scns, payloads):
+        want = direct_payload(scn, "analyze")
+        _close_tree(got, want, 1e-10)
+        assert bitwise_equal(got, want)
+
+
+def test_sharded_simulate_is_served_as_batched(served, monkeypatch):
+    # a request pinned to the sharded backend is parsed, dispatched with
+    # its lanes split over three CPU devices, and answered with the
+    # payload of a direct batched run
+    sock, _ = served
+    monkeypatch.setattr(tsim.sharded, "lane_devices",
+                        lambda device: [torch.device("cpu")] * 3)
+    scn = make_scenario(4, seed=13, sim=T.SimSpec(backend="sharded"))
+    req = TP.parse_request(TP.decode_line(json.dumps(
+        _base(mode="simulate", scenario=scn.to_dict(), seeds=[0, 1, 2],
+              options={"num_updates": 80})).encode()))
+    assert req.scenario.sim_backend == "sharded"
+    with ServeClient(sock, timeout=30) as c:
+        payload = c.run(scn, mode="simulate", seeds=(0, 1, 2),
+                        num_updates=80)
+    batched = make_scenario(4, seed=13, sim=T.SimSpec(backend="batched"))
+    assert bitwise_equal(payload, direct_payload(batched, "simulate",
+                                                 seeds=(0, 1, 2),
+                                                 num_updates=80))
 
 
 def test_train_mixed_n_coalesced_and_bitwise(served):
