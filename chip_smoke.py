@@ -123,7 +123,7 @@ every seed is a ``jax.random`` key, :mod:`repro_torch.core.prng`):
      lane-mean throughput within 10% of Prop. 4; a pair of 300-update runs
      after 50 at chunk 1 and 8, bitwise; 300 updates after 50 with a
      per-class power profile: the pair's trajectory, finite positive
-     energy), and at the n = 100 optimum (300 updates after 50) for the
+     energy), and at the n = 100 optimum (100 updates after 50) for the
      wall ms per lock-step event beside n = 1e6;
   9. the dense LM's prefill (Qwen3-8B, ``configs/qwen3_8b.py``): (a) the
      flash-attention kernel (bfloat16 on ``wgmma`` with TMA-fed tiles,
@@ -351,6 +351,26 @@ every seed is a ``jax.random`` key, :mod:`repro_torch.core.prng`):
      drains, one ``simulate`` request pinned to ``sharded`` (split three
      ways), accepted and answered with the direct ``batched`` run's
      payload.
+ 19. the analysis gates (``repro_torch.analysis``): (a) ``python -m
+     repro_torch.analysis`` (contract lint and hygiene) exits 0 in a
+     process of its own; (b) ``audit.build_report(device="cuda")`` over
+     the 17 resident programs matches ``tests/data/audit_torch_schema.json``
+     and each kernel program launches its kernel (the Buzen kernel for
+     ``kernel_buzen``, the class kernel for ``kernel_buzen_classes``, the
+     event lane kernel for ``kernel_events``, ``suite_simulate_kernel``
+     and their megasteps, the fused update for the trainer loops), each
+     program's ops, float64 ops, host syncs and launches logged; (c)
+     ``analyze_ops`` on the main path at full width, logged, not gated:
+     ``time_optimal`` on the ``kernel`` route at Table 1's n = 100, m_max =
+     132 (5 and 10 Adam steps, so ops and host syncs per step are the
+     difference over 5), 200 lock-step events of 6 lanes at (p*, m*) on
+     ``kernel`` at E = 1 after the stream's first block is drawn, and one
+     block draw; (d) the mixed-population suite of
+     ``tests/test_analysis.py`` on ``kernel`` under
+     ``tracecheck.expect(max_programs=2, pattern=PLANNER_PROGRAMS)`` with
+     one program, then the same run again and a run of new seeds through
+     the shared caches under ``tracecheck.forbid()``: no ``nvcc``, no
+     runner built, the lane kernel launched.
 
 Phase 3 also holds the fused-update kernel against its plain version
 (bitwise on the new parameters, ``rtol 1e-5`` on the squared norm) at
@@ -404,6 +424,9 @@ WINDOW_UPDATES = 200
 # route, whose window is timing only: cut so that phase 17 fits the clock
 PAIR_WARMUP = 50
 BATCHED_WINDOW_UPDATES = 50
+# phase 8's n = 100 class lanes (timing beside n = 1e6, and the shape of
+# expand_class_stats): 100 updates after PAIR_WARMUP, to pay for phase 19
+CLASS_SMALL_UPDATES = 100
 # phase 12's strategy grid on the event engine: deep enough for every
 # strategy's lanes to leave their start-up transient (Prop. 4's gate), and
 # its CNN lanes' round cap
@@ -552,6 +575,10 @@ print(json.dumps({"builds": len(build.spans()),
 # one, from three, to pay for phase 18 (90 profiler sessions took 133 s of
 # a 1,042 s run on the H100)
 PHASE5_TRACES = 1
+# phase 10d's traced runs per timed call, one from three, to pay for phase
+# 19 (39 profiler sessions took 20.6 of phase 10's 82.9 s on the H100);
+# the record's ms are between-event times
+PHASE10D_TRACES = 1
 # phase 18's depth: the sharded lanes are the plain ``batched`` program,
 # about 3 ms a lock-step event on the card, and split three ways on one
 # card they took 7-10x as long as on one device (60 updates after 20: 8.6
@@ -1240,7 +1267,7 @@ def class_phase(dev, consts, net, res_k, M: int) -> tuple:
     check(bool(torch.isfinite(pw.energy).all() and (pw.energy > 0).all()),
           f"class lanes energy {pw.energy.tolist()}")
     small = simulate(100, classes[100]._replace(p=r100.p.detach()), r100.m,
-                     8, updates=POWER_UPDATES, warmup=PAIR_WARMUP)
+                     8, updates=CLASS_SMALL_UPDATES, warmup=PAIR_WARMUP)
     ex = expand_class_stats(small, classes[100].count)
     check(ex.mean_delay.shape == (6, 100), "expand_class_stats shape")
     main_s = time.perf_counter() - t_main
@@ -3309,6 +3336,201 @@ def sharded_phase(dev, card: str, net, consts, p_star, m_star: int,
         f"({card}); {time.perf_counter() - t_phase:.1f} s")
 
 
+def _check_schema(spec, value, path="report") -> None:
+    """``value`` against a golden schema of ``tests/data`` (type names,
+    lists of one item, ``__each__`` for maps)."""
+    types = {"str": str, "int": int, "number": (int, float), "bool": bool}
+    if isinstance(spec, str):
+        check(isinstance(value, types[spec])
+              and not (spec in ("int", "number") and isinstance(value, bool)),
+              f"{path}: {value!r} is not {spec}")
+    elif isinstance(spec, list):
+        check(isinstance(value, list), f"{path}: not a list")
+        for i, item in enumerate(value):
+            _check_schema(spec[0], item, f"{path}[{i}]")
+    else:
+        check(isinstance(value, dict), f"{path}: not a dict")
+        if "__each__" in spec:
+            for k, v in value.items():
+                _check_schema(spec["__each__"], v, f"{path}.{k}")
+        else:
+            check(set(spec) == set(value),
+                  f"{path}: keys {sorted(value)} != {sorted(spec)}")
+            for k in spec:
+                _check_schema(spec[k], value[k], f"{path}.{k}")
+
+
+def analysis_phase(dev, card: str, net, consts, p_star, m_star: int,
+                   M: int) -> None:
+    """Phase 19 (see the module docstring)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch import scenario as S
+    from repro_torch.analysis import audit, tracecheck
+    from repro_torch.core import prng
+    from repro_torch.core.complexity import LearningConstants
+    from repro_torch.core.events import (DRAW_EVENTS, EventStream,
+                                         event_key, init_state, run_events,
+                                         stack_lanes)
+    from repro_torch.core.optimize import time_optimal
+
+    t_phase = time.perf_counter()
+
+    # -- 19a. the static gates in a process of their own --------------------
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [x for x in [os.environ.get("PYTHONPATH")]
+                               if x]))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis"],
+                         capture_output=True, text=True, timeout=120,
+                         env=env, cwd=str(ROOT))
+    check(out.returncode == 0,
+          f"python -m repro_torch.analysis exited {out.returncode}: "
+          f"{out.stdout[-1500:]} {out.stderr[-1500:]}")
+    for line in out.stdout.strip().splitlines():
+        log(f"phase 19: analysis | {line}")
+    log(f"phase 19: python -m repro_torch.analysis exited 0 "
+        f"[{time.perf_counter() - t_phase:.1f} s]")
+
+    # -- 19b. the audit of the 17 resident programs on the card -------------
+    t0 = time.perf_counter()
+    report = audit.build_report(device="cuda")
+    golden = json.loads((ROOT / "tests" / "data"
+                         / "audit_torch_schema.json").read_text())
+    _check_schema(golden, report)
+    programs = report["programs"]
+    check(len(programs) == 17 and report["device"].startswith("cuda"),
+          f"audit: {len(programs)} programs on {report['device']}")
+    for name, entry in programs.items():
+        log(f"phase 19: audit {name}: {entry['total_ops']} ops, "
+            f"{entry['f64']['count']} float64, "
+            f"{entry['downcasts_f64_to_f32']['count']} downcasts, host "
+            f"syncs {entry['host_syncs']['count']} "
+            f"{entry['host_syncs']['ops']}, launches {entry['launches']}")
+    want = {"kernel_buzen": "buzen_batched",
+            "kernel_buzen_classes": "buzen_classes_batched",
+            "kernel_events": "event_step_lanes",
+            "kernel_events_megastep": "megastep_lanes",
+            "suite_simulate_kernel": "event_step_lanes",
+            "suite_simulate_kernel_megastep": "megastep_lanes",
+            "trainer_scan": "fused_async_update_flat",
+            "trainer_scan_traced": "fused_async_update_flat",
+            "trainer_scan_lane_nets": "fused_async_update_flat"}
+    for name, kernel in want.items():
+        check(programs[name]["launches"].get(kernel, 0) >= 1,
+              f"audit: {name} did not launch {kernel}: "
+              f"{programs[name]['launches']}")
+    log(f"phase 19: audit of {len(programs)} programs on "
+        f"{report['device_name']}: schema held, every kernel program "
+        f"launched its kernel; graph-capturable "
+        f"{report['summary']['capturable']}; blocked by host syncs "
+        f"{report['summary']['blocked']} ({card}) "
+        f"[{time.perf_counter() - t0:.1f} s]")
+
+    # -- 19c. ops and host syncs of the main path at full width -------------
+    t0 = time.perf_counter()
+    sweep = {k: audit.analyze_ops(time_optimal, net, consts, m_max=M,
+                                  steps=k, backend="kernel")
+             for k in (5, 10)}
+
+    def per(key, a, b, k):
+        return (a[key]["count"] - b[key]["count"]) / k
+
+    step_ops = (sweep[10]["total_ops"] - sweep[5]["total_ops"]) / 5
+    step_syncs = per("host_syncs", sweep[10], sweep[5], 5)
+    step_f64 = per("f64", sweep[10], sweep[5], 5)
+    step_launches = {k: (sweep[10]["launches"].get(k, 0)
+                         - sweep[5]["launches"].get(k, 0)) / 5
+                     for k in sweep[10]["launches"]}
+    log(f"phase 19: time_optimal(kernel, n = {net.n}, m_max = {M}): "
+        f"{sweep[5]['total_ops']} ops, {sweep[5]['host_syncs']['count']} "
+        f"host syncs in 5 Adam steps, {sweep[10]['total_ops']} and "
+        f"{sweep[10]['host_syncs']['count']} in 10: per Adam step "
+        f"{step_ops:.1f} ops, {step_syncs:.1f} host syncs "
+        f"{sweep[10]['host_syncs']['ops']} (10 steps), {step_f64:.1f} "
+        f"float64 ops, launches {step_launches}")
+    top = sorted(sweep[10]["op_counts"].items(), key=lambda kv: -kv[1])[:8]
+    log(f"phase 19: the 10-step sweep's most frequent ops: {top}")
+    singles = [p_star] * 6
+    lanes = stack_lanes(singles)
+    keys = prng.seed_keys(range(6), device=dev)
+
+    def fresh_lanes():
+        st = stack_lanes([init_state(p, m_star, k, m_max=m_star)
+                          for p, k in zip(singles, keys)])
+        return st, EventStream(singles, event_key(keys),
+                               distribution="exponential")
+
+    st, stream = fresh_lanes()
+    run_events(lanes, st, stream, 200, backend="kernel")  # warm
+    st, stream = fresh_lanes()
+    draw = audit.analyze_ops(stream.window, 1)  # the first block's draw
+    events = 200
+    ev = audit.analyze_ops(run_events, lanes, st, stream, events,
+                           backend="kernel")
+    torch.cuda.synchronize()
+    log(f"phase 19: {events} lock-step events of 6 lanes at m* = {m_star} "
+        f"on kernel, E = 1: {ev['total_ops']} ops "
+        f"({ev['total_ops'] / events:.2f} an event), host syncs "
+        f"{ev['host_syncs']['count']} ({ev['host_syncs']['count'] / events:.3f}"
+        f" an event: {ev['host_syncs']['ops']}), launches "
+        f"{ev['launches']}; the block draw before them ({DRAW_EVENTS} "
+        f"events a lane): {draw['total_ops']} ops, host syncs "
+        f"{draw['host_syncs']['count']} {draw['host_syncs']['ops']}, "
+        f"launches {draw['launches']}")
+    top = sorted(ev["op_counts"].items(), key=lambda kv: -kv[1])[:8]
+    log(f"phase 19: the events' most frequent ops: {top} "
+        f"[{time.perf_counter() - t0:.1f} s]")
+
+    # -- 19d. the build sentinel on the mixed-population suite -------------
+    t0 = time.perf_counter()
+
+    def mixed(seeds, caches):
+        scns = {}
+        for i, n in enumerate((3, 4, 6)):
+            r = np.random.default_rng(40 + i)
+            spec = S.NetworkSpec(mu_c=r.uniform(0.5, 6.0, n),
+                                 mu_d=r.uniform(0.5, 6.0, n),
+                                 mu_u=r.uniform(0.5, 6.0, n))
+            scns[f"n{n}"] = S.Scenario(
+                network=spec, learning=S.LearningSpec(
+                    consts=LearningConstants(M=2.0, G=5.0)),
+                strategy=S.StrategySpec(
+                    S.EXPLICIT, p=r.dirichlet(np.ones(n)), m=n - 1))
+        return S.ScenarioSuite(scns, seeds=seeds, caches=caches, device=dev)
+
+    caches = S.SuiteCaches()
+    suite = mixed((0, 1), caches)
+    with tracecheck.expect(max_programs=2,
+                           pattern=tracecheck.PLANNER_PROGRAMS,
+                           what="mixed-n suite planner on kernel") as w:
+        res = suite.run(mode="simulate", num_updates=173, backend="kernel")
+    check(res.programs == 1, f"mixed suite programs {res.programs}")
+    check("suite.simulate" in w.programs(), f"runners {w.programs()}")
+    check(w.launches.get("event_step_lanes", 0) >= 1,
+          f"mixed suite launches {w.launches}")
+    with tracecheck.forbid("the same run again") as again:
+        rep = suite.run(mode="simulate", num_updates=173, backend="kernel")
+    check(rep.cache_hits == 3 and rep.programs == 0,
+          f"repeat: {rep.cache_hits} cache hits, {rep.programs} programs")
+    with tracecheck.forbid("new seeds through the shared caches") as seeds:
+        new = mixed((2,), caches).run(mode="simulate", num_updates=173,
+                                      backend="kernel")
+    check(new.programs == 0 and seeds.launches.get("event_step_lanes", 0)
+          >= 1, f"new seeds: {new.programs} programs, launches "
+          f"{seeds.launches}")
+    log(f"phase 19: mixed-n suite on kernel: 1 program, runners built "
+        f"{w.programs()} (budget 2), {w.builds} nvcc, launches "
+        f"{w.launches}; the same run again: {again.builds} nvcc, runners "
+        f"{again.programs()}, launches {again.launches}; new seeds through "
+        f"the shared caches: {seeds.builds} nvcc, runners "
+        f"{seeds.programs()}, launches {seeds.launches}, Dynamo compiles "
+        f"{seeds.dynamo_compiles} [{time.perf_counter() - t0:.1f} s]")
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+
+
 def lm_phase(dev, card: str, seed: int) -> dict:
     """Phase 9 (see the module docstring); returns kernel 6's record with
     its launches on one full-depth prefill."""
@@ -3791,7 +4013,7 @@ def decode_phase(dev, card: str, seed: int) -> dict:
         e = (lib - calls["kernel"][0]().float()).abs()
         check(bool((e <= 2e-2 + 2e-2 * lib.abs()).all()),
               f"the library call disagrees with the kernel: {float(e.max())}")
-        times = {name: (device_ms(fn, r), time_ms(fn, r))
+        times = {name: (device_ms(fn, r, PHASE10D_TRACES), time_ms(fn, r))
                  for name, (fn, r) in calls.items()}
         nbytes = 2 * (2 * B * S * KV * D + 2 * B * H * D)
         ops = 4 * B * H * S * D
@@ -4638,12 +4860,15 @@ def main() -> int:
     sharded_phase(dev, card, net, consts, p_star, m_star, big_spec, big_res,
                   M)
 
+    # -- 19. the analysis gates: lint, hygiene, audit, build sentinel ------
+    analysis_phase(dev, card, net, consts, p_star, m_star, M)
+
     # -- 9. the dense LM's prefill: Qwen3-8B, kernel 6 ---------------------
     flash_rec = lm_phase(dev, card, seed)
 
     # -- 10. the dense LM's decode and the serve loop, kernel 7 -----------
     decode_rec = decode_phase(dev, card, seed)
-    log(f"chip_smoke: phases 1-18 passed in "
+    log(f"chip_smoke: phases 1-19 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [buzen_rec, bwd_rec, event_rec, mega_rec,

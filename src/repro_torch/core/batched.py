@@ -25,6 +25,8 @@ differentiates) in one pass.
 """
 from __future__ import annotations
 
+# contract: padded-n — reductions here are on the bitwise padding contract
+
 from typing import Callable, Optional
 
 import torch
@@ -97,6 +99,7 @@ def _padded_series_vs_Z(log_load: torch.Tensor, logZ: torch.Tensor,
     terms = log_load[:, :, None] * k + zterm[:, None, :]        # [B, X, K]
     if weights_log is not None:
         terms = terms + weights_log
+    # contract: allow(raw-reduction): logsumexp over the k = 1..m_max convolution axis — static length, never client/class padded
     return torch.logsumexp(
         torch.where((idx >= 0)[:, None, :], terms, NEG_INF), dim=-1)
 
@@ -227,6 +230,7 @@ def second_moment_matrix_padded(params: NetworkParams, m: torch.Tensor,
         valid = (s[None, :] <= pop_c[:, None])[:, :, None, None]
         if mask is not None:
             valid = valid & (mask[:, None] & mask[None, :])
+        # contract: allow(raw-reduction): logsumexp over the s = 2..m_max axis — static length, never client/class padded
         alpha_off = torch.exp(torch.logsumexp(
             torch.where(valid, log_c + zlog, NEG_INF), dim=1))
     else:
@@ -266,10 +270,12 @@ def _cs_second_moment_terms_padded(params: NetworkParams, logZ: torch.Tensor,
         k[None, :] <= pop[:, None],
         k * log_load_cs[:, None] + _lz(logZ, pop[:, None] - k[None, :])
         - _lz(logZ, pop)[:, None], NEG_INF)                     # [B, K]
+    # contract: allow(raw-reduction): logsumexp over the k = 1..m_max axis — static length, never client/class padded
     s0 = torch.exp(torch.logsumexp(base, dim=-1))
     s1_terms = torch.where(
         k > 1, base + torch.log(torch.clamp_min(k.to(DTYPE) - 1.0, 1e-300)),
         NEG_INF)
+    # contract: allow(raw-reduction): logsumexp over the k = 1..m_max axis — static length, never client/class padded
     s1 = torch.exp(torch.logsumexp(s1_terms, dim=-1))
     pi = p / psum[:, None]
     ps = psum[:, None, None]
@@ -289,6 +295,7 @@ def _cs_second_moment_terms_padded(params: NetworkParams, logZ: torch.Tensor,
         valid = ((kk[:, None] + ll[None, :])[None]
                  <= pop[:, None, None])[:, None]
         grid = torch.where(valid, grid, NEG_INF)
+        # contract: allow(raw-reduction): logsumexp over the (kk, ll) m-grid axes — static lengths, never client/class padded
         alpha_cs_i = torch.exp(torch.logsumexp(grid.flatten(2), dim=-1))
     else:
         alpha_cs_i = torch.zeros_like(p)
@@ -396,7 +403,8 @@ def round_complexity_classes(classes: ClassParams, m: torch.Tensor,
     eps = consts.eps
     delays = expected_relative_delay_classes(classes, m, logZ, m_max)
     p_safe = torch.where(mask, classes.p, 1.0)
-    inv_np = torch.where(mask, cnt / (n * p_safe), 0.0)
+    # n [...] per lane (or a scalar) against the [..., C] class axis
+    inv_np = torch.where(mask, cnt / (n[..., None] * p_safe), 0.0)
     stale_terms = torch.where(mask, cnt * delays / p_safe**2, 0.0)
     first = (4.0 + consts.B / eps) * seqsum(inv_np)
     staleness = seqsum(stale_terms)
@@ -464,6 +472,7 @@ def second_moment_classes(classes: ClassParams, m: torch.Tensor,
                 - _lz(logZ, pop_c)[:, None])[:, :, None, None]
         valid = ((s[None, :] <= pop_c[:, None])[:, :, None, None]
                  & (mask[:, None] & mask[None, :]))
+        # contract: allow(raw-reduction): logsumexp over the s = 2..m_max axis — static length, never client/class padded
         alpha_cross = torch.exp(torch.logsumexp(
             torch.where(valid, log_c + zlog, NEG_INF), dim=1))
     else:
@@ -506,10 +515,12 @@ def _cs_second_moment_terms_classes(classes: ClassParams, logZ: torch.Tensor,
         k[None, :] <= pop[:, None],
         k * log_load_cs[:, None] + _lz(logZ, pop[:, None] - k[None, :])
         - _lz(logZ, pop)[:, None], NEG_INF)                     # [B, K]
+    # contract: allow(raw-reduction): logsumexp over the k = 1..m_max axis — static length, never client/class padded
     s0 = torch.exp(torch.logsumexp(base, dim=-1))
     s1_terms = torch.where(
         k > 1, base + torch.log(torch.clamp_min(k.to(DTYPE) - 1.0, 1e-300)),
         NEG_INF)
+    # contract: allow(raw-reduction): logsumexp over the k = 1..m_max axis — static length, never client/class padded
     s1 = torch.exp(torch.logsumexp(s1_terms, dim=-1))
     pi = p / psum[:, None]
     if m_max >= 2:
@@ -524,6 +535,7 @@ def _cs_second_moment_terms_classes(classes: ClassParams, logZ: torch.Tensor,
         valid = ((kk[:, None] + ll[None, :])[None]
                  <= pop[:, None, None])[:, None]
         grid = torch.where(valid, grid, NEG_INF)
+        # contract: allow(raw-reduction): logsumexp over the (kk, ll) m-grid axes — static lengths, never client/class padded
         alpha_cs_i = torch.exp(torch.logsumexp(grid.flatten(2), dim=-1))
     else:
         alpha_cs_i = torch.zeros_like(p)

@@ -19,6 +19,8 @@ environment variable is read.
 """
 from __future__ import annotations
 
+# contract: padded-n — reductions here are on the bitwise padding contract
+
 import functools
 import itertools
 import math
@@ -259,6 +261,7 @@ def _log_conv(log_a: torch.Tensor, log_b: torch.Tensor) -> torch.Tensor:
     M = log_a.shape[-1] - 1
     rev, valid = _conv_index(M, log_a.device)
     terms = torch.where(valid, log_a[..., None, :] + log_b[..., rev], NEG_INF)
+    # contract: allow(raw-reduction): logsumexp over the k = 0..m_max convolution axis — static length m_max + 1, never client/class padded
     return torch.logsumexp(terms, dim=-1)
 
 
@@ -430,7 +433,8 @@ def brute_force_log_Z(params: NetworkParams, m: int) -> float:
                 + [(p[i] / mu_d[i], True) for i in range(n)]
                 + [(p[i] / mu_u[i], True) for i in range(n)])
     if params.mu_cs is not None:
-        stations.append((float(np.sum(p)) / float(params.mu_cs), False))
+        # math.fsum rounds once: appended zeros cannot change it
+        stations.append((math.fsum(p) / float(params.mu_cs), False))
     S = len(stations)
     total = 0.0
     # compositions of m into S parts

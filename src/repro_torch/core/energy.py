@@ -9,6 +9,8 @@ that sit on the padded-``n`` contract are sequential (``seqsum``).
 """
 from __future__ import annotations
 
+# contract: padded-n — reductions here are on the bitwise padding contract
+
 from typing import NamedTuple, Optional
 
 import torch

@@ -52,6 +52,8 @@ engine; its table transition has no kernel (nor has the JAX package's).
 """
 from __future__ import annotations
 
+# contract: padded-n — reductions here are on the bitwise padding contract
+
 import math
 from typing import NamedTuple, Optional
 
@@ -323,6 +325,7 @@ def _station_counts(phase, client, n):
     comp_total = count((phase == COMP_WAIT) | (phase == COMP_SERV))
     comp_serving = count(phase == COMP_SERV)
     up = count(phase == UP)
+    # contract: allow(raw-reduction): 0/1 indicator count over the task table — exact small-integer f64 under any association, and the table axis is m_max (never padded-n)
     cs_total = torch.sum(((phase == CS_WAIT) | (phase == CS_SERV)).to(DTYPE))
     cs_busy = torch.any(phase == CS_SERV)
     return down, comp_total, comp_serving, up, cs_total, cs_busy
@@ -775,6 +778,7 @@ def megastep_lanes_plain(params, state: EventState, fs, c_new, rem, *,
     D = int_mat.view(K, chunk, 10)
     keep_mat = D[..., 9] > 0
     if stop_on_update or isinstance(rem, torch.Tensor):
+        # contract: allow(raw-reduction): boolean count over the chunk axis — exact integer arithmetic, never a padded client/class axis
         taken = keep_mat.sum(dim=1).tolist()  # data-dependent: ask
     else:
         taken = [min(max(int(r), 0), chunk)
@@ -1052,6 +1056,7 @@ def next_update(params: NetworkParams, state: EventState,
                                              donate=owned, law=law)
             D = int_mat.view(K, chunk, 10)
             kept = D[..., 9] > 0
+            # contract: allow(raw-reduction): boolean count over the chunk axis — exact integer arithmetic, never a padded client/class axis
             n_kept = kept.sum(dim=1)
             # one read for both: the events each lane took, its update
             taken, got = torch.stack([n_kept, (kept & (D[..., 2] > 0))

@@ -7,6 +7,8 @@ every tensor it creates and never changes torch's default dtype.
 """
 from __future__ import annotations
 
+# contract: padded-n — reductions here are on the bitwise padding contract
+
 import torch
 
 DTYPE = torch.float64

@@ -76,6 +76,8 @@ back into it, so training is bitwise that of an untraced run;
 """
 from __future__ import annotations
 
+# contract: padded-n — reductions here are on the bitwise padding contract
+
 import copy
 import dataclasses
 from typing import Callable, NamedTuple, Optional
@@ -250,10 +252,12 @@ def max_throughput_bound(net: NetworkParams, m) -> float:
         return np.asarray(torch.as_tensor(x).detach().cpu(), dtype=np.float64)
 
     p = host(net.p)
+    # contract: allow(raw-reduction): host-side numpy planning bound over the trainer's own unpadded network, reported only as updates_per_lane — the round loop stops on the lanes' own counts, so no run reads it
     p = p / p.sum()
     station = float(np.min(host(net.mu_c) / np.maximum(p, 1e-12)))
     if net.mu_cs is not None:
         station = min(station, float(net.mu_cs))
+    # contract: allow(raw-reduction): host-side numpy planning bound over the trainer's own unpadded network, reported only as updates_per_lane — the round loop stops on the lanes' own counts, so no run reads it
     cycle = float(np.sum(p * (1.0 / host(net.mu_d) + 1.0 / host(net.mu_c)
                               + 1.0 / host(net.mu_u))))
     if net.mu_cs is not None:
@@ -365,6 +369,7 @@ class DeviceTrainer:
         """``g`` scaled to at most ``grad_clip`` in norm (no clip: as is)."""
         clip = self.cfg.grad_clip
         if clip is not None:
+            # contract: allow(raw-reduction): parameter-axis grad norm — model leaves are never padded along the client axis
             norm = torch.sqrt(torch.sum(g * g))
             factor = torch.clamp_max(torch.full_like(norm, clip)
                                      / (norm + 1e-12), 1.0)
@@ -506,6 +511,7 @@ class DeviceTrainer:
                     raw = self._raw_grad(stale[i], x_flat[rows[i]],
                                          y_flat[rows[i]])
                     if ring is not None:
+                        # contract: allow(raw-reduction): parameter-axis grad norm — model leaves are never padded along the client axis
                         gnorm[i] = torch.sqrt(torch.sum(torch.square(
                             raw.to(DTYPE))))
                     g[i] = self._clip(raw)
@@ -553,6 +559,7 @@ class DeviceTrainer:
             final_loss = final_acc = torch.zeros(L, device=dev)
             snap_losses = snap_accs = torch.zeros(L, G, device=dev)
 
+        # contract: allow(raw-reduction): boolean count of live updates over the round axis — exact integer arithmetic under any association
         k_h = live.sum(dim=1)
         delay_sum = torch.zeros(L, n, dtype=DTYPE, device=dev).scatter_add_(
             1, clients_k, torch.where(live, delays.to(DTYPE), 0.0))

@@ -7,8 +7,14 @@ root (or the directory given to :func:`set_build_dir`), keyed by a hash of
 the source, the shared headers (``csrc/*.cuh``) and the flags, and are
 built at first use — never at import.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all
-of them.  :func:`spans` lists the builds this process ran, the compile
-spans of a Perfetto trace (``repro_torch.obs.trace``).
+of them.
+
+The process-wide records :mod:`repro_torch.analysis.tracecheck` reads:
+:func:`spans` (the ``nvcc`` runs, the compile spans of a Perfetto trace),
+:func:`reuses` (libraries loaded from the build directory without
+``nvcc``), :func:`runners` (the bucket runners built, by name, which
+their builders report through :func:`runner_built`) and
+:func:`launch_totals` (every kernel launch :func:`count` has counted).
 """
 from __future__ import annotations
 
@@ -40,6 +46,9 @@ _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _spans: list = []  # (program, end, seconds) of each nvcc run
+_reuses: list = []  # names of libraries loaded without an nvcc run
+_runners: list = []  # (name, perf_counter) of each bucket runner built
+_launch_totals: dict = {}  # wrapper[.attr] -> launches counted so far
 
 
 def _nvcc() -> str:
@@ -82,6 +91,32 @@ def spans() -> list:
     """``(program, end, seconds)`` of every ``nvcc`` run of this process,
     on the ``time.perf_counter`` clock."""
     return list(_spans)
+
+
+def reuses() -> list:
+    """Names of the libraries this process loaded from the build directory
+    without running ``nvcc`` (built by an earlier process)."""
+    return list(_reuses)
+
+
+def runner_built(name: str) -> None:
+    """Record that a bucket runner named ``name`` was built (a miss of a
+    runner memo: ``SuiteCaches``, the lane builders)."""
+    with _count_lock:
+        _runners.append((name, time.perf_counter()))
+
+
+def runners() -> list:
+    """``(name, perf_counter)`` of every bucket runner built so far."""
+    with _count_lock:
+        return list(_runners)
+
+
+def launch_totals() -> dict:
+    """Launches counted by :func:`count` in this process, by wrapper name
+    (``name.attr`` for a count other than ``launches``); never reset."""
+    with _count_lock:
+        return dict(_launch_totals)
 
 
 def _start(name: str):
@@ -131,7 +166,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            _finish(name, _start(name))
+            started = _start(name)
+            if started is None:
+                _reuses.append(name)
+            _finish(name, started)
             lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return lib
 
@@ -140,8 +178,11 @@ def count(wrapper, attr: str = "launches") -> None:
     """Add one to a wrapper's launch count (``wrapper.launches``, or
     ``attr``), under a lock: worker threads that launch at once (the
     sharded lanes and sweeps) lose no count."""
+    key = wrapper.__name__ if attr == "launches" else \
+        f"{wrapper.__name__}.{attr}"
     with _count_lock:
         setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+        _launch_totals[key] = _launch_totals.get(key, 0) + 1
 
 
 def check(err: int, what: str) -> None:

@@ -45,6 +45,8 @@ Entry points:
 """
 from __future__ import annotations
 
+# contract: padded-n — reductions here are on the bitwise padding contract
+
 import ctypes
 
 import torch
@@ -82,6 +84,7 @@ def _fold_plain(u: torch.Tensor, series: torch.Tensor) -> torch.Tensor:
     shifted = torch.where(valid, ar[:, None] - ar[None, :], 0)
     terms = torch.where(valid, series[:, None, :] + u[:, shifted], NEG_INF)
     row_max = terms.amax(dim=-1)
+    # contract: allow(raw-reduction): sum over the k <= m convolution axis within ONE station — the station axis is the Python loop (the kernel's column walk), and this float32 path is rtol-validated, not bitwise
     sumexp = torch.exp(terms - row_max[..., None]).sum(dim=-1)
     return row_max + torch.log(sumexp)
 
@@ -191,13 +194,17 @@ def _adjoint_plain(series: torch.Tensor, live: torch.Tensor,
         terms = torch.where(valid, u[:, None, :] + series[:, s][:, qi],
                             NEG_INF)
         rows.append(torch.where(live[:, s, None],
+                                # contract: allow(raw-reduction): logsumexp over the k <= m convolution axis within ONE column — the column axis is the Python loop, and a padded column passes through as an explicit identity
                                 torch.logsumexp(terms, dim=-1), u))
     g_lr = torch.zeros(live.shape, dtype=torch.float64, device=init.device)
     for s in reversed(range(series.shape[1])):
         e = rows[s][:, None, :] + series[:, s][:, qi] - rows[s + 1][:, :, None]
         gp = g[:, :, None] * torch.exp(torch.where(valid, e, -torch.inf))
+        # contract: allow(raw-reduction): sum over the (m, k) convolution axes of ONE column's partial — the column axis is the Python loop, never summed
         g_lr[:, s] = torch.where(live[:, s], (gp * qd).sum(dim=(1, 2)), 0.0)
+        # contract: allow(raw-reduction): sum over the m convolution axis of ONE column — the column axis is the Python loop, never summed
         g = torch.where(live[:, s, None], gp.sum(dim=1), g)
+    # contract: allow(raw-reduction): sum over the k = 0..m_max axis of the Poisson row's adjoint — static length, never client/class padded
     return g_lr, (g * ar.to(torch.float64)).sum(dim=-1)
 
 

@@ -47,6 +47,8 @@ transition, then ``replay_event`` per kept event).  Each wrapper's
 """
 from __future__ import annotations
 
+# contract: padded-n — reductions here are on the bitwise padding contract
+
 import ctypes
 import functools
 from typing import Optional

@@ -35,7 +35,7 @@ _REQUIRED_EVENT_KEYS = ("name", "ph", "ts", "dur", "pid", "tid", "args")
 
 
 def _smoke(args) -> int:
-    from ..kernels import build
+    from ..analysis import tracecheck
     from ..scenario import (NetworkSpec, Scenario, ScenarioSuite, SimSpec,
                             TraceSpec)
     from .drift import predict
@@ -50,9 +50,9 @@ def _smoke(args) -> int:
                                                tolerance=args.tolerance)))
     suite = ScenarioSuite({"obs_smoke": scn}, seeds=tuple(range(args.seeds)),
                           device=args.device)
-    built = len(build.spans())
-    res = suite.run(mode="simulate", num_updates=args.updates,
-                    warmup=args.warmup)
+    with tracecheck.watch() as watch:
+        res = suite.run(mode="simulate", num_updates=args.updates,
+                        warmup=args.warmup)
     decoded = res.traces["obs_smoke"][0]  # seed 0 carries the timeline
     reports = res.drift["obs_smoke"]
     p, m = res.strategies["obs_smoke"]
@@ -62,7 +62,7 @@ def _smoke(args) -> int:
     doc = perfetto_trace(
         decoded, scn.n, name="obs_smoke",
         host_spans=suite.metrics.spans(),
-        compile_spans=build.spans()[built:],
+        compile_spans=watch.spans,
         metadata={"scenario": scn.to_dict(), "seeds": list(suite.seeds),
                   "law": scn.network.law, "tolerance": args.tolerance,
                   "predictions": preds, "drift": reports,

@@ -737,6 +737,7 @@ class Scenario:
                         else self.network.n)
             if len(self.energy.kappa) != expected:
                 raise ValueError("energy/network population mismatch")
+        # contract: allow(stringly-dispatch): eager construction-time check that these two strategies need an EnergySpec — resolution itself routes through STRATEGIES
         if (self.strategy.name in ("energy_opt", "joint")
                 and self.energy is None):
             raise ValueError(

@@ -24,6 +24,8 @@ one (``repro_torch.core.buzen.set_backend``).
 """
 from __future__ import annotations
 
+# contract: padded-n — reductions here are on the bitwise padding contract
+
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
@@ -50,6 +52,7 @@ from ..core.energy import (PowerProfile, energy_optimal_routing,
                            minimal_energy)
 from ..core.events import lane, stack_lanes, unpad_stats
 from ..core.numerics import DTYPE
+from ..kernels import build
 from ..obs.drift import drift_report, predict
 from ..obs.rings import decode, decode_lane
 from ..core.optimize import (joint_optimal, make_energy_objective,
@@ -559,6 +562,7 @@ class ScenarioSuite:
                 fn = self._jit_cache[sig] = _build_analyze(
                     m_max, has_power, is_classes)
                 programs += 1
+                build.runner_built("suite.analyze")
             with self.metrics.timed("suite.dispatch", mode="analyze"):
                 out = {k: v.detach().cpu().numpy()
                        for k, v in fn(prm, m_vec, consts, power,
@@ -691,11 +695,13 @@ class ScenarioSuite:
                    mx, nu, wu, bk, ck, tr)
             fn = self._jit_cache.get(sig)
             if fn is None:
-                build = build_class_lanes_fn if is_classes else build_lanes_fn
-                fn = self._jit_cache[sig] = build(bk, nu, wu, law, mx,
-                                                  has_power, trace_events=tr,
-                                                  chunk=ck)
+                builder = (build_class_lanes_fn if is_classes
+                           else build_lanes_fn)
+                fn = self._jit_cache[sig] = builder(
+                    bk, nu, wu, law, mx, has_power, trace_events=tr,
+                    chunk=ck)
                 programs += 1
+                build.runner_built("suite.simulate")
             with self.metrics.timed("suite.dispatch", mode="simulate"):
                 out = fn(lane_params, m_vec, keys, power)
             stats, rings = out if tr else (out, None)
@@ -879,6 +885,7 @@ class ScenarioSuite:
                 self._trainers[key] = (model, bucket_clients, bucket_test,
                                        loss_fn, trainer)
                 programs += 1
+                build.runner_built("suite.train")
             n_top = trainer.n
             ps, ms, etas, seeds = [], [], [], []
             nets, lane_clients, lane_powers = [], [], []

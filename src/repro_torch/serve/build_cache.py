@@ -8,8 +8,9 @@ their sources and flags: :func:`enable_build_cache` points the build at
 one directory (default the repo's ``build/``), and :func:`prebuild`
 builds every kernel of the scenario path there ahead of the first
 request.  A restarted server on the same directory then finds every
-library on disk and runs no ``nvcc`` at all (``build.spans()`` stays
-empty).
+library on disk and runs no ``nvcc`` at all (a
+:func:`repro_torch.analysis.tracecheck.watch` of the boot counts no
+build).
 
 Call them before the first kernel launch; both are idempotent.
 """
@@ -19,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..analysis import tracecheck
 from ..kernels import build
 
 #: the sources whose kernels the scenario path launches: the Buzen
@@ -42,6 +44,6 @@ def prebuild(device="cuda") -> int:
     for the CPU, whose tensors take the plain versions."""
     if torch.device(device).type != "cuda":
         return 0
-    before = len(build.spans())
-    build.build_all(SCENARIO_KERNELS)
-    return len(build.spans()) - before
+    with tracecheck.watch() as watch:
+        build.build_all(SCENARIO_KERNELS)
+    return watch.builds

@@ -35,6 +35,8 @@ writes the ring in the same launches.
 """
 from __future__ import annotations
 
+# contract: padded-n — reductions here are on the bitwise padding contract
+
 import functools
 from typing import Optional
 
@@ -44,6 +46,7 @@ from ..core import events, prng
 from ..core.buzen import ClassParams, NetworkParams
 from ..core.events import (DRAW_EVENTS, EventStats, finalize_stats, lane,
                            stack_lanes)  # noqa: F401  (re-exported)
+from ..kernels import build
 from ..obs.rings import event_ring_init
 from ..scenario.laws import get_law
 from .backend import resolve_backend
@@ -233,6 +236,9 @@ def build_class_lanes_fn(backend: str, num_updates: int, warmup: int,
 def _build_lanes_fn(kind, backend: str, num_updates: int, warmup: int,
                     distribution: str, m_max: int, has_power: bool,
                     chunk: int, trace_events: int):
+    build.runner_built(("class_lanes." if kind is ClassParams else "lanes.")
+                       + backend)
+
     def fn(lane_params, m_vec, keys, power):
         if not isinstance(lane_params, kind):
             raise TypeError(f"expected {kind.__name__} lanes, got "

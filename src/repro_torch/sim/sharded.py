@@ -32,6 +32,8 @@ a CPU run.
 """
 from __future__ import annotations
 
+# contract: padded-n — reductions here are on the bitwise padding contract
+
 import threading
 
 import torch

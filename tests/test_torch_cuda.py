@@ -2022,3 +2022,83 @@ def test_shard_sweep_on_the_card_bitwise_unsharded(cuda, monkeypatch, split,
     assert got.p.device == want.p.device and torch.equal(got.p, want.p)
     assert np.array_equal(got.values, want.values)
     assert got.best.m == want.best.m
+
+
+# -- the analysis gates on the card (repro_torch.analysis) --------------------
+
+@pytest.mark.parametrize("name,kernel", [
+    ("kernel_buzen", "buzen_batched"),
+    ("kernel_buzen_classes", "buzen_classes_batched"),
+    ("kernel_events", "event_step_lanes"),
+    ("kernel_events_megastep", "megastep_lanes")])
+def test_audit_kernel_programs_launch_their_kernel(cuda, name, kernel):
+    """The audit on ``cuda`` runs each kernel program through its wrapper
+    on the card: its kernel launches (once: the recorded run after the
+    warm one), and a kernel wrapper pulls nothing to the host."""
+    from repro_torch.analysis import audit
+
+    report = audit.build_report(names=[name], device="cuda")
+    entry = report["programs"][name]
+    assert report["device"].startswith("cuda")
+    assert entry["launches"] == {kernel: 1}
+    assert entry["host_syncs"]["count"] == 0 and entry["graph_capturable"]
+
+
+def test_cached_kernel_suite_repeat_builds_nothing(cuda):
+    """A ``kernel``-route suite run again (result cache) and with new
+    seeds through the shared caches (runner cache): no ``nvcc``, no runner
+    built, no Dynamo compile; the second launches the lane kernel."""
+    from repro_torch.analysis import tracecheck
+    from repro_torch.core.complexity import LearningConstants
+    from repro_torch.scenario import (EXPLICIT, LearningSpec, Scenario,
+                                      ScenarioSuite, StrategySpec,
+                                      SuiteCaches)
+
+    def suite(seeds, caches):
+        scns = {}
+        for i, n in enumerate((3, 4, 6)):
+            rng = np.random.default_rng(40 + i)
+            net = NetworkSpec(mu_c=rng.uniform(0.5, 6.0, n),
+                              mu_d=rng.uniform(0.5, 6.0, n),
+                              mu_u=rng.uniform(0.5, 6.0, n))
+            scns[f"n{n}"] = Scenario(
+                network=net, learning=LearningSpec(
+                    consts=LearningConstants(M=2.0, G=5.0)),
+                strategy=StrategySpec(EXPLICIT, p=rng.dirichlet(np.ones(n)),
+                                      m=n - 1))
+        return ScenarioSuite(scns, seeds=seeds, caches=caches, device=cuda)
+
+    caches = SuiteCaches()
+    first = suite((0, 1), caches)
+    with tracecheck.expect(max_programs=2,
+                           pattern=tracecheck.PLANNER_PROGRAMS) as w:
+        res = first.run(mode="simulate", num_updates=197, backend="kernel")
+    assert res.programs == 1 and w.launches.get("event_step_lanes", 0) > 0
+    with tracecheck.forbid("the same run again"):
+        again = first.run(mode="simulate", num_updates=197, backend="kernel")
+    assert again.cache_hits == 3
+    with tracecheck.forbid("new seeds through the shared caches") as w:
+        new = suite((2,), caches).run(mode="simulate", num_updates=197,
+                                      backend="kernel")
+    assert new.programs == 0 and w.launches.get("event_step_lanes", 0) > 0
+
+
+def test_audit_on_cuda_without_a_visible_card_fails(cuda):
+    """``audit --device cuda`` where no card is visible raises: no CPU
+    fallback."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [str(Path(__file__).resolve().parents[1] / "src")]
+                   + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "audit", "--device", "cuda", "--programs",
+                          "kernel_buzen"], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert out.returncode != 0
+    assert "CUDA device" in out.stderr
+    assert '"programs"' not in out.stdout

@@ -205,6 +205,54 @@ def test_analyze_rows_bitwise_alone(analyze_pair):
                                    rtol=1e-10, atol=1e-12)
 
 
+def _class_bucket(S, counts, energy):
+    """Class scenarios of ``counts[i]`` classes each, one analyze bucket
+    (all at m = 3, so every row's table is its own)."""
+    rng = np.random.default_rng(21)
+    scns = {}
+    for i, C in enumerate(counts):
+        cnt = rng.integers(1, 4, C)
+        kw = {}
+        if energy:
+            kw = dict(energy=S.EnergySpec(kappa=rng.uniform(0.1, 2, C),
+                                          P_u=rng.uniform(0.5, 3, C),
+                                          P_d=rng.uniform(0.5, 3, C)),
+                      objective=S.ObjectiveSpec("joint", rho=0.3))
+        scns[f"c{i}"] = S.Scenario(
+            network=S.NetworkSpec(classes=S.ClassSpec(
+                mu_c=rng.uniform(0.5, 3, C), mu_d=rng.uniform(2, 6, C),
+                mu_u=rng.uniform(2, 6, C), count=cnt.tolist())),
+            strategy=S.StrategySpec(
+                "explicit", p=rng.dirichlet(np.ones(C)) / cnt, m=3), **kw)
+    return scns
+
+
+@pytest.mark.parametrize("counts,energy", [((3, 3, 3), False),
+                                           ((3, 2), False),
+                                           ((2, 2), True)])
+def test_analyze_class_bucket_of_several_lanes(counts, energy):
+    """Queue 3 item 9: the class K_eps divided each lane's class row by
+    the stacked populations ``[L]`` broadcast along the class axis — wrong
+    values when L == C, an error otherwise.  Every row of a class bucket
+    must be bitwise its scenario alone and match the JAX suite."""
+    jscns = _class_bucket(J, counts, energy)
+    got = TS.ScenarioSuite(
+        {k: T.Scenario.from_dict(v.to_dict()) for k, v in jscns.items()},
+        device="cpu").run(mode="analyze")
+    want = JS.ScenarioSuite(jscns).run(mode="analyze")
+    assert got.programs == want.programs == 1
+    for name, scn in jscns.items():
+        solo = TS.ScenarioSuite({name: T.Scenario.from_dict(scn.to_dict())},
+                                device="cpu").run(mode="analyze")
+        for f in FIELDS:
+            assert got.entries[name][f] == solo.entries[name][f], (name, f)
+            if want.entries[name][f] is not None:
+                assert got.entries[name][f] == pytest.approx(
+                    want.entries[name][f], rel=1e-10), (name, f)
+        np.testing.assert_array_equal(got.entries[name]["delays"],
+                                      solo.entries[name]["delays"])
+
+
 def test_analyze_torch_and_kernel_routes_agree():
     """The bucket's one DP call on the ``kernel`` route (float32 forward,
     its plain version on CPU tensors) against ``torch``."""
